@@ -1,0 +1,70 @@
+"""Vectorized device math on torch tensors (counterpart of
+`raytracercuda_tpu/ops/math.py`).
+
+Packed colours are carried in int64: torch has little uint32 support, and
+``0x00RRGGBB`` fits exactly.  The bit pattern equals the JAX package's u32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..types import FLT_MAX
+
+
+def _to_u8(x: torch.Tensor) -> torch.Tensor:
+    # Clip, then truncate toward zero through int32 (the CUDA reference's
+    # u32 cast of a clamped value), widened to int64 for the shifts.
+    return torch.clamp(x, 0.0, 255.0).to(torch.int32).to(torch.int64)
+
+
+def pack_rgb(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float [0,1] channels -> packed ``0x00RRGGBB`` (int64)."""
+    return (_to_u8(r * 255.0) << 16) | (_to_u8(g * 255.0) << 8) | _to_u8(b * 255.0)
+
+
+def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
+    """Packed colour -> float ``[...,3]`` RGB in [0,1]."""
+    p = packed.to(torch.int64)
+    r = ((p >> 16) & 0xFF).to(torch.float32) / 255.0
+    g = ((p >> 8) & 0xFF).to(torch.float32) / 255.0
+    b = (p & 0xFF).to(torch.float32) / 255.0
+    return torch.stack([r, g, b], dim=-1)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product over the trailing axis, with the JAX package's term
+    order (``a1*b2 - a2*b1``, ...)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    n = torch.sqrt(torch.clamp(dot(v, v), min=eps))
+    return v / n[..., None]
+
+
+def tri_intersect(orig, direction, v0, v1, v2):
+    """Möller–Trumbore, broadcastable over ``[...,3]`` operands
+    (`bmTriIntersect`, `CudaComon.cuh:117-155`).  Returns ``(t, u, v)``
+    with ``t == FLT_MAX`` on miss; no positivity check on t."""
+    v0v1 = v1 - v0
+    v0v2 = v2 - v0
+    pvec = cross(direction, v0v2)
+    det = dot(v0v1, pvec)
+    inv_det = 1.0 / det
+    tvec = orig - v0
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, v0v1)
+    v = dot(direction, qvec) * inv_det
+    t = dot(v0v2, qvec) * inv_det
+    miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
+    miss = miss | torch.isnan(u) | torch.isnan(v) | torch.isnan(t)
+    t = torch.where(miss, torch.full_like(t, float(FLT_MAX)), t)
+    return t, u, v

@@ -1,0 +1,386 @@
+"""Tile sweeps: per-tile cluster lists, kernels A and B, and their plain
+versions (counterpart of `raytracercuda_tpu/trace/pallas_sweep.py`).
+
+Each 16x16 pixel tile gets the list of clusters that survive its cull, in
+ascending cluster id.  Kernel A (`csrc/sweep.cu`, replacing
+`pallas_sweep._primary_shade_kernel`) finds each ray's closest hit over
+the tile's clusters and interpolates the winner's attributes; kernel B
+(replacing `pallas_sweep._occlusion_cols_kernel`) answers any-hit along
+one light direction.  The rules that decide a result are the JAX
+kernels':
+
+  * a triangle misses when ``|det| < 1.1754944e-38`` or on the u/v window
+    tests, and, with ``t_eps``, when ``t < t_eps``;
+  * the winner is the smallest t, ties going to the first in ascending
+    (cluster, slot) order;
+  * a miss carries ``FLT_MAX``, slot 0 and zero attributes.
+
+Each wrapper runs its plain PyTorch version for tensors on the CPU and
+launches its CUDA kernel for tensors on a GPU; there is no fallback from
+one to the other.  ``launch_counts`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..accel.clusters import ClusterSet
+from ..config import TraceConfig
+from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
+from ..types import FLT_MAX
+from .dense import _cull_frustum
+from .occlusion_cull import beam_survive_matrix, swept_tile_beams_planar
+
+# Smallest normal float32: dets below this overflow 1/det to inf, which a
+# zero numerator turns into NaN t — treat as degenerate (miss).
+_DET_TINY = 1.1754944e-38
+
+#: Attribute columns of a shade block row: 0-8 v0|e1|e2, 9-17 vertex
+#: normals, 18-20 albedo, 21 texture id, 22-27 vertex uvs, 28
+#: reflectivity, 29-31 zero (rows of 128 bytes, whole 16-byte loads).
+SHADE_COLS = 32
+
+#: Kernel launches per wrapper, counted where the kernel is launched.
+launch_counts = {"primary_shade": 0, "occlusion": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Per-scene and per-frame operands.
+# ---------------------------------------------------------------------------
+
+
+def shade_segment_blocks(cs: ClusterSet, scene) -> tuple[torch.Tensor, bool]:
+    """``[C, G, 32]`` float32 shade blocks, one row per sorted slot, in
+    the JAX package's column order (see ``SHADE_COLS``).  Padded slots
+    carry zero geometry (they miss every ray) and zero attributes; their
+    texture id column is the JAX package's, taken from face 0's material.
+    Built once per scene."""
+    c, g = cs.num_clusters, cs.cluster_size
+    order = cs.face_order.clamp(min=0)
+    f = scene.faces[order]  # [C*G, 4]
+    pad_ok = (cs.face_order >= 0)[:, None].to(torch.float32)
+
+    n = scene.attrs[VERTEX_DATA_NORMAL]
+    tris = cs.tris.reshape(c * g, 9)
+    v0 = tris[:, 0:3]
+    cols = [v0, tris[:, 3:6] - v0, tris[:, 6:9] - v0]
+    cols.append(torch.cat([n[f[:, 0]], n[f[:, 1]], n[f[:, 2]]], 1) * pad_ok)
+    mat = scene.mesh_material[f[:, 3]]
+    cols.append(scene.albedo[mat] * pad_ok)
+    cols.append(scene.texture_id[mat].to(torch.float32)[:, None])
+    has_uv = VERTEX_DATA_UV1 in scene.attrs
+    zeros = torch.zeros((c * g, 6), dtype=torch.float32, device=tris.device)
+    if has_uv:
+        uv = scene.attrs[VERTEX_DATA_UV1]
+        cols.append(torch.cat([uv[f[:, 0], :2], uv[f[:, 1], :2],
+                               uv[f[:, 2], :2]], 1) * pad_ok)
+    else:
+        cols.append(zeros)
+    if scene.reflectivity is not None:
+        cols.append(scene.reflectivity[mat][:, None] * pad_ok)
+    else:
+        cols.append(zeros[:, :1])
+    cols.append(zeros[:, : SHADE_COLS - 29])
+    return torch.cat(cols, dim=1).reshape(c, g, SHADE_COLS).contiguous(), has_uv
+
+
+def tile_planes_planar(d3_tiles: torch.Tensor, tile_px: int) -> torch.Tensor:
+    """Inward bounding planes ``[T, 5, 3]`` of each planar ``[T, 3, R]``
+    direction tile's pinhole beam: four corner planes and the mean
+    direction (which rejects geometry behind the eye)."""
+    from ..ops.math import cross
+
+    rays_per_tile = tile_px * tile_px
+    c00 = d3_tiles[:, :, 0]
+    c01 = d3_tiles[:, :, tile_px - 1]
+    c10 = d3_tiles[:, :, (tile_px - 1) * tile_px]
+    c11 = d3_tiles[:, :, rays_per_tile - 1]
+    mean_dir = d3_tiles.mean(dim=2)
+
+    def plane(a, b):
+        n = cross(a, b)
+        s = torch.sign(torch.sum(n * mean_dir, dim=-1, keepdim=True))
+        return n * torch.where(s == 0, 1.0, s)
+
+    return torch.stack(
+        [plane(c00, c01), plane(c01, c11), plane(c11, c10), plane(c10, c00),
+         mean_dir], dim=1)
+
+
+class TileLists(NamedTuple):
+    """Per-tile cluster lists in CSR form: tile ``t`` sweeps clusters
+    ``ids[offsets[t]:offsets[t+1]]``, ascending."""
+
+    counts: torch.Tensor  # [T] int32
+    offsets: torch.Tensor  # [T+1] int32
+    ids: torch.Tensor  # [N] int32
+
+
+def _tile_lists(survive: torch.Tensor) -> TileLists:
+    """Compact the ``[T, C]`` survive mask into per-tile lists.
+
+    Row-major ``nonzero`` yields each tile's ids in ascending order, with
+    no cap on a tile's count.  It waits for the device, since the number
+    of survivors sizes its output: a sync in the middle of every frame
+    that a later change should remove (for example a fixed-capacity list
+    written by a kernel)."""
+    counts = survive.sum(dim=1, dtype=torch.int32)
+    offsets = torch.zeros(survive.shape[0] + 1, dtype=torch.int32,
+                          device=survive.device)
+    offsets[1:] = torch.cumsum(counts, dim=0)
+    ids = survive.nonzero()[:, 1].to(torch.int32)
+    return TileLists(counts=counts, offsets=offsets, ids=ids)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the kernels.
+# ---------------------------------------------------------------------------
+
+
+def _mt_cols(tri, ox, oy, oz, dx, dy, dz, t_eps):
+    """Möller–Trumbore with candidates on dim 1 (``[n,G,1]`` v0|e1|e2
+    columns) and rays on dim 2 -> t/u/v ``[n,G,R]``; the op order of
+    `pallas_sweep._mt_cols`."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = 1.0 / det
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
+    miss = miss | (det.abs() < _DET_TINY)
+    if t_eps is not None:
+        miss = miss | (t < t_eps)
+    return torch.where(miss, float(FLT_MAX), t), u, v
+
+
+def _listed_blocks(lists: TileLists, blocks: torch.Tensor, r: int):
+    """Tiles with more than ``r`` clusters, and their ``r``-th cluster's
+    v0|e1|e2 columns as nine ``[n, G, 1]`` tensors."""
+    tiles = (lists.counts > r).nonzero()[:, 0]
+    cid = lists.ids[lists.offsets[tiles].long() + r].long()
+    blk = blocks[cid]
+    return tiles, cid, tuple(blk[:, :, k:k + 1] for k in range(9))
+
+
+def _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl):
+    """The winner's interpolated attributes, as kernel A computes them
+    (`pallas_sweep.py:673-685`); zeros where nothing was hit."""
+    row = blocks.reshape(-1, SHADE_COLS)[bs.long()]  # [T,R,32]
+    hit = bt < FLT_MAX
+
+    def col(k):
+        return row[..., k]
+
+    w_ = 1.0 - bu - bv
+    outs = [col(9 + k) * w_ + col(12 + k) * bu + col(15 + k) * bv
+            for k in range(3)]
+    outs += [col(18 + k) for k in range(3)]
+    if has_uv:
+        outs.append(col(21))
+        outs.append(col(22) * w_ + col(24) * bu + col(26) * bv)
+        outs.append(col(23) * w_ + col(25) * bu + col(27) * bv)
+    if with_refl:
+        outs.append(col(28))
+    return [torch.where(hit, o, 0.0) for o in outs]
+
+
+def _primary_shade_plain(lists, eye, d3_tiles, blocks, has_uv, with_refl,
+                         t_eps):
+    """Plain version of kernel A: every listed cluster of a tile at once
+    as a ``[G, R]`` rectangle, first minimum within the cluster, strict
+    ``<`` across clusters (`pallas_sweep.py:664-692`)."""
+    num_tiles, _, R = d3_tiles.shape
+    g = blocks.shape[1]
+    dev = d3_tiles.device
+    bt = torch.full((num_tiles, R), float(FLT_MAX), device=dev)
+    bs = torch.zeros((num_tiles, R), dtype=torch.int32, device=dev)
+    bu = torch.zeros((num_tiles, R), device=dev)
+    bv = torch.zeros((num_tiles, R), device=dev)
+    ox, oy, oz = eye[0], eye[1], eye[2]
+    d = d3_tiles[:, :, None, :]  # [T,3,1,R]
+    max_count = int(lists.counts.max()) if num_tiles else 0
+    for r in range(max_count):
+        tiles, cid, tri = _listed_blocks(lists, blocks, r)
+        dt = d[tiles]
+        t, u, v = _mt_cols(tri, ox, oy, oz, dt[:, 0], dt[:, 1], dt[:, 2],
+                           t_eps)
+        t_blk, j = t.min(dim=1)  # first minimum over the cluster's slots
+        better = t_blk < bt[tiles]
+        jj = j[:, None, :]
+        bt[tiles] = torch.where(better, t_blk, bt[tiles])
+        bs[tiles] = torch.where(better, (cid[:, None] * g + j).to(torch.int32),
+                                bs[tiles])
+        bu[tiles] = torch.where(better, u.gather(1, jj)[:, 0], bu[tiles])
+        bv[tiles] = torch.where(better, v.gather(1, jj)[:, 0], bv[tiles])
+    attrs = _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl)
+    return (bt, bs, bu, bv, *attrs)
+
+
+def _occlusion_plain(lists, light, o3_tiles, active, blocks, t_eps):
+    """Plain version of kernel B: any hit along ``light`` from each active
+    ray's origin over its tile's listed clusters."""
+    occ = torch.zeros(active.shape, dtype=torch.bool, device=active.device)
+    dx, dy, dz = light[0], light[1], light[2]
+    o = o3_tiles[:, :, None, :]  # [T,3,1,R]
+    max_count = int(lists.counts.max()) if active.shape[0] else 0
+    for r in range(max_count):
+        tiles, _, tri = _listed_blocks(lists, blocks, r)
+        ot = o[tiles]
+        t, _, _ = _mt_cols(tri, ot[:, 0], ot[:, 1], ot[:, 2], dx, dy, dz,
+                           t_eps)
+        occ[tiles] |= (t < FLT_MAX).any(dim=1)
+    return occ & active
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches (kernels in `csrc/sweep.cu`).
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name, x, device, dtype, shape):
+    if x.device != device or device.type != "cuda" or x.dtype != dtype \
+            or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous CUDA {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device} (contiguous={x.is_contiguous()})")
+
+
+def _check_lists(lists: TileLists, device, num_tiles: int):
+    _check_cuda("counts", lists.counts, device, torch.int32, (num_tiles,))
+    _check_cuda("offsets", lists.offsets, device, torch.int32,
+                (num_tiles + 1,))
+    _check_cuda("ids", lists.ids, device, torch.int32, (lists.ids.numel(),))
+
+
+def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
+                        t_eps):
+    """Launch kernel A; outputs as in `_primary_shade_plain`."""
+    from ..ops.cuda_build import load_library
+
+    num_tiles, _, R = d3_tiles.shape
+    c, g = blocks.shape[0], blocks.shape[1]
+    dev = d3_tiles.device
+    _check_lists(lists, dev, num_tiles)
+    _check_cuda("eye", eye, dev, torch.float32, (3,))
+    _check_cuda("d3_tiles", d3_tiles, dev, torch.float32, (num_tiles, 3, R))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
+    n_f = (12 if has_uv else 9) + (1 if with_refl else 0)
+    out_f = torch.empty((n_f, num_tiles, R), dtype=torch.float32, device=dev)
+    out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    lib = load_library()
+    err = lib.rt_primary_shade(
+        lists.offsets.data_ptr(), lists.ids.data_ptr(), eye.data_ptr(),
+        d3_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R, g,
+        int(has_uv), int(with_refl), int(t_eps is not None),
+        0.0 if t_eps is None else float(t_eps),
+        out_f.data_ptr(), out_slot.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel A launch failed: CUDA error {err}")
+    launch_counts["primary_shade"] += 1
+    return (out_f[0], out_slot, *out_f[1:])
+
+
+def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
+    """Launch kernel B; output as in `_occlusion_plain`."""
+    from ..ops.cuda_build import load_library
+
+    num_tiles, _, R = o3_tiles.shape
+    c, g = blocks.shape[0], blocks.shape[1]
+    dev = o3_tiles.device
+    _check_lists(lists, dev, num_tiles)
+    _check_cuda("light", light, dev, torch.float32, (3,))
+    _check_cuda("o3_tiles", o3_tiles, dev, torch.float32, (num_tiles, 3, R))
+    _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
+    act = active.to(torch.int32)
+    occ = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    lib = load_library()
+    err = lib.rt_occlusion(
+        lists.offsets.data_ptr(), lists.ids.data_ptr(), light.data_ptr(),
+        o3_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles,
+        R, g, float(t_eps), occ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel B launch failed: CUDA error {err}")
+    launch_counts["occlusion"] += 1
+    return occ > 0
+
+
+def _pick(x: torch.Tensor, plain, cuda):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type == "cuda":
+        return cuda
+    raise ValueError(f"no sweep kernel for tensors on {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Entry points.
+# ---------------------------------------------------------------------------
+
+
+def trace_shade_tiles_planar(
+    cs: ClusterSet,
+    shade_blocks: torch.Tensor,
+    has_uv: bool,
+    eye: torch.Tensor,
+    d3_tiles: torch.Tensor,
+    tile_px: int = 16,
+    trace_cfg: TraceConfig = TraceConfig(),
+    with_refl: bool = False,
+):
+    """Closest hit plus interpolated attributes on planar ``[T, 3, R]``
+    direction tiles from the common origin ``eye``.
+
+    Returns planar ``[T, R]`` tensors ``(t, slot, u, v, nx, ny, nz, ar,
+    ag, ab[, tex, tu, tv][, refl])``; slot is int32, the rest float32."""
+    t_eps = np.float32(trace_cfg.t_epsilon) if trace_cfg.clip_backward_hits \
+        else None
+    planes = tile_planes_planar(d3_tiles, tile_px)
+    lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
+    run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
+    return run(lists, eye.to(torch.float32).contiguous(),
+                          d3_tiles.contiguous(), shade_blocks, has_uv,
+                          with_refl, t_eps)
+
+
+def occlusion_tiles_planar(
+    cs: ClusterSet,
+    shade_blocks: torch.Tensor,
+    o3_tiles: torch.Tensor,
+    light_dir: torch.Tensor,
+    a_tiles: torch.Tensor,
+    tile_px: int = 16,
+    trace_cfg: TraceConfig = TraceConfig(),
+) -> torch.Tensor:
+    """Directional-light any-hit on planar tiles: ``o3_tiles [T,3,R]`` +
+    ``a_tiles [T,R]`` bool -> ``[T,R]`` bool occlusion, false where
+    inactive.  The lists come from the swept-beam cull; the sweep runs
+    along ``beam.l``, the light direction that `light_basis`
+    re-normalises."""
+    beam = swept_tile_beams_planar(o3_tiles, a_tiles, light_dir)
+    lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
+    run = _pick(o3_tiles, _occlusion_plain, _occlusion_cuda)
+    occ = run(lists, beam.l.to(torch.float32).contiguous(),
+                     o3_tiles.contiguous(), a_tiles.contiguous(),
+                     shade_blocks, np.float32(trace_cfg.t_epsilon))
+    return occ & a_tiles

@@ -1,0 +1,30 @@
+"""Core SoA value types for the PyTorch port.
+
+Counterpart of `raytracercuda_tpu/types.py`: rays are ``[R,3]`` bundles,
+hit records are flat ``[R]`` component tensors, and faces are rows of an
+``[F,4]`` int table (3 vertex indices + mesh index).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+# The reference's miss sentinel (`CudaComon.cuh:143,147`).  A numpy scalar,
+# as in the JAX package, so that it mixes with tensors of any device.
+FLT_MAX = np.float32(3.4028234663852886e38)
+
+
+class Hit(NamedTuple):
+    """Closest-hit record: ``t`` is FLT_MAX on miss, ``face`` is -1."""
+
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    face: torch.Tensor  # int32 face id into the scene's flattened face table
+
+    @property
+    def hit_mask(self) -> torch.Tensor:
+        return self.face >= 0
