@@ -10,7 +10,7 @@ dense sweep (`origin_consts`/`direction_consts`) are not part of the port.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,6 +29,14 @@ class ClusterSet(NamedTuple):
     tris: torch.Tensor
     #: [C*L] int64 — original face id per sorted slot (-1 for padding).
     face_order: torch.Tensor
+    #: [C, L, 9] float32 or None — v0 | e1 | e2 rows (e = v - v0), the
+    #: geometry-only operand of kernels C and H (`sweep.segment_blocks`),
+    #: cached at build time so frames never rebuild it.
+    tri_blocks: Optional[torch.Tensor] = None
+    #: [F] int64 or None — inverse of ``face_order``: original face id ->
+    #: sorted slot.  The differentiable route builds its row table in slot
+    #: order with it (`diff/render_grad._rows_recompute_shade`).
+    face_rank: Optional[torch.Tensor] = None
 
     @property
     def num_clusters(self) -> int:
@@ -37,6 +45,13 @@ class ClusterSet(NamedTuple):
     @property
     def cluster_size(self) -> int:
         return self.tris.shape[1]
+
+
+def edge_rows(tris: torch.Tensor) -> torch.Tensor:
+    """``[..., 9]`` v0 | v1 | v2 -> v0 | v1 - v0 | v2 - v0, the same float32
+    subtractions the JAX package's `segment_blocks` makes."""
+    v0 = tris[..., 0:3]
+    return torch.cat([v0, tris[..., 3:6] - v0, tris[..., 6:9] - v0], dim=-1)
 
 
 def build_clusters(positions: torch.Tensor, faces: torch.Tensor,
@@ -74,6 +89,9 @@ def build_clusters(positions: torch.Tensor, faces: torch.Tensor,
         num_clusters, L, 3).amin(dim=1)
     cmax = padded(tri_max[order], float("-inf")).reshape(
         num_clusters, L, 3).amax(dim=1)
-    return ClusterSet(cmin=cmin, cmax=cmax,
-                      tris=tris.reshape(num_clusters, L, 9),
-                      face_order=face_order)
+    tris = tris.reshape(num_clusters, L, 9)
+    face_rank = torch.empty_like(order)
+    face_rank[order] = torch.arange(num_faces, device=order.device)
+    return ClusterSet(cmin=cmin, cmax=cmax, tris=tris, face_order=face_order,
+                      tri_blocks=edge_rows(tris).contiguous(),
+                      face_rank=face_rank)

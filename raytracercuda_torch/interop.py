@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .accel.clusters import ClusterSet
+from .accel.clusters import ClusterSet, edge_rows
 from .models.scene import SceneData
 
 
@@ -39,11 +39,16 @@ def scene_from_numpy(positions, faces, attrs, mesh_material, albedo,
     )
 
 
-def cluster_set_from_numpy(cmin, cmax, tris, face_order, *,
+def cluster_set_from_numpy(cmin, cmax, tris, face_order, face_rank=None, *,
                            device: torch.device | str = "cpu") -> ClusterSet:
     """A port `ClusterSet` from a JAX `ClusterSet`'s cluster boxes, sorted
-    triangles and slot -> face table."""
+    triangles, slot -> face table and (when it has one) face -> slot
+    table.  The geometry rows of kernels C and H are derived here."""
+    tris = _tensor(tris, device, np.float32)
     return ClusterSet(cmin=_tensor(cmin, device, np.float32),
                       cmax=_tensor(cmax, device, np.float32),
-                      tris=_tensor(tris, device, np.float32),
-                      face_order=_tensor(face_order, device, np.int64))
+                      tris=tris,
+                      face_order=_tensor(face_order, device, np.int64),
+                      tri_blocks=edge_rows(tris).contiguous(),
+                      face_rank=None if face_rank is None
+                      else _tensor(face_rank, device, np.int64))

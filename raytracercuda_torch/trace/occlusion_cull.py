@@ -39,6 +39,27 @@ def box_interval(bmin: torch.Tensor, bmax: torch.Tensor, axis: torch.Tensor):
     return pc - ph, pc + ph
 
 
+def _beam(omin, omax, tile_any, light_dir) -> SweptBeam:
+    u_ax, v_ax, l = light_basis(light_dir)
+    ou_lo, ou_hi = box_interval(omin, omax, u_ax)
+    ov_lo, ov_hi = box_interval(omin, omax, v_ax)
+    ol_lo, _ = box_interval(omin, omax, l)
+    return SweptBeam(u_ax=u_ax, v_ax=v_ax, l=l, ou_lo=ou_lo, ou_hi=ou_hi,
+                     ov_lo=ov_lo, ov_hi=ov_hi, ol_lo=ol_lo,
+                     tile_any=tile_any)
+
+
+def swept_tile_beams(o_tiles: torch.Tensor, a_tiles: torch.Tensor,
+                     light_dir: torch.Tensor) -> SweptBeam:
+    """Per-tile beams from row-major ``[T, R, 3]`` origins + ``[T, R]``
+    bool active."""
+    big = 3.0e37
+    act = a_tiles[..., None]
+    omin = torch.where(act, o_tiles, big).amin(dim=1)  # [T,3]
+    omax = torch.where(act, o_tiles, -big).amax(dim=1)
+    return _beam(omin, omax, a_tiles.any(dim=1), light_dir)
+
+
 def swept_tile_beams_planar(o3_tiles: torch.Tensor, a_tiles: torch.Tensor,
                             light_dir: torch.Tensor) -> SweptBeam:
     """Per-tile beams from planar ``[T, 3, R]`` origins + ``[T, R]`` bool
@@ -47,14 +68,7 @@ def swept_tile_beams_planar(o3_tiles: torch.Tensor, a_tiles: torch.Tensor,
     act = a_tiles[:, None, :]
     omin = torch.where(act, o3_tiles, big).amin(dim=2)  # [T,3]
     omax = torch.where(act, o3_tiles, -big).amax(dim=2)
-    tile_any = a_tiles.any(dim=1)
-    u_ax, v_ax, l = light_basis(light_dir)
-    ou_lo, ou_hi = box_interval(omin, omax, u_ax)
-    ov_lo, ov_hi = box_interval(omin, omax, v_ax)
-    ol_lo, _ = box_interval(omin, omax, l)
-    return SweptBeam(u_ax=u_ax, v_ax=v_ax, l=l, ou_lo=ou_lo, ou_hi=ou_hi,
-                     ov_lo=ov_lo, ov_hi=ov_hi, ol_lo=ol_lo,
-                     tile_any=tile_any)
+    return _beam(omin, omax, a_tiles.any(dim=1), light_dir)
 
 
 def beam_survive_matrix(beam: SweptBeam, cmin: torch.Tensor,

@@ -1,13 +1,21 @@
-"""Tile sweeps: per-tile cluster lists, kernels A and B, and their plain
-versions (counterpart of `raytracercuda_tpu/trace/pallas_sweep.py`).
+"""Tile sweeps: per-tile cluster lists, kernels A, B, C and H, and their
+plain versions (counterpart of `raytracercuda_tpu/trace/pallas_sweep.py`).
 
 Each 16x16 pixel tile gets the list of clusters that survive its cull, in
-ascending cluster id.  Kernel A (`csrc/sweep.cu`, replacing
-`pallas_sweep._primary_shade_kernel`) finds each ray's closest hit over
-the tile's clusters and interpolates the winner's attributes; kernel B
-(replacing `pallas_sweep._occlusion_cols_kernel`) answers any-hit along
-one light direction.  The rules that decide a result are the JAX
-kernels':
+ascending cluster id.  The kernels live in `csrc/sweep.cu`:
+
+  * A (replacing `pallas_sweep._primary_shade_kernel`) finds each ray's
+    closest hit over the tile's clusters and interpolates the winner's
+    attributes, on planar ``[T, 3, R]`` directions;
+  * B (replacing `pallas_sweep._occlusion_cols_kernel`) answers any-hit
+    along one light direction from planar per-ray origins;
+  * C (replacing `pallas_sweep._primary_kernel`) is A without the
+    attributes, on row-major ``[T, R, 3]`` directions and geometry-only
+    rows: t, u, v and the winning slot, for the differentiable route;
+  * H (replacing `pallas_sweep._occlusion_kernel`) is B on row-major
+    ``[T, R, 3]`` origins and geometry-only rows.
+
+The rules that decide a result are the JAX kernels':
 
   * a triangle misses when ``|det| < 1.1754944e-38`` or on the u/v window
     tests, and, with ``t_eps``, when ``t < t_eps``;
@@ -27,12 +35,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..accel.clusters import ClusterSet
+from ..accel.clusters import ClusterSet, edge_rows
 from ..config import TraceConfig
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
-from ..types import FLT_MAX
-from .dense import _cull_frustum
-from .occlusion_cull import beam_survive_matrix, swept_tile_beams_planar
+from ..types import FLT_MAX, Hit
+from .dense import (
+    _cull_frustum,
+    frustum_planes,
+    tile_frustum_planes,
+    tile_pixels,
+    untile_pixels,
+)
+from .occlusion_cull import (
+    beam_survive_matrix,
+    swept_tile_beams,
+    swept_tile_beams_planar,
+)
 
 # Smallest normal float32: dets below this overflow 1/det to inf, which a
 # zero numerator turns into NaN t — treat as degenerate (miss).
@@ -43,8 +61,12 @@ _DET_TINY = 1.1754944e-38
 #: reflectivity, 29-31 zero (rows of 128 bytes, whole 16-byte loads).
 SHADE_COLS = 32
 
+#: Columns of a geometry-only row (kernels C and H): v0 | e1 | e2.
+GEOM_COLS = 9
+
 #: Kernel launches per wrapper, counted where the kernel is launched.
-launch_counts = {"primary_shade": 0, "occlusion": 0}
+launch_counts = {"primary_shade": 0, "occlusion": 0, "primary": 0,
+                 "occlusion_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +77,15 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # Per-scene and per-frame operands.
 # ---------------------------------------------------------------------------
+
+
+def segment_blocks(cs: ClusterSet) -> torch.Tensor:
+    """``[C, G, 9]`` float32 geometry rows (v0 | e1 | e2 per sorted slot),
+    kernels C and H's operand: the cluster set's cached copy, or built
+    from its triangles."""
+    if cs.tri_blocks is not None:
+        return cs.tri_blocks
+    return edge_rows(cs.tris).contiguous()
 
 
 def shade_segment_blocks(cs: ClusterSet, scene) -> tuple[torch.Tensor, bool]:
@@ -96,23 +127,10 @@ def tile_planes_planar(d3_tiles: torch.Tensor, tile_px: int) -> torch.Tensor:
     """Inward bounding planes ``[T, 5, 3]`` of each planar ``[T, 3, R]``
     direction tile's pinhole beam: four corner planes and the mean
     direction (which rejects geometry behind the eye)."""
-    from ..ops.math import cross
-
-    rays_per_tile = tile_px * tile_px
-    c00 = d3_tiles[:, :, 0]
-    c01 = d3_tiles[:, :, tile_px - 1]
-    c10 = d3_tiles[:, :, (tile_px - 1) * tile_px]
-    c11 = d3_tiles[:, :, rays_per_tile - 1]
-    mean_dir = d3_tiles.mean(dim=2)
-
-    def plane(a, b):
-        n = cross(a, b)
-        s = torch.sign(torch.sum(n * mean_dir, dim=-1, keepdim=True))
-        return n * torch.where(s == 0, 1.0, s)
-
-    return torch.stack(
-        [plane(c00, c01), plane(c01, c11), plane(c11, c10), plane(c10, c00),
-         mean_dir], dim=1)
+    r = tile_px * tile_px
+    return frustum_planes(d3_tiles[:, :, 0], d3_tiles[:, :, tile_px - 1],
+                          d3_tiles[:, :, r - tile_px], d3_tiles[:, :, r - 1],
+                          d3_tiles.mean(dim=2))
 
 
 class TileLists(NamedTuple):
@@ -200,11 +218,11 @@ def _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl):
     return [torch.where(hit, o, 0.0) for o in outs]
 
 
-def _primary_shade_plain(lists, eye, d3_tiles, blocks, has_uv, with_refl,
-                         t_eps):
-    """Plain version of kernel A: every listed cluster of a tile at once
-    as a ``[G, R]`` rectangle, first minimum within the cluster, strict
-    ``<`` across clusters (`pallas_sweep.py:664-692`)."""
+def _closest_plain(lists, eye, d3_tiles, blocks, t_eps):
+    """Closest hit of each ray of planar ``[T, 3, R]`` direction tiles:
+    every listed cluster of a tile at once as a ``[G, R]`` rectangle,
+    first minimum within the cluster, strict ``<`` across clusters
+    (`pallas_sweep.py:664-692`).  Returns ``(t, slot, u, v)`` ``[T, R]``."""
     num_tiles, _, R = d3_tiles.shape
     g = blocks.shape[1]
     dev = d3_tiles.device
@@ -228,8 +246,24 @@ def _primary_shade_plain(lists, eye, d3_tiles, blocks, has_uv, with_refl,
                                 bs[tiles])
         bu[tiles] = torch.where(better, u.gather(1, jj)[:, 0], bu[tiles])
         bv[tiles] = torch.where(better, v.gather(1, jj)[:, 0], bv[tiles])
+    return bt, bs, bu, bv
+
+
+def _primary_shade_plain(lists, eye, d3_tiles, blocks, has_uv, with_refl,
+                         t_eps):
+    """Plain version of kernel A: `_closest_plain` on the shade blocks,
+    then the winner's attributes."""
+    bt, bs, bu, bv = _closest_plain(lists, eye, d3_tiles, blocks, t_eps)
     attrs = _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl)
     return (bt, bs, bu, bv, *attrs)
+
+
+def _primary_plain(lists, eye, d_tiles, blocks, t_eps):
+    """Plain version of kernel C: ``(t, u, v, slot)`` ``[T, R]`` for
+    row-major ``[T, R, 3]`` direction tiles over geometry rows."""
+    bt, bs, bu, bv = _closest_plain(lists, eye, d_tiles.transpose(1, 2),
+                                    blocks, t_eps)
+    return bt, bu, bv, bs
 
 
 def _occlusion_plain(lists, light, o3_tiles, active, blocks, t_eps):
@@ -246,6 +280,13 @@ def _occlusion_plain(lists, light, o3_tiles, active, blocks, t_eps):
                            t_eps)
         occ[tiles] |= (t < FLT_MAX).any(dim=1)
     return occ & active
+
+
+def _occlusion_rows_plain(lists, light, o_tiles, active, blocks, t_eps):
+    """Plain version of kernel H: `_occlusion_plain` on row-major
+    ``[T, R, 3]`` origins."""
+    return _occlusion_plain(lists, light, o_tiles.transpose(1, 2), active,
+                            blocks, t_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -324,18 +365,73 @@ def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
     return occ > 0
 
 
+def _primary_cuda(lists, eye, d_tiles, blocks, t_eps):
+    """Launch kernel C; outputs as in `_primary_plain`."""
+    from ..ops.cuda_build import load_library
+
+    num_tiles, R, _ = d_tiles.shape
+    c, g = blocks.shape[0], blocks.shape[1]
+    dev = d_tiles.device
+    _check_lists(lists, dev, num_tiles)
+    _check_cuda("eye", eye, dev, torch.float32, (3,))
+    _check_cuda("d_tiles", d_tiles, dev, torch.float32, (num_tiles, R, 3))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
+    out_f = torch.empty((3, num_tiles, R), dtype=torch.float32, device=dev)
+    out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    err = load_library().rt_primary(
+        lists.offsets.data_ptr(), lists.ids.data_ptr(), eye.data_ptr(),
+        d_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R, g,
+        int(t_eps is not None), 0.0 if t_eps is None else float(t_eps),
+        out_f.data_ptr(), out_slot.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel C launch failed: CUDA error {err}")
+    launch_counts["primary"] += 1
+    return out_f[0], out_f[1], out_f[2], out_slot
+
+
+def _occlusion_rows_cuda(lists, light, o_tiles, active, blocks, t_eps):
+    """Launch kernel H; output as in `_occlusion_rows_plain`."""
+    from ..ops.cuda_build import load_library
+
+    num_tiles, R, _ = o_tiles.shape
+    c, g = blocks.shape[0], blocks.shape[1]
+    dev = o_tiles.device
+    _check_lists(lists, dev, num_tiles)
+    _check_cuda("light", light, dev, torch.float32, (3,))
+    _check_cuda("o_tiles", o_tiles, dev, torch.float32, (num_tiles, R, 3))
+    _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
+    act = active.to(torch.int32)
+    occ = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    err = load_library().rt_occlusion_rows(
+        lists.offsets.data_ptr(), lists.ids.data_ptr(), light.data_ptr(),
+        o_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles,
+        R, g, float(t_eps), occ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel H launch failed: CUDA error {err}")
+    launch_counts["occlusion_rows"] += 1
+    return occ > 0
+
+
 def _pick(x: torch.Tensor, plain, cuda):
     """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return plain
     if x.device.type == "cuda":
         return cuda
-    raise ValueError(f"no sweep kernel for tensors on {x.device}")
+    raise ValueError(f"no kernel for tensors on {x.device}")
 
 
 # ---------------------------------------------------------------------------
 # Entry points.
 # ---------------------------------------------------------------------------
+
+
+def _t_eps(trace_cfg: TraceConfig):
+    return (np.float32(trace_cfg.t_epsilon) if trace_cfg.clip_backward_hits
+            else None)
 
 
 def trace_shade_tiles_planar(
@@ -353,14 +449,12 @@ def trace_shade_tiles_planar(
 
     Returns planar ``[T, R]`` tensors ``(t, slot, u, v, nx, ny, nz, ar,
     ag, ab[, tex, tu, tv][, refl])``; slot is int32, the rest float32."""
-    t_eps = np.float32(trace_cfg.t_epsilon) if trace_cfg.clip_backward_hits \
-        else None
     planes = tile_planes_planar(d3_tiles, tile_px)
     lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
     run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
     return run(lists, eye.to(torch.float32).contiguous(),
-                          d3_tiles.contiguous(), shade_blocks, has_uv,
-                          with_refl, t_eps)
+               d3_tiles.contiguous(), shade_blocks, has_uv, with_refl,
+               _t_eps(trace_cfg))
 
 
 def occlusion_tiles_planar(
@@ -381,6 +475,95 @@ def occlusion_tiles_planar(
     lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
     run = _pick(o3_tiles, _occlusion_plain, _occlusion_cuda)
     occ = run(lists, beam.l.to(torch.float32).contiguous(),
-                     o3_tiles.contiguous(), a_tiles.contiguous(),
-                     shade_blocks, np.float32(trace_cfg.t_epsilon))
+              o3_tiles.contiguous(), a_tiles.contiguous(), shade_blocks,
+              np.float32(trace_cfg.t_epsilon))
     return occ & a_tiles
+
+
+def trace_tiles(
+    cs: ClusterSet,
+    tri_blocks: torch.Tensor,
+    eye: torch.Tensor,
+    d_tiles: torch.Tensor,
+    tile_px: int = 16,
+    trace_cfg: TraceConfig = TraceConfig(),
+) -> Hit:
+    """Closest hit on row-major ``[T, R, 3]`` direction tiles from the
+    common origin ``eye`` -> `Hit` with ``[T*R]`` fields in tile order;
+    ``face`` is the winner's original face id (int32), -1 on a miss.
+    ``tri_blocks`` is `segment_blocks(cs)`."""
+    planes = tile_frustum_planes(d_tiles, tile_px)
+    lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
+    run = _pick(d_tiles, _primary_plain, _primary_cuda)
+    bt, bu, bv, bs = (x.reshape(-1) for x in run(
+        lists, eye.to(torch.float32).contiguous(), d_tiles.contiguous(),
+        tri_blocks, _t_eps(trace_cfg)))
+    # A miss already carries FLT_MAX, u = v = 0 and slot 0.
+    face = torch.where(bt < FLT_MAX, cs.face_order[bs.long()], -1)
+    return Hit(t=bt, u=bu, v=bv, face=face.to(torch.int32))
+
+
+def trace_dense(
+    cs: ClusterSet,
+    tri_blocks: torch.Tensor,
+    eye: torch.Tensor,
+    dirs: torch.Tensor,
+    height: int,
+    width: int,
+    tile_px: int = 16,
+    trace_cfg: TraceConfig = TraceConfig(),
+) -> Hit:
+    """Closest hit for a pinhole frame: row-major ``[H*W, 3]`` directions
+    in, row-major ``[H*W]`` `Hit` fields out."""
+    d_tiles = tile_pixels(dirs, height, width, tile_px)
+    hit = trace_tiles(cs, tri_blocks, eye, d_tiles, tile_px, trace_cfg)
+    num_tiles = d_tiles.shape[0]
+
+    def unt(x):
+        return untile_pixels(x.reshape(num_tiles, -1), height, width,
+                             tile_px)
+
+    return Hit(t=unt(hit.t), u=unt(hit.u), v=unt(hit.v), face=unt(hit.face))
+
+
+def occlusion_tiles(
+    cs: ClusterSet,
+    tri_blocks: torch.Tensor,
+    o_tiles: torch.Tensor,
+    light_dir: torch.Tensor,
+    a_tiles: torch.Tensor,
+    tile_px: int = 16,
+    trace_cfg: TraceConfig = TraceConfig(),
+) -> torch.Tensor:
+    """Directional-light any-hit on row-major tiles: ``o_tiles [T,R,3]`` +
+    ``a_tiles [T,R]`` bool -> ``[T*R]`` bool in tile order, false where
+    inactive.  Always clipped at ``t_epsilon``; the sweep runs along
+    ``beam.l``, the light direction that `light_basis` re-normalises."""
+    beam = swept_tile_beams(o_tiles, a_tiles, light_dir)
+    lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
+    run = _pick(o_tiles, _occlusion_rows_plain, _occlusion_rows_cuda)
+    occ = run(lists, beam.l.to(torch.float32).contiguous(),
+              o_tiles.contiguous(), a_tiles.contiguous(), tri_blocks,
+              np.float32(trace_cfg.t_epsilon))
+    return (occ & a_tiles).reshape(-1)
+
+
+def occlusion_dense(
+    cs: ClusterSet,
+    tri_blocks: torch.Tensor,
+    origins: torch.Tensor,
+    light_dir: torch.Tensor,
+    active: torch.Tensor,
+    height: int,
+    width: int,
+    tile_px: int = 16,
+    trace_cfg: TraceConfig = TraceConfig(),
+) -> torch.Tensor:
+    """Any-hit occlusion for a directional light on row-major pixels:
+    ``origins [H*W, 3]`` + ``active [H*W]`` -> ``[H*W]`` bool."""
+    o_tiles = tile_pixels(origins, height, width, tile_px)
+    a_tiles = tile_pixels(active, height, width, tile_px)
+    occ = occlusion_tiles(cs, tri_blocks, o_tiles, light_dir, a_tiles,
+                          tile_px, trace_cfg)
+    return untile_pixels(occ.reshape(o_tiles.shape[0], -1), height, width,
+                         tile_px)

@@ -53,10 +53,22 @@ def test_build_clusters_exact(case):
                          ClusterConfig(cluster_size=g))
     assert got.num_clusters == want.num_clusters
     assert got.cluster_size == g
-    for k in ("face_order", "cmin", "cmax", "tris"):
+    for k in ("face_order", "cmin", "cmax", "tris", "face_rank"):
         np.testing.assert_array_equal(getattr(got, k).numpy(),
                                       np.asarray(getattr(want, k)),
                                       err_msg=k)
+    # face_rank inverts face_order; kernels C and H's geometry rows are
+    # JAX's component-major blocks, transposed.
+    np.testing.assert_array_equal(
+        got.face_order[got.face_rank].numpy(), np.arange(faces.shape[0]))
+    if want.tri_blocks is not None:
+        np.testing.assert_array_equal(
+            got.tri_blocks.numpy(),
+            np.asarray(want.tri_blocks)[:, :9].transpose(0, 2, 1))
+    carried = torch_clusters(want)
+    for k in ("face_order", "face_rank", "tri_blocks"):
+        np.testing.assert_array_equal(getattr(carried, k).numpy(),
+                                      getattr(got, k).numpy(), err_msg=k)
 
 
 def frame_tiles(num_faces=2500, seed=9, eye=(0.0, 0.0, 0.0)):
@@ -147,3 +159,58 @@ def test_shade_segment_blocks(kind):
     np.testing.assert_array_equal(got[..., :29].numpy(),
                                   np.asarray(want)[..., :29])
     assert not got[..., 29:].any()
+
+
+def test_row_major_tiles_and_planes():
+    """`tile_pixels`/`untile_pixels` and the row-major frustum planes of
+    kernel C's route: tiles exact, planes as the planar route's, lists
+    equal to JAX's on the same planes."""
+    jc, tc, d3_tiles, eye = frame_tiles()
+    d = np.array(camera_ray_grid(SIDE, SIDE))
+    want_tiles = np.asarray(jdense.tile_pixels(jnp.asarray(d), SIDE, SIDE,
+                                               16))
+    got_tiles = tdense.tile_pixels(torch.from_numpy(d), SIDE, SIDE, 16)
+    np.testing.assert_array_equal(got_tiles.numpy(), want_tiles)
+    np.testing.assert_array_equal(
+        tdense.untile_pixels(got_tiles, SIDE, SIDE, 16).numpy(), d)
+    want_planes = np.asarray(jdense.tile_frustum_planes(
+        jnp.asarray(want_tiles), 16))
+    planes = tdense.tile_frustum_planes(got_tiles, 16)
+    np.testing.assert_allclose(planes.numpy(), want_planes, rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(
+        planes.numpy(),
+        tsweep.tile_planes_planar(got_tiles.transpose(1, 2), 16).numpy())
+    want = np.asarray(jdense._cull_frustum(jnp.asarray(want_planes),
+                                           jnp.asarray(eye), jc.cmin,
+                                           jc.cmax))
+    got = tdense._cull_frustum(planes, torch.from_numpy(eye), tc.cmin,
+                               tc.cmax)
+    np.testing.assert_array_equal(got.numpy(), want)
+    jl, jn = jsweep._tile_lists(jnp.asarray(want), jc.num_clusters, 32)
+    assert_lists_equal(jl, jn, tsweep._tile_lists(got))
+
+
+def test_row_major_swept_beams():
+    """`swept_tile_beams` on row-major ``[T, R, 3]`` origins: JAX's beams,
+    and the planar route's exactly."""
+    rng = np.random.default_rng(8)
+    o = (rng.standard_normal((16, 256, 3)) * 0.6
+         + np.array([0, 0, 3.0])).astype(np.float32)
+    act = rng.random((16, 256)) < 0.3
+    act[5] = False
+    light = np.asarray([0.4, 0.8, -0.45], np.float32)
+    jb = jcull.swept_tile_beams(jnp.asarray(o), jnp.asarray(act),
+                                jnp.asarray(light))
+    tb = tcull.swept_tile_beams(torch.from_numpy(o), torch.from_numpy(act),
+                                torch.from_numpy(light))
+    pb = tcull.swept_tile_beams_planar(
+        torch.from_numpy(o).transpose(1, 2), torch.from_numpy(act),
+        torch.from_numpy(light))
+    for k in jb._fields:
+        np.testing.assert_allclose(getattr(tb, k).numpy(),
+                                   np.asarray(getattr(jb, k)), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(getattr(tb, k).numpy(),
+                                      getattr(pb, k).numpy(), err_msg=k)
+    assert not tb.tile_any[5] and tb.tile_any.any()

@@ -1,6 +1,6 @@
-"""Kernels A and B of the port (their plain versions, which the wrappers
-run for CPU tensors) against the JAX Pallas kernels in interpret mode, on
-the same 64x64 direction tiles and the same cluster set; plus the
+"""Kernels A, B, C and H of the port (their plain versions, which the
+wrappers run for CPU tensors) against the JAX Pallas kernels in interpret
+mode, on the same 64x64 frames and the same cluster set; plus the
 wrappers' device rules."""
 
 import numpy as np
@@ -28,6 +28,7 @@ from raytracercuda_tpu.trace import pallas_sweep as jsweep
 from raytracercuda_tpu.types import FLT_MAX
 
 from raytracercuda_torch.config import TraceConfig
+from raytracercuda_torch.trace import dense as tdense
 from raytracercuda_torch.trace import sweep as tsweep
 
 
@@ -161,6 +162,97 @@ def test_occlusion_matches_jax(list_width, light):
     assert want.any() and not want[~hit].any()
 
 
+def rows_setup(s):
+    """Row-major directions ``[H*W, 3]`` of the frame ``setup`` tiled."""
+    d = np.asarray(jdense.untile_pixels(
+        jnp.asarray(s["d3"]).transpose(0, 2, 1), SIDE, SIDE, 16))
+    return np.array(d), jsweep.segment_blocks(s["jc"]), \
+        tsweep.segment_blocks(s["tc"])
+
+
+# (JAX list width, clip_backward_hits, eye): as PRIMARY_CASES.
+DENSE_CASES = {
+    "plain": (32, True, (0.0, 0.0, 0.0)),
+    "sort_branch": (4, True, (0.0, 0.0, 0.0)),
+    "inside_clip": (32, True, (0.0, 0.0, 3.0)),
+    "inside_noclip": (32, False, (0.0, 0.0, 3.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_primary_rows_matches_jax(case):
+    """Kernel C's route (`trace_dense`) against `trace_dense_pallas`:
+    faces and slots exact apart from near-ties, t/u/v within 1e-6
+    relative, the port's t/u/v bit-equal to kernel A's on the same
+    rays."""
+    width, clip, eye = DENSE_CASES[case]
+    s = setup("plain", eye=eye)
+    d, jblocks, tblocks = rows_setup(s)
+    assert tblocks.shape == (s["tc"].num_clusters, 128, tsweep.GEOM_COLS)
+    jcfg = JaxTraceConfig(sweep_list_width=width, clip_backward_hits=clip)
+    tcfg = TraceConfig(clip_backward_hits=clip)
+    want = jsweep.trace_dense_pallas(s["jc"], jblocks, jnp.asarray(s["eye"]),
+                                     jnp.asarray(d), SIDE, SIDE,
+                                     trace_cfg=jcfg)
+    got = tsweep.trace_dense(s["tc"], tblocks, torch.from_numpy(s["eye"]),
+                             torch.from_numpy(d), SIDE, SIDE, trace_cfg=tcfg)
+    assert got.face.dtype == torch.int32
+    wt, gt = np.asarray(want.t), got.t.numpy()
+    hit = np.asarray(want.face) >= 0
+    np.testing.assert_array_equal(got.face.numpy() >= 0, hit)
+    assert 0 < hit.sum() < hit.size
+    assert_slots_match(got.face.numpy(), np.asarray(want.face), gt, wt)
+    same = hit & (got.face.numpy() == np.asarray(want.face))
+    # XLA contracts multiply-adds on the CPU, so against JAX t holds 1e-5
+    # relative (measured 2.2e-6 with the eye inside the shell) and u, v
+    # (differences of products scaled by 1/det) 5e-5 absolute, as kernel
+    # A's tests hold them; bit-equality with kernel A's plain version,
+    # itself held bit-exact against numpy float32, follows.
+    assert_rel_close(gt, wt, same, rtol=1e-5)
+    for k in ("u", "v"):
+        np.testing.assert_allclose(getattr(got, k).numpy()[same],
+                                   np.asarray(getattr(want, k))[same],
+                                   rtol=0, atol=5e-5)
+    assert (gt[~hit] == FLT_MAX).all() and not got.u.numpy()[~hit].any()
+    # The same winners and values as kernel A's sweep, untiled.
+    a = tsweep.trace_shade_tiles_planar(
+        s["tc"], s["tblocks"], False, torch.from_numpy(s["eye"]),
+        torch.from_numpy(s["d3"]), trace_cfg=tcfg)
+    for k, plane in ((0, gt), (2, got.u.numpy()), (3, got.v.numpy())):
+        np.testing.assert_array_equal(
+            tdense.untile_pixels(a[k], SIDE, SIDE, 16).numpy(), plane)
+    if not clip:
+        assert (gt[hit] < 0).any()  # a backward hit won
+
+
+@pytest.mark.parametrize("list_width,light", [
+    (32, (0.3, 0.9, -0.3)), (4, (0.4, 0.8, -0.45))])
+def test_occlusion_rows_matches_jax(list_width, light):
+    """Kernel H's route (`occlusion_dense`) against
+    `occlusion_dense_pallas`: masks exactly equal."""
+    s = setup("plain", num_faces=1200, seed=5)
+    d, jblocks, tblocks = rows_setup(s)
+    hit_t = np.asarray(jsweep.trace_dense_pallas(
+        s["jc"], jblocks, jnp.asarray(s["eye"]), jnp.asarray(d), SIDE,
+        SIDE).t)
+    hit = hit_t < FLT_MAX
+    light = np.asarray(light, np.float32)
+    light /= np.linalg.norm(light)
+    p = s["eye"] + d * np.minimum(hit_t, 1e6)[:, None]
+    o = (np.where(hit[:, None], p, s["eye"]) + light * np.float32(1e-3)
+         ).astype(np.float32)
+    want = np.asarray(jsweep.occlusion_dense_pallas(
+        s["jc"], jblocks, jnp.asarray(o), jnp.asarray(light),
+        jnp.asarray(hit), SIDE, SIDE,
+        trace_cfg=JaxTraceConfig(sweep_list_width=list_width)))
+    got = tsweep.occlusion_dense(s["tc"], tblocks, torch.from_numpy(o),
+                                 torch.from_numpy(light),
+                                 torch.from_numpy(hit), SIDE, SIDE)
+    assert got.dtype == torch.bool and got.shape == (SIDE * SIDE,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want[~hit].any()
+
+
 def test_mt_subnormal_det_is_miss():
     """A subnormal determinant overflows 1/det; with the origin on the
     vertex the zero numerator gives NaN t, which must be a miss."""
@@ -182,6 +274,13 @@ def test_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tsweep._occlusion_cuda(lists, torch.ones(3), d3, d3[:, 0] > 0,
                                s["tblocks"], np.float32(1e-4))
+    rows = d3.transpose(1, 2).contiguous()
+    geom = tsweep.segment_blocks(s["tc"])
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep._primary_cuda(lists, torch.zeros(3), rows, geom, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep._occlusion_rows_cuda(lists, torch.ones(3), rows,
+                                    rows[..., 0] > 0, geom, np.float32(1e-4))
 
 
 def test_pick_plain_only_on_cpu():

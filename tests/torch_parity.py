@@ -84,7 +84,7 @@ def torch_clusters(cs):
     """The port's `ClusterSet` from a JAX `ClusterSet`."""
     return interop.cluster_set_from_numpy(
         np.asarray(cs.cmin), np.asarray(cs.cmax), np.asarray(cs.tris),
-        np.asarray(cs.face_order))
+        np.asarray(cs.face_order), np.asarray(cs.face_rank))
 
 
 def jax_config(list_width: int = 32) -> RenderConfig:
