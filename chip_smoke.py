@@ -34,7 +34,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      perturbed texture toward the image of the true one, and requires the
      loss after them to be below the loss before them;
  13. times the progressive and grad steps on both paths and C, H and G
-     beside their plain versions.
+     beside their plain versions;
+ 14. builds config 2's scene through the public API on BRUTE (a
+     15,488-triangle bumpy sphere standing in for suzanne.obj, and the
+     reference's quad) with a 256x256 `Camera` and `RenderTarget`;
+ 15. clears the target through `Camera.clear` (kernel D, held exactly
+     against `torch.full`) and traces it through `Camera.trace_scene`
+     (kernel E), requiring both kernels launched and status 0;
+ 16. holds E against its plain version on the frame's rays (equal faces,
+     t/u/v bit-equal) and D against its plain version, renders the frame
+     with the plain versions (equal packed frames), prints the hit share
+     and the status codes of the API's misuse cases, and times the frame,
+     E and D beside their plain versions;
+ 17. builds config 5's scene (three bumpy spheres of 69,451, 345,944 and
+     100,002 triangles, reflectivity 0.3) and renders its 1920x1080 frame
+     with two mirror bounces and shadows through `render_bounces`,
+     requiring kernels A and B and two launches of kernel F;
+ 18. prints the active rays and cluster-list lengths of the primary
+     pass, the shadows and each bounce, and the share of pixels the
+     bounces change;
+ 19. holds A (with reflectivity) and B against their plain versions on
+     that frame's inputs, and F on the first bounce's (A and F: slots
+     equal, t/u/v within 1e-6 relative on hits, attributes within 1e-5;
+     B: equal masks);
+ 20. at 256x144, holds the cluster-route frame against the brute-force
+     route's (kernel E): at least 99% of pixels within 1e-4;
+ 21. times the frame, A, B and F per launch and one `sort_bounces=True`
+     frame.
 
 Any failure exits non-zero.  The last two lines of standard output are a
 JSON object of the kernels' counts, errors and times, and
@@ -58,6 +84,21 @@ C4_SIZE = 1024
 C4_ARMADILLO = 345944
 C4_F16 = 4056
 ADAM_STEPS = 5
+# Config 2 (scripts/bench_configs.py:79-102): 256x256, BRUTE, suzanne.obj's
+# 15,488 triangles (BASELINE.md:21) and the reference's quad.
+C2_SIZE = 256
+C2_SUZANNE = 15488
+CLEAR_VALUE = 0xFF00FF00
+# Config 5 (scripts/bench_configs.py:164-200): 1920x1080, two bounces.
+# The bunny stand-in sits on bunny.obj's bounding box: centre
+# (-0.0168, 0.1101, -0.0016), half its largest extent as radius.
+C5_WIDTH, C5_HEIGHT = 1920, 1080
+C5_MESHES = (  # (faces, radius, centre, seed)
+    (69451, 0.078, (-0.0168, 0.1101, -0.0016), 0),
+    (345944, 0.9, (1.6, 0.8, 0.2), 2),
+    (100002, 0.7, (-1.5, 0.6, -0.3), 3),
+)
+C5_SMALL = (256, 144)  # the frame held against the brute-force route
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -87,6 +128,21 @@ def time_cuda(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_once(fn):
+    """``(fn(), milliseconds)`` of one call on the card, no warm-up: for
+    plain versions too slow to run twice."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def rel_err_on_hits(x, y, hit, name: str) -> float:
     """Require ``x`` within 1e-6 relative of ``y`` where ``hit``; returns
     the largest absolute difference there."""
@@ -94,6 +150,35 @@ def rel_err_on_hits(x, y, hit, name: str) -> float:
     check(bool((d <= 1e-6 * y[hit].abs()).all()),
           f"{name}: beyond 1e-6 relative")
     return float(d.max()) if d.numel() else 0.0
+
+
+def shade_err(k, p, name: str) -> tuple[float, int]:
+    """Hold a shading kernel's planes ``k`` (t, slot, u, v, attributes)
+    against its plain version's ``p``: slots equal, t/u/v within 1e-6
+    relative on hits, attributes within 1e-5.  Returns the largest
+    absolute error and the number of hit rays."""
+    import torch
+
+    check(torch.equal(k[1], p[1]), f"{name}: slots differ from plain: "
+          f"{int((k[1] != p[1]).sum())} rays")
+    hit = p[0] < float(3.4028234663852886e38)
+    err = max(rel_err_on_hits(k[i], p[i], hit, f"{name} plane {i}")
+              for i in (0, 2, 3))  # t, u, v
+    for i in range(4, len(p)):
+        d = float((k[i] - p[i]).abs().max())
+        check(d <= 1e-5, f"{name} plane {i}: max abs err {d}")
+        err = max(err, d)
+    return err, int(hit.sum())
+
+
+def occlusion_err(k, p, name: str) -> float:
+    """Require an any-hit kernel's mask ``k`` equal to its plain version's
+    ``p``; returns the largest difference (0)."""
+    import torch
+
+    check(torch.equal(k, p), f"{name}: masks differ from plain: "
+          f"{int((k != p).sum())} rays")
+    return float((k.int() - p.int()).abs().max())
 
 
 class PhaseClock:
@@ -297,9 +382,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     kh = sweep._occlusion_rows_cuda(*h_args)
     ph = sweep._occlusion_rows_plain(*h_args)
     sync()
-    check(torch.equal(kh, ph), "kernel H: masks differ from plain: "
-          f"{int((kh != ph).sum())} rays")
-    h_err = float((kh.int() - ph.int()).abs().max())
+    h_err = occlusion_err(kh, ph, "kernel H")
     print(f"kernel H matches plain: {int(ph.sum())} occluded of "
           f"{int(h_args[3].sum())} active shadow rays")
     check(int(ph.sum()) > 0, "no shadow ray is occluded")
@@ -442,6 +525,340 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     ]
 
 
+def config2_scene(dev, size, suzanne_faces):
+    """Config 2's scene through the public API (scripts/bench_configs.py:
+    79-102): BRUTE, the suzanne stand-in ``bumpy_sphere_mesh`` at the
+    origin (radius 1) and the reference's quad at z = 2.5, a ``size``
+    square `Camera` and locked `RenderTarget`, eye (0, 0, -2.1).
+    Returns ``(scene, camera, target, eye, orient)``."""
+    import numpy as np
+
+    import raytracercuda_torch as rt
+    from raytracercuda_torch.models.procedural import (bumpy_sphere_mesh,
+                                                       quad_mesh)
+
+    scene = rt.Scene.create(rt.RenderConfig(accel=rt.AccelKind.BRUTE),
+                            device=dev)
+    scene.add_mesh(bumpy_sphere_mesh(suzanne_faces, radius=1.0,
+                                     center=(0.0, 0.0, 0.0)))
+    scene.add_mesh(quad_mesh(z=2.5))
+    cam = rt.Camera.create(dev)
+    check(cam.set_initial_rays(size, size, -1, 1, -1, 1, 1) == 0,
+          "set_initial_rays failed")
+    target = rt.RenderTarget.create(size, size, dev)
+    check(target.lock() == 0, "lock failed")
+    eye = np.array([0.0, 0.0, -2.1], np.float32)
+    return scene, cam, target, eye, rt.orient_from_pan_pitch(0.0, 0.0)
+
+
+def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
+    """Phases 14-16: config 2's frame through the public API, kernels D
+    and E.  Returns their JSON records."""
+    import torch
+
+    import raytracercuda_torch as rt
+    from raytracercuda_torch.ops import clear
+    from raytracercuda_torch.trace import bruteforce
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # 14. The scene, camera and target, as bench_configs.config2 makes them.
+    scene, cam, target, eye, orient = config2_scene(dev, size, suzanne_faces)
+    print(f"config 2: {scene.data().num_faces} faces, BRUTE, {size}x{size}")
+    check(cam.trace_scene(eye, orient, scene, target) == 0, "warm-up frame")
+    sync()
+    clock.done("14 (config 2 scene)")
+
+    # 15. The main path: clear (D), then trace (E).
+    n = size * size
+    rec = Recorder(bruteforce, ["_brute_cuda"])
+    try:
+        clear.reset_launch_counts()
+        bruteforce.reset_launch_counts()
+        err_clear = cam.clear(target, CLEAR_VALUE)
+        cleared = target.buffer.clone()
+        err = cam.trace_scene(eye, orient, scene, target)
+        sync()
+        launches = {**clear.launch_counts, **bruteforce.launch_counts}
+    finally:
+        rec.restore()
+    print(f"config 2 launches: {launches}")
+    check(err_clear == 0 and err == 0, f"clear {err_clear}, trace {err}")
+    check(launches["clear"] > 0, "kernel D never launched")
+    check(launches["brute"] > 0, "kernel E never launched")
+    full = torch.full((n,), CLEAR_VALUE, dtype=torch.int64, device=dev)
+    check(torch.equal(cleared, full), "kernel D: buffer differs from "
+          "torch.full")
+    frame = target.buffer.clone()
+    miss = 255 << 8
+    hit_share = float((frame != miss).float().mean())
+    print(f"config 2 frame: hit share {hit_share:.4f}")
+    check(0.0 < hit_share < 1.0, f"hit share {hit_share}")
+    clock.done("15 (config 2 frame)")
+
+    # 16. E and D against their plain versions; the plain-path frame; the
+    # misuse cases' codes; timing.
+    e_args = rec.calls["_brute_cuda"][-1]
+    ke = bruteforce._brute_cuda(*e_args)
+    pe = bruteforce._brute_plain(*e_args)
+    sync()
+    check(torch.equal(ke[3], pe[3]), "kernel E: faces differ from plain: "
+          f"{int((ke[3] != pe[3]).sum())} rays")
+    for k, name in enumerate("tuv"):
+        check(torch.equal(ke[k], pe[k]), f"kernel E: {name} not bit-equal")
+    e_err = 0.0  # bit-equal, checked above
+    print(f"kernel E matches plain bit for bit: {int((pe[3] >= 0).sum())} "
+          f"hit rays of {pe[3].numel()}")
+    kd = clear._clear_cuda(n, CLEAR_VALUE, dev)
+    pd = clear._clear_plain(n, CLEAR_VALUE, dev)
+    check(torch.equal(kd, pd), "kernel D differs from its plain version")
+    plain = PlainOnCard({bruteforce: {"_brute_cuda": bruteforce._brute_plain},
+                         clear: {"_clear_cuda": clear._clear_plain}})
+    plain_target = rt.RenderTarget.create(size, size, dev)
+    with plain:
+        check(cam.clear(plain_target, CLEAR_VALUE) == 0, "plain clear")
+        check(cam.trace_scene(eye, orient, scene, plain_target) == 0,
+              "plain frame")
+        sync()
+        plain_frame_ms = time_cuda(
+            lambda: cam.trace_scene(eye, orient, scene, plain_target), 3)
+    check(torch.equal(plain_target.buffer, frame),
+          "config 2: the plain-path frame differs")
+    print("config 2 frame equals the plain-path frame")
+    codes = {
+        "no_render_target": cam.trace_scene(eye, orient, scene, None),
+        "size_mismatch": cam.trace_scene(
+            eye, orient, scene, rt.RenderTarget.create(2 * size, size, dev)),
+        "camera_without_rays": rt.Camera.create(dev).trace_scene(
+            eye, orient, scene, target),
+        "no_scene": cam.trace_scene(eye, orient, None, target),
+        "clear_without_target": cam.clear(None, 0),
+        "zero_width": rt.Camera.create(dev).set_initial_rays(0, size),
+        "lock_twice": target.lock(),
+        "unlock": target.unlock(),
+        "unlock_twice": target.unlock(),
+    }
+    print(f"config 2 misuse codes: {codes}")
+    want = {"no_render_target": 8, "size_mismatch": 5,
+            "camera_without_rays": 2, "no_scene": 2,
+            "clear_without_target": 8, "zero_width": 2, "lock_twice": 6,
+            "unlock": 0, "unlock_twice": 7}
+    check(codes == want, f"misuse codes {codes}, want {want}")
+
+    print(f"timing on {card}")
+    frame_ms = time_cuda(lambda: cam.trace_scene(eye, orient, scene, target),
+                         20)
+    e_ms = time_cuda(lambda: bruteforce._brute_cuda(*e_args), 20)
+    e_plain_ms = time_cuda(lambda: bruteforce._brute_plain(*e_args), 3)
+    d_ms = time_cuda(lambda: clear._clear_cuda(n, CLEAR_VALUE, dev), 100)
+    d_plain_ms = time_cuda(lambda: clear._clear_plain(n, CLEAR_VALUE, dev),
+                           100)
+    print(f"config 2 frame ({size}x{size}, BRUTE): kernel path "
+          f"{frame_ms:.4f} ms, plain path {plain_frame_ms:.4f} ms, "
+          f"{n / frame_ms * 1e3:.6g} rays/s")
+    print(f"kernel E: {e_ms:.4f} ms per launch (plain {e_plain_ms:.4f} ms); "
+          f"kernel D: {d_ms:.4f} ms (plain {d_plain_ms:.4f} ms)")
+    clock.done("16 (config 2 checks, timing)")
+    return [
+        {"name": "clear", "route": "cuda",
+         "source": "raytracercuda_torch/csrc/frame.cu",
+         "replaces": "raytracercuda_tpu/ops/clear.py:21",
+         "launches": launches["clear"], "max_abs_err": 0.0, "ms": d_ms,
+         "plain_ms": d_plain_ms},
+        {"name": "brute", "route": "cuda",
+         "source": "raytracercuda_torch/csrc/brute.cu",
+         "replaces": "raytracercuda_tpu/trace/pallas_brute.py:36",
+         "launches": launches["brute"], "max_abs_err": e_err, "ms": e_ms,
+         "plain_ms": e_plain_ms},
+    ]
+
+
+def config5_scene(dev, meshes):
+    """Config 5's scene (scripts/bench_configs.py:164-184): the three
+    meshes of ``meshes``, reflectivity ``linspace(0.3, 0.6)`` over the
+    materials (0.3 for the single default one), clusters built once, the
+    eye from ``frame_eye(dist=1.2)``, orient the identity."""
+    import torch
+
+    from raytracercuda_torch.config import AccelKind, RenderConfig
+    from raytracercuda_torch.models.procedural import bumpy_sphere_mesh
+    from raytracercuda_torch.models.scene import Scene
+
+    config = RenderConfig(accel=AccelKind.CLUSTER)
+    scene = Scene.create(config, device=dev)
+    for faces, radius, center, seed in meshes:
+        scene.add_mesh(bumpy_sphere_mesh(faces, radius=radius, center=center,
+                                         seed=seed))
+    data = scene.data()
+    nm = data.reflectivity.shape[0]
+    data = data._replace(reflectivity=torch.linspace(0.3, 0.6, nm,
+                                                     device=dev))
+    accel = scene.accel
+    lo = data.positions.amin(dim=0)
+    hi = data.positions.amax(dim=0)
+    extent = float((hi - lo).amax())
+    eye = ((lo + hi) / 2 - torch.tensor([0.0, 0.0, 1.2 * extent],
+                                        device=dev)).to(torch.float32)
+    return config, data, accel, eye
+
+
+def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
+                meshes=C5_MESHES, small=C5_SMALL, frames=3):
+    """Phases 17-21: config 5's multi-bounce frame, kernels A, B and F,
+    and the brute-force route (kernel E) at a reduced size.  Returns F's
+    JSON record and, for A and B, ``{name: (launches, max_abs_err)}`` of
+    this path's run."""
+    import torch
+
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.trace import bounce_sweep, bruteforce, sweep
+    from raytracercuda_torch.trace.bounce import render_bounces
+    from raytracercuda_torch.trace.pipeline import pad_frame, rotate_rays
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # 17. The scene and the frame, once, through A, B and F.
+    config, data, accel, eye = config5_scene(dev, meshes)
+    orient = torch.eye(3, device=dev)
+
+    def rays(w, h):
+        return rotate_rays(camera_ray_grid(w, h, device=dev), orient)
+
+    dirs = rays(width, height)
+
+    def frame(nb=2):
+        return render_bounces(accel, data, eye, dirs, height, width, config,
+                              num_bounces=nb)
+
+    print(f"config 5: {data.num_faces} faces -> {accel.num_clusters} "
+          f"clusters, {width}x{height}, eye {eye.tolist()}")
+    frame()  # warm-up
+    sync()
+    rec_ab = Recorder(sweep, ["_primary_shade_cuda", "_occlusion_cuda"])
+    rec_f = Recorder(bounce_sweep, ["_general_shade_cuda"])
+    try:
+        sweep.reset_launch_counts()
+        img = frame()
+        sync()
+        launches = dict(sweep.launch_counts)
+    finally:
+        rec_ab.restore()
+        rec_f.restore()
+    print(f"config 5 launches: {launches}")
+    check(launches["primary_shade"] > 0, "kernel A never launched")
+    check(launches["occlusion"] > 0, "kernel B never launched")
+    check(launches["general_shade"] == 2,
+          f"kernel F launched {launches['general_shade']} times, not 2")
+    check(tuple(img.shape) == (width * height, 3)
+          and bool(torch.isfinite(img).all()), "config 5 image not finite")
+    clock.done("17 (config 5 frame)")
+
+    # 18. What each pass swept, and what the bounces changed.
+    a_args = rec_ab.calls["_primary_shade_cuda"][-1]
+    b_args = rec_ab.calls["_occlusion_cuda"][-1]
+    a_lists = a_args[0]
+
+    def list_stats(lists):
+        counts = lists.counts
+        listing = counts > 0
+        mean = float(counts[listing].float().mean()) if listing.any() else 0
+        return (f"{int(listing.sum())} of {counts.numel()} tiles list "
+                f"clusters, mean {mean:.1f} over those, max "
+                f"{int(counts.max())}")
+
+    print(f"primary pass: {list_stats(a_lists)}")
+    print(f"shadows: {int(b_args[3].sum())} active rays; "
+          f"{list_stats(b_args[0])}")
+    for b, args in enumerate(rec_f.calls["_general_shade_cuda"]):
+        act = args[3]
+        print(f"bounce {b + 1}: {int(act.sum())} active rays in "
+              f"{int(act.any(dim=1).sum())} tiles; {list_stats(args[0])}")
+    flat = frame(0)
+    changed = float(((img - flat).abs() > 1e-6).any(dim=-1).float().mean())
+    print(f"bounce_changed_px_frac {changed:.6f}")
+    check(changed > 0.0, "the bounces change no pixel")
+    clock.done("18 (config 5 lists)")
+
+    # 19. A (with reflectivity) and B against their plain versions on this
+    # frame's inputs, F on the first bounce's.
+    check(a_args[5], "config 5: kernel A ran without reflectivity")
+    ka = sweep._primary_shade_cuda(*a_args)
+    pa, a_plain_ms = time_once(lambda: sweep._primary_shade_plain(*a_args))
+    a_err, a_hits = shade_err(ka, pa, "kernel A (config 5)")
+    kb = sweep._occlusion_cuda(*b_args)
+    pb, b_plain_ms = time_once(lambda: sweep._occlusion_plain(*b_args))
+    b_err = occlusion_err(kb, pb, "kernel B (config 5)")
+    print(f"kernel A (with reflectivity) matches plain on config 5: {a_hits} "
+          f"hit rays, max abs err {a_err:.3g}; kernel B matches plain: "
+          f"{int(pb.sum())} shadowed of {int(b_args[3].sum())} active rays")
+    f_args = rec_f.calls["_general_shade_cuda"][0]
+    kf = bounce_sweep._general_shade_cuda(*f_args)
+    pf, f_plain_ms = time_once(
+        lambda: bounce_sweep._general_shade_plain(*f_args))
+    f_err, f_hits = shade_err(kf, pf, "kernel F")
+    print(f"kernel F matches plain on bounce 1: {f_hits} hit rays, "
+          f"max abs err {f_err:.3g}")
+    clock.done("19 (A, B, F vs plain)")
+
+    # 20. The cluster route against the brute-force route at a reduced
+    # size (the JAX package's bar for its kernel route, test_bounce.py:192).
+    sw, sh = small
+    small_dirs = rays(sw, sh)
+    bruteforce.reset_launch_counts()
+    rgb_c = render_bounces(accel, data, eye, small_dirs, sh, sw, config)
+    rgb_b = render_bounces(accel, data, eye, small_dirs, sh, sw, config,
+                           use_brute=True)
+    sync()
+    brute_launches = bruteforce.launch_counts["brute"]
+    share = float(torch.isclose(rgb_c, rgb_b, rtol=1e-4, atol=1e-4)
+                  .all(dim=-1).float().mean())
+    print(f"config 5 at {sw}x{sh}: cluster route vs brute route (kernel E, "
+          f"{brute_launches} launches): {share:.6f} of pixels within 1e-4")
+    check(brute_launches > 0, "kernel E never launched")
+    check(share >= 0.99, f"cluster vs brute route: share {share} < 0.99")
+    clock.done("20 (cluster vs brute route)")
+
+    # 21. Timing: the frame, F, one frame with the bounces re-binned.
+    print(f"timing on {card}")
+    frame_ms = time_cuda(frame, frames)
+    f_ms = time_cuda(lambda: bounce_sweep._general_shade_cuda(*f_args), 5)
+    a_ms = time_cuda(lambda: sweep._primary_shade_cuda(*a_args), 20)
+    b_ms = time_cuda(lambda: sweep._occlusion_cuda(*b_args), 20)
+    tp = config.trace.dense_tile_px
+    pdirs, hp, wp = pad_frame(dirs, height, width, tp)
+    blocks, has_uv = sweep.shade_segment_blocks(accel, data)
+
+    def tiled(sort):
+        return bounce_sweep.render_bounces_tiled(
+            accel, blocks, has_uv, data.textures, eye, pdirs, hp, wp,
+            tile_px=tp, trace_cfg=config.trace, sort_bounces=sort)
+
+    unsorted = tiled(False)
+    sorted_img, sorted_ms = time_once(lambda: tiled(True))
+    sort_diff = float((sorted_img - unsorted).abs().max())
+    print(f"config 5 frame ({width}x{height}, 2 bounces, shadows): "
+          f"{frame_ms:.4f} ms, {width * height / frame_ms * 1e3:.6g} rays/s "
+          f"(W*H per frame); sort_bounces=True frame {sorted_ms:.4f} ms "
+          f"(one frame, no warm-up), max abs diff to unsorted {sort_diff:.3g}")
+    check(sort_diff <= 1e-6, f"sorted bounces differ by {sort_diff}")
+    print(f"kernel F (bounce 1): {f_ms:.4f} ms per launch (plain "
+          f"{f_plain_ms:.4f} ms, one run); on config 5, kernel A "
+          f"{a_ms:.4f} ms (plain {a_plain_ms:.4f} ms, one run), kernel B "
+          f"{b_ms:.4f} ms (plain {b_plain_ms:.4f} ms, one run)")
+    clock.done("21 (config 5 timing)")
+    f_record = {"name": "general_shade", "route": "cuda",
+                "source": "raytracercuda_torch/csrc/sweep.cu",
+                "replaces": "raytracercuda_tpu/trace/pallas_bounce.py:108",
+                "launches": launches["general_shade"], "max_abs_err": f_err,
+                "ms": f_ms, "plain_ms": f_plain_ms}
+    return [f_record], {"primary_shade": (launches["primary_shade"], a_err),
+                        "occlusion": (launches["occlusion"], b_err)}
+
+
 def main() -> None:
     import torch
 
@@ -526,23 +943,12 @@ def main() -> None:
     ka = sweep._primary_shade_cuda(*a_args)
     pa = sweep._primary_shade_plain(*a_args)
     torch.cuda.synchronize()
-    check(torch.equal(ka[1], pa[1]), "kernel A: slots differ from plain: "
-          f"{int((ka[1] != pa[1]).sum())} pixels")
-    hit = pa[0] < float(np.float32(3.4028234663852886e38))
-    a_err = max(rel_err_on_hits(ka[k], pa[k], hit, f"kernel A plane {k}")
-                for k in (0, 2, 3))  # t, u, v
-    for k, (x, y) in enumerate(zip(ka, pa)):
-        if k > 3:
-            d = float((x - y).abs().max())
-            check(d <= 1e-5, f"kernel A plane {k}: max abs err {d}")
-            a_err = max(a_err, d)
+    a_err, hits = shade_err(ka, pa, "kernel A")
     kb = sweep._occlusion_cuda(*b_args)
     pb = sweep._occlusion_plain(*b_args)
     torch.cuda.synchronize()
-    check(torch.equal(kb, pb), "kernel B: masks differ from plain: "
-          f"{int((kb != pb).sum())} rays")
-    b_err = float((kb.int() - pb.int()).abs().max())
-    hits, shadowed = int(hit.sum()), int(pb.sum())
+    b_err = occlusion_err(kb, pb, "kernel B")
+    shadowed = int(pb.sum())
     print(f"kernel A matches plain: {hits} hit rays, max abs err {a_err:.3g}")
     print(f"kernel B matches plain: {shadowed} shadowed of "
           f"{int(b_args[3].sum())} active shadow rays")
@@ -590,18 +996,24 @@ def main() -> None:
     clock.done("6 (frame timing)")
 
     c4_kernels = diff_path(dev, clock, card)
+    c2_kernels = api_path(dev, clock, card)
+    c5_kernels, c5_ab = bounce_path(dev, clock, card)
 
+    # A and B: launches of both paths that run them, the larger error;
+    # times at the bench frame's shapes (config 5's are printed above).
     src = "raytracercuda_torch/csrc/sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "primary_shade", "route": "cuda", "source": src,
          "replaces": "raytracercuda_tpu/trace/pallas_sweep.py:598",
-         "launches": launches["primary_shade"], "max_abs_err": a_err,
+         "launches": launches["primary_shade"] + c5_ab["primary_shade"][0],
+         "max_abs_err": max(a_err, c5_ab["primary_shade"][1]),
          "ms": a_ms, "plain_ms": a_plain_ms},
         {"name": "occlusion", "route": "cuda", "source": src,
          "replaces": "raytracercuda_tpu/trace/pallas_sweep.py:870",
-         "launches": launches["occlusion"], "max_abs_err": b_err,
+         "launches": launches["occlusion"] + c5_ab["occlusion"][0],
+         "max_abs_err": max(b_err, c5_ab["occlusion"][1]),
          "ms": b_ms, "plain_ms": b_plain_ms},
-        *c4_kernels,
+        *c4_kernels, *c2_kernels, *c5_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,20 @@
-// Kernels A, B, C and H of the tile sweep, for Hopper (sm_90a), with a plain
-// C interface loaded through ctypes (`ops/cuda_build.py`).
+// Kernels A, B, C, F and H of the tile sweep, for Hopper (sm_90a), with a
+// plain C interface loaded through ctypes (`ops/cuda_build.py`).
 //
 // A, `primary_shade_kernel`, replaces `_primary_shade_kernel` in
 //   raytracercuda_tpu/trace/pallas_sweep.py: per 16x16 pixel tile, the
 //   closest hit of each ray from the common eye over the tile's listed
 //   128-triangle clusters, and the winner's interpolated normal, albedo,
 //   texture id, uv and reflectivity.
-// B, `occlusion_kernel`, replaces `_occlusion_cols_kernel` in the same
-//   file: any hit along one light direction from each active ray's origin
-//   (planar [T, 3, R] origins).
+// F, `general_shade_kernel`, replaces `_general_shade_kernel` in
+//   raytracercuda_tpu/trace/pallas_bounce.py: A with per-ray origins
+//   (planar [T, 3, R]) and an activity mask [T, R], always with
+//   reflectivity; inactive rays write the miss defaults.  A and F share one
+//   body (a template over the origin source), each its own kernel and
+//   launch.
+// B, `occlusion_kernel`, replaces `_occlusion_cols_kernel` in
+//   pallas_sweep.py: any hit along one light direction from each active
+//   ray's origin (planar [T, 3, R] origins).
 // C, `primary_kernel`, replaces `_primary_kernel` in the same file: A's
 //   sweep without the attribute epilogue, on row-major [T, R, 3] directions
 //   and geometry-only [C, G, 9] rows; writes t, u, v and the winning slot
@@ -23,7 +29,9 @@
 // triangle read once per block from shared memory.  A tile's listed
 // clusters are a few kilobytes each, so the kernels are bound by the FP32
 // pipes and by how evenly the blocks' list lengths fill the SMs, not by
-// bytes from device memory.
+// bytes from device memory.  F's lists are the most lopsided: reflected
+// bundles off curved surfaces spread, so a few tiles list thousands of
+// clusters and set the kernel's time.
 //
 // The design is the simple one: one block per tile, one thread per ray.
 // The block copies each listed cluster's v0|e1|e2 columns into shared
@@ -31,14 +39,15 @@
 // operand) and every thread scans the cluster's triangles in slot order.
 // A strict `<` over ascending (cluster, slot) picks exactly the JAX
 // kernel's winner: there, the first minimum wins inside a cluster and
-// clusters combine with a strict `<`.  A interpolates attributes once,
-// after the loop, from the winner's row in device memory; C stops at the
-// winner.  C and H read 36-byte geometry rows, so a cluster is one
+// clusters combine with a strict `<`.  A and F interpolate attributes
+// once, after the loop, from the winner's row in device memory; C stops at
+// the winner.  C and H read 36-byte geometry rows, so a cluster is one
 // contiguous 4.6 KB run that the block's threads copy with consecutive
 // loads.  B and H let a thread stop at its first hit and the block leave
-// the list when every thread is done.  The library is built with
-// -fmad=false and IEEE division, so each expression rounds as in the plain
-// PyTorch version.
+// the list when every thread is done; F's inactive threads skip the tests
+// but still reach every barrier.  The library is built with -fmad=false
+// and IEEE division, so each expression rounds as in the plain PyTorch
+// version.
 //
 // Later work: a warp per cluster, cp.async or TMA double-buffering of the
 // cluster rows, persistent blocks over a tile queue, lists split over
@@ -94,11 +103,12 @@ __device__ __forceinline__ float mt(const float* s, int g, int j, float ox,
 
 // Closest hit of one ray over its tile's listed clusters: ascending
 // (cluster, slot), strict `<`.  Every thread of the block must call it (it
-// holds the block's barriers).  On a miss bt stays FLT_MAX, bs 0, bu = bv = 0.
+// holds the block's barriers); an inactive thread (`act` false) tests
+// nothing.  On a miss bt stays FLT_MAX, bs 0, bu = bv = 0.
 __device__ __forceinline__ void sweep_closest(
     float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
     const float* __restrict__ blocks, int cols, int g, int tile, float ox,
-    float oy, float oz, float dx, float dy, float dz, bool use_eps,
+    float oy, float oz, float dx, float dy, float dz, bool act, bool use_eps,
     float t_eps, float& bt, float& bu, float& bv, int& bs) {
   bt = kFltMax;
   bu = 0.0f;
@@ -110,6 +120,7 @@ __device__ __forceinline__ void sweep_closest(
     __syncthreads();  // every thread is done with the previous cluster
     load_cluster(s, blocks, c, g, cols);
     __syncthreads();
+    if (!act) continue;
     for (int j = 0; j < g; ++j) {
       float u, v;
       const float t = mt(s, g, j, ox, oy, oz, dx, dy, dz, use_eps, t_eps, u,
@@ -124,28 +135,43 @@ __device__ __forceinline__ void sweep_closest(
   }
 }
 
-// Grid: one block per tile; block: one thread per ray (blockDim.x = R).
-// out_f planes [n_f, T, R]: t, u, v, nx, ny, nz, ar, ag, ab
-// [, tex, tu, tv][, refl]; out_slot [T, R].
-__global__ void primary_shade_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ eye, const float* __restrict__ dirs,
-    const float* __restrict__ blocks, int g, int has_uv, int with_refl,
-    int use_eps, float t_eps, float* __restrict__ out_f,
-    int* __restrict__ out_slot) {
-  extern __shared__ float s[];  // [9][g]
+// The body of A and F.  kPerRay picks the origin source: planar [T, 3, R]
+// origins and an activity mask [T, R] (F), or the common eye [3] (A, whose
+// rays are all active).  Grid: one block per tile; block: one thread per
+// ray (blockDim.x = R).  out_f planes [n_f, T, R]: t, u, v, nx, ny, nz, ar,
+// ag, ab[, tex, tu, tv][, refl]; out_slot [T, R].
+template <bool kPerRay>
+__device__ __forceinline__ void shade_body(
+    float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const int* __restrict__ active, const float* __restrict__ blocks, int g,
+    int has_uv, int with_refl, int use_eps, float t_eps,
+    float* __restrict__ out_f, int* __restrict__ out_slot) {
   const int tile = blockIdx.x;
   const int R = blockDim.x;
   const int i = threadIdx.x;
+  const size_t o = static_cast<size_t>(tile) * R + i;
   const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
+  float ox, oy, oz;
+  bool act = true;
+  if (kPerRay) {
+    const float* org = origins + static_cast<size_t>(tile) * 3 * R;
+    ox = org[i];
+    oy = org[R + i];
+    oz = org[2 * R + i];
+    act = active[o] != 0;
+  } else {
+    ox = origins[0];
+    oy = origins[1];
+    oz = origins[2];
+  }
   float bt, bu, bv;
   int bs;
-  sweep_closest(s, offsets, ids, blocks, kCols, g, tile, eye[0], eye[1],
-                eye[2], d[i], d[R + i], d[2 * R + i], use_eps != 0, t_eps,
-                bt, bu, bv, bs);
+  sweep_closest(s, offsets, ids, blocks, kCols, g, tile, ox, oy, oz, d[i],
+                d[R + i], d[2 * R + i], act, use_eps != 0, t_eps, bt, bu, bv,
+                bs);
 
   const size_t plane = static_cast<size_t>(gridDim.x) * R;
-  const size_t o = static_cast<size_t>(tile) * R + i;
   const int n_f = (has_uv ? 12 : 9) + (with_refl ? 1 : 0);
   out_slot[o] = bs;
   out_f[o] = bt;
@@ -172,6 +198,31 @@ __global__ void primary_shade_kernel(
   if (with_refl) p[k * plane] = w[28];
 }
 
+// Kernel A: the common eye [3], planar directions [T, 3, R].
+__global__ void primary_shade_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ ids,
+    const float* __restrict__ eye, const float* __restrict__ dirs,
+    const float* __restrict__ blocks, int g, int has_uv, int with_refl,
+    int use_eps, float t_eps, float* __restrict__ out_f,
+    int* __restrict__ out_slot) {
+  extern __shared__ float s[];  // [9][g]
+  shade_body<false>(s, offsets, ids, eye, dirs, nullptr, blocks, g, has_uv,
+                    with_refl, use_eps, t_eps, out_f, out_slot);
+}
+
+// Kernel F: planar origins and directions [T, 3, R], activity [T, R]; a
+// tile whose list is empty, like an inactive ray, writes the miss defaults.
+__global__ void general_shade_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ ids,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const int* __restrict__ active, const float* __restrict__ blocks, int g,
+    int has_uv, int use_eps, float t_eps, float* __restrict__ out_f,
+    int* __restrict__ out_slot) {
+  extern __shared__ float s[];  // [9][g]
+  shade_body<true>(s, offsets, ids, origins, dirs, active, blocks, g, has_uv,
+                   1, use_eps, t_eps, out_f, out_slot);
+}
+
 // Kernel C.  Grid: one block per tile; block: one thread per ray.
 // dirs row-major [T, R, 3]; blocks [C, g, 9]; out_f planes [3, T, R]:
 // t, u, v; out_slot [T, R].
@@ -188,8 +239,8 @@ __global__ void primary_kernel(
   float bt, bu, bv;
   int bs;
   sweep_closest(s, offsets, ids, blocks, kGeomCols, g, tile, eye[0], eye[1],
-                eye[2], d[0], d[1], d[2], use_eps != 0, t_eps, bt, bu, bv,
-                bs);
+                eye[2], d[0], d[1], d[2], true, use_eps != 0, t_eps, bt, bu,
+                bv, bs);
   const size_t plane = static_cast<size_t>(gridDim.x) * R;
   out_f[o] = bt;
   out_f[plane + o] = bu;
@@ -285,6 +336,20 @@ int rt_primary_shade(const int* offsets, const int* ids, const float* eye,
   primary_shade_kernel<<<num_tiles, rays_per_tile, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       offsets, ids, eye, dirs, blocks, g, has_uv, with_refl, use_eps, t_eps,
+      out_f, out_slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_general_shade(const int* offsets, const int* ids,
+                     const float* origins, const float* dirs,
+                     const int* active, const float* blocks, int num_tiles,
+                     int rays_per_tile, int g, int has_uv, int use_eps,
+                     float t_eps, float* out_f, int* out_slot, void* stream) {
+  if (num_tiles == 0) return 0;
+  const size_t smem = sizeof(float) * 9 * g;
+  general_shade_kernel<<<num_tiles, rays_per_tile, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      offsets, ids, origins, dirs, active, blocks, g, has_uv, use_eps, t_eps,
       out_f, out_slot);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,9 @@ uvs, albedo, textures, eye and orientation (counterpart of
 Which face each ray hits is discrete, so the gradient is taken in two
 parts:
 
-  1. traversal (kernel C) and the shadow test (kernel H) run under
-     ``torch.no_grad()`` on detached tensors; only the integer face ids
-     and the shadow mask go on;
+  1. traversal (kernel C, or E on BRUTE) and the shadow test (kernel H,
+     or E) run under ``torch.no_grad()`` on detached tensors; only the
+     integer face ids and the shadow mask go on;
   2. t, u and v are re-derived from the hit face alone with live
      parameters, and shading interpolates, samples and lights them, so
      autograd reaches every continuous input.
@@ -236,36 +236,45 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
 def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
                         frame_hw) -> torch.Tensor:
     """Discrete directional-light occlusion mask from a traversal `Hit`,
-    without gradients: kernel H over the swept-beam lists.
+    without gradients: kernel E on BRUTE, kernel H over the swept-beam
+    lists on CLUSTER (a frame the tile does not divide is edge-padded and
+    cropped).
 
     The shadow rule is the gradient route's own, not `FrameRenderer`'s:
     origins ``hit point + l * (10 * t_epsilon)`` (no scene-extent
     scaling), active wherever the primary ray hit."""
-    del scene  # the CLUSTER route reads only the clusters
     tc = config.trace
-    if config.accel == AccelKind.BRUTE or accel is None:
-        raise NotImplementedError(
-            "shadows on AccelKind.BRUTE wait for kernel E (the public-API "
-            "slice of the port)")
-    if config.accel != AccelKind.CLUSTER:
+    brute = config.accel == AccelKind.BRUTE or accel is None
+    if not brute and config.accel != AccelKind.CLUSTER:
         raise NotImplementedError(
             f"shadows on {config.accel} wait for slice 6 of the port")
-    tp = tc.dense_tile_px
-    if frame_hw is None or frame_hw[0] % tp or frame_hw[1] % tp:
+    if not brute and frame_hw is None:
         raise NotImplementedError(
-            "shadows for arbitrary ray bundles wait for kernel F (the "
-            "multi-bounce slice of the port)")
-    from ..trace.sweep import occlusion_dense, segment_blocks
-
+            "CLUSTER shadows for ray bundles that are not a pinhole frame "
+            "wait for slice 4 of the port (the silhouette term)")
     with torch.no_grad():
         origin, dirs, l = origin.detach(), dirs.detach(), l.detach()
         hit_mask = hit_nd.hit_mask
         p = origin + dirs * torch.clamp(hit_nd.t, max=1e6)[..., None]
         p = torch.where(hit_mask[..., None], p, origin)
         shadow_origin = p + l * (10 * tc.t_epsilon)
-        mask = occlusion_dense(accel, segment_blocks(accel), shadow_origin,
-                               l, hit_mask, height=frame_hw[0],
-                               width=frame_hw[1], tile_px=tp, trace_cfg=tc)
+        if brute:
+            from ..trace.bruteforce import any_hit_brute
+
+            mask = any_hit_brute(scene.positions.detach(), scene.faces,
+                                 shadow_origin, l.expand(dirs.shape),
+                                 float(FLT_MAX), tc)
+        else:
+            from ..trace.pipeline import crop_frame, pad_frame
+            from ..trace.sweep import occlusion_dense, segment_blocks
+
+            height, width = frame_hw
+            tp = tc.dense_tile_px
+            so, hp, wp = pad_frame(shadow_origin, height, width, tp)
+            act, _, _ = pad_frame(hit_mask, height, width, tp)
+            mask = crop_frame(occlusion_dense(
+                accel, segment_blocks(accel), so, l, act, height=hp,
+                width=wp, tile_px=tp, trace_cfg=tc), height, width, hp, wp)
     return mask & hit_mask
 
 

@@ -1,11 +1,18 @@
-"""Pinhole ray grid and fly-camera orientation (counterpart of
-`raytracercuda_tpu/models/camera.py:25-61`).  The `Camera` object comes
-with the public-API slice of the port."""
+"""Pinhole ray grid, fly-camera orientation and the `Camera` object
+(counterpart of `raytracercuda_tpu/models/camera.py`)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from ..errors import (
+    ERROR_ALL_FINE,
+    ERROR_INVALID_PARAMETER,
+    ERROR_NO_RENDER_TARGET,
+)
 
 
 def camera_ray_grid(
@@ -46,3 +53,57 @@ def orient_from_pan_pitch(pan: float, pitch: float) -> np.ndarray:
     yaw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
     pit = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]], np.float32)
     return yaw @ pit
+
+
+class Camera:
+    """Host-side camera (``ICamera``): a precomputed pinhole ray grid on
+    ``device``; status codes as the reference returns them."""
+
+    def __init__(self, device: torch.device | str = "cpu") -> None:
+        # The reference's defaults, 1000x1000 (`Camera.cpp:33-36`).
+        self.width = 1000
+        self.height = 1000
+        self.device = torch.device(device)
+        self.initial_rays: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def create(device: torch.device | str = "cpu") -> "Camera":
+        return Camera(device)
+
+    def set_initial_rays(self, width: int, height: int, left: float = -1.0,
+                         right: float = 1.0, top: float = 1.0,
+                         bottom: float = -1.0, zoom: float = 1.0) -> int:
+        """Build the ray grid: error 2 on a zero size or a grid that is not
+        finite (`Camera.cpp:43-72`), else 0."""
+        if width == 0 or height == 0:
+            return ERROR_INVALID_PARAMETER
+        if not np.isfinite(np.sqrt(zoom * zoom)):
+            return ERROR_INVALID_PARAMETER
+        self.width = int(width)
+        self.height = int(height)
+        self.initial_rays = camera_ray_grid(width, height, left, right, top,
+                                            bottom, zoom, device=self.device)
+        if not bool(torch.isfinite(self.initial_rays).all()):
+            return ERROR_INVALID_PARAMETER
+        return ERROR_ALL_FINE
+
+    def clear(self, render_target, value: int) -> int:
+        """Fill ``render_target`` with ``value`` through kernel D: error 8
+        without a target, else 0."""
+        if render_target is None:
+            return ERROR_NO_RENDER_TARGET
+        from ..ops.clear import clear_buffer
+
+        render_target.buffer = clear_buffer(
+            render_target.width * render_target.height, value,
+            render_target.device)
+        return ERROR_ALL_FINE
+
+    def trace_scene(self, eye, orient, scene, render_target) -> int:
+        """Forward to ``scene.march``: error 2 on a missing argument or a
+        camera without rays (`Camera.cpp:85-97`)."""
+        if eye is None or orient is None or scene is None:
+            return ERROR_INVALID_PARAMETER
+        if self.width == 0 or self.height == 0 or self.initial_rays is None:
+            return ERROR_INVALID_PARAMETER
+        return scene.march(eye, orient, self, render_target)

@@ -1,10 +1,10 @@
-"""Scene: mesh aggregation into flat tensors on one device (counterpart of
-`raytracercuda_tpu/models/scene.py`).
+"""Scene: mesh aggregation into flat tensors on one device, and the public
+API's ``march`` (counterpart of `raytracercuda_tpu/models/scene.py`).
 
 Every mesh is concatenated into single SoA tensors with a global face
-table, rows ``(i0, i1, i2, mesh_id)``.  The `Scene` here builds the
-CLUSTER structure only; the other backends and ``march`` come with later
-slices of the port.
+table, rows ``(i0, i1, i2, mesh_id)``.  The `Scene` builds the CLUSTER
+structure, or none for BRUTE; BVH, GRID and WAVEFRONT come with slice 6 of
+the port.
 """
 
 from __future__ import annotations
@@ -15,6 +15,11 @@ import numpy as np
 import torch
 
 from ..config import AccelKind, DEFAULT_CONFIG, RenderConfig
+from ..errors import (
+    ERROR_ALL_FINE,
+    ERROR_NO_RENDER_TARGET,
+    ERROR_RT_CAM_MISMATCH,
+)
 from .mesh import Mesh, VERTEX_DATA_COUNT, VERTEX_DATA_POSITION
 
 
@@ -124,14 +129,16 @@ def flatten_meshes(
 
 
 class Scene:
-    """Host-side scene: mesh list + lazily (re)built CLUSTER structure."""
+    """Host-side scene: mesh list + lazily (re)built structure, with the
+    ``IScene`` API (`add_mesh`, `remove_mesh`, `update_gpu_scene`) and
+    ``march``."""
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
                  device: torch.device | str = "cpu"):
-        if config.accel is not AccelKind.CLUSTER:
+        if config.accel not in (AccelKind.CLUSTER, AccelKind.BRUTE):
             raise NotImplementedError(
-                f"the torch port builds AccelKind.CLUSTER only, not "
-                f"{config.accel}")
+                f"{config.accel} waits for slice 6 of the port (the "
+                "remaining backends); the port builds CLUSTER and BRUTE")
         self.config = config
         self.device = torch.device(device)
         self._meshes: list[Mesh] = []
@@ -141,9 +148,24 @@ class Scene:
         self._data: Optional[SceneData] = None
         self._accel = None
 
+    @staticmethod
+    def create(config: RenderConfig = DEFAULT_CONFIG,
+               device: torch.device | str = "cpu") -> "Scene":
+        """``IScene::create``: the structure is chosen by ``config.accel``."""
+        return Scene(config, device)
+
     def add_mesh(self, mesh: Mesh) -> None:
         self._meshes.append(mesh)
         self._dirty = True
+
+    def remove_mesh(self, mesh: Mesh) -> None:
+        """Drop ``mesh`` (the object itself, not an equal one)."""
+        self._meshes = [m for m in self._meshes if m is not mesh]
+        self._dirty = True
+
+    @property
+    def meshes(self) -> list[Mesh]:
+        return list(self._meshes)
 
     def data(self) -> SceneData:
         """Flattened tensors, rebuilt lazily after a mesh change."""
@@ -155,16 +177,37 @@ class Scene:
         return self._data
 
     def update_gpu_scene(self):
-        """Rebuild the cluster structure over the flattened scene."""
-        from ..accel.clusters import build_clusters
-
+        """Rebuild the structure over the flattened scene: the cluster set,
+        or None for BRUTE."""
         data = self.data()
-        self._accel = build_clusters(data.positions, data.faces,
-                                     self.config.cluster)
+        if self.config.accel is AccelKind.CLUSTER:
+            from ..accel.clusters import build_clusters
+
+            self._accel = build_clusters(data.positions, data.faces,
+                                         self.config.cluster)
         return self._accel
 
     @property
     def accel(self):
-        if self._accel is None:
+        if self._accel is None and self.config.accel is not AccelKind.BRUTE:
             self.update_gpu_scene()
         return self._accel
+
+    def march(self, eye, orient, camera, render_target) -> int:
+        """Trace the scene into ``render_target``'s buffer: error 8 without
+        a target, 5 when its size is not the camera's (`Scene.cpp:81-97`),
+        else 0."""
+        if render_target is None:
+            return ERROR_NO_RENDER_TARGET
+        if (render_target.width != camera.width
+                or render_target.height != camera.height):
+            return ERROR_RT_CAM_MISMATCH
+        from ..trace.pipeline import trace_to_buffer
+
+        dev = self.device
+        render_target.buffer = trace_to_buffer(
+            self.data(), self.accel, camera.initial_rays.to(dev),
+            torch.as_tensor(eye, dtype=torch.float32, device=dev),
+            torch.as_tensor(orient, dtype=torch.float32, device=dev),
+            self.config, frame_hw=(camera.height, camera.width))
+        return ERROR_ALL_FINE

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "sweep.cu", _PKG / "csrc" / "scatter.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("sweep.cu", "scatter.cu", "brute.cu", "frame.cu"))
 BUILD_DIR = _PKG / "_build"
 # -fmad=false and IEEE division (no --use_fast_math): every expression
 # rounds as the plain PyTorch versions' separate operations do.
@@ -88,9 +89,13 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64, u32 = ctypes.c_longlong, ctypes.c_uint
     lib.rt_primary_shade.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p, p,
                                      p]
     lib.rt_primary_shade.restype = i
+    lib.rt_general_shade.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p, p,
+                                     p]
+    lib.rt_general_shade.restype = i
     lib.rt_occlusion.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
     lib.rt_occlusion.restype = i
     lib.rt_primary.argtypes = [p, p, p, p, p, i, i, i, i, f, p, p, p]
@@ -99,4 +104,8 @@ def load_library() -> ctypes.CDLL:
     lib.rt_occlusion_rows.restype = i
     lib.rt_scatter_add.argtypes = [p, p, i, i, i, i, p, p]
     lib.rt_scatter_add.restype = i
+    lib.rt_brute.argtypes = [p, p, p, i, i, i, f, p, p, p, p, p]
+    lib.rt_brute.restype = i
+    lib.rt_clear.argtypes = [p, i64, u32, p]
+    lib.rt_clear.restype = i
     return lib

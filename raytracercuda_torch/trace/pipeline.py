@@ -1,10 +1,17 @@
-"""Camera rotation and the closest-hit dispatch (counterpart of
-`raytracercuda_tpu/trace/pipeline.py:22-80`).
+"""Forward render pipeline: camera rays -> closest hit -> shade -> packed
+framebuffer (counterpart of `raytracercuda_tpu/trace/pipeline.py`).
 
-The port traces pinhole frames of a CLUSTER scene through kernel C
-(`sweep.trace_dense`).  The other routes come with later slices of the
-port and raise `NotImplementedError` naming theirs; `trace_to_buffer`
-comes with the public-API slice.
+`trace_hit` dispatches on the configured structure:
+
+  * BRUTE (or no structure) traces every ray against every face through
+    kernel E (`bruteforce.trace_brute`);
+  * CLUSTER traces pinhole frames (all rays leaving ``common_origin``)
+    through kernel C (`sweep.trace_dense`); a frame that the tile does not
+    divide is edge-padded and cropped.
+
+CLUSTER ray bundles that are not a pinhole frame, and the BVH, GRID and
+WAVEFRONT structures, raise `NotImplementedError` naming the slice of the
+port that brings them.
 """
 
 from __future__ import annotations
@@ -25,6 +32,28 @@ def rotate_rays(initial_rays: torch.Tensor,
             + r[:, 2:3] * orient[:, 2])
 
 
+def pad_frame(x: torch.Tensor, height: int, width: int, tile_px: int):
+    """Row-major ``[H*W, ...]`` pixels edge-padded to whole tiles: the last
+    row and column repeat.  Returns ``(x_padded, hp, wp)``."""
+    hp = -(-height // tile_px) * tile_px
+    wp = -(-width // tile_px) * tile_px
+    if (hp, wp) == (height, width):
+        return x, hp, wp
+    img = x.reshape((height, width) + tuple(x.shape[1:]))
+    rows = torch.arange(hp, device=x.device).clamp(max=height - 1)
+    cols = torch.arange(wp, device=x.device).clamp(max=width - 1)
+    return img[rows][:, cols].reshape((hp * wp,) + tuple(x.shape[1:])), hp, wp
+
+
+def crop_frame(x: torch.Tensor, height: int, width: int, hp: int, wp: int):
+    """Inverse of `pad_frame`: drop the padded rows and columns."""
+    if (hp, wp) == (height, width):
+        return x
+    tail = tuple(x.shape[1:])
+    return x.reshape((hp, wp) + tail)[:height, :width].reshape(
+        (height * width,) + tail)
+
+
 def trace_hit(
     scene,
     accel,
@@ -34,27 +63,50 @@ def trace_hit(
     frame_hw: tuple[int, int] | None = None,
     common_origin: torch.Tensor | None = None,
 ) -> Hit:
-    """Closest hit of row-major rays: the CLUSTER pinhole route (a frame
-    of ``frame_hw`` pixels that the tile divides, all rays leaving
-    ``common_origin``) through kernel C."""
-    del scene, origin  # the pinhole route reads the clusters and the eye
+    """Closest hit of row-major rays over the configured structure.
+    ``frame_hw`` + ``common_origin`` mark a pinhole frame, which the
+    CLUSTER route needs."""
     kind = config.accel
     if kind == AccelKind.BRUTE or accel is None:
-        raise NotImplementedError(
-            "AccelKind.BRUTE waits for kernel E (the public-API slice of "
-            "the port)")
+        from .bruteforce import trace_brute
+
+        return trace_brute(scene.positions, scene.faces, origin, direction,
+                           config.trace)
     if kind != AccelKind.CLUSTER:
         raise NotImplementedError(
             f"{kind} waits for slice 6 of the port (the remaining backends)")
-    tp = config.trace.dense_tile_px
-    if (frame_hw is None or common_origin is None
-            or frame_hw[0] % tp or frame_hw[1] % tp):
+    if frame_hw is None or common_origin is None:
         raise NotImplementedError(
-            "arbitrary ray bundles (no common origin, or a frame the "
-            f"{tp}-pixel tile does not divide) wait for kernel F (the "
-            "multi-bounce slice of the port)")
+            "CLUSTER ray bundles that are not a pinhole frame (no frame_hw "
+            "or no common origin) wait for slice 4 of the port (the "
+            "silhouette term, whose edge samples trace them)")
     from .sweep import segment_blocks, trace_dense
 
-    return trace_dense(accel, segment_blocks(accel), common_origin,
-                       direction, height=frame_hw[0], width=frame_hw[1],
-                       tile_px=tp, trace_cfg=config.trace)
+    height, width = frame_hw
+    tp = config.trace.dense_tile_px
+    # Edge-pad a frame the tile does not divide: the repeated edge rays are
+    # valid directions, and their pixels are cropped.
+    dirs, hp, wp = pad_frame(direction, height, width, tp)
+    hit = trace_dense(accel, segment_blocks(accel), common_origin, dirs,
+                      height=hp, width=wp, tile_px=tp, trace_cfg=config.trace)
+    return Hit(*(crop_frame(x, height, width, hp, wp) for x in hit))
+
+
+def trace_to_buffer(
+    scene,
+    accel,
+    initial_rays: torch.Tensor,
+    eye: torch.Tensor,
+    orient: torch.Tensor,
+    config: RenderConfig,
+    frame_hw: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Parity frame: the ``[R]`` packed framebuffer (int64 holding u32)
+    that the reference's march kernels write (`BuildTree.cu:486-496`)."""
+    from .shade import shade_normal_packed
+
+    dirs = rotate_rays(initial_rays, orient)
+    origin = eye[None, :].expand(dirs.shape)
+    hit = trace_hit(scene, accel, origin, dirs, config, frame_hw=frame_hw,
+                    common_origin=eye)
+    return shade_normal_packed(scene, hit)

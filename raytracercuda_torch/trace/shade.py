@@ -1,23 +1,37 @@
 """Shading over `Hit` records (counterpart of
-`raytracercuda_tpu/trace/shade.py:33-57, 60-98, 144-196`): attribute
-interpolation, the float-RGB normal shader, texture sampling, material
-albedo and the generic route of Lambert shading, all differentiable.
-`FaceTables` serves non-differentiating callers and comes with the
-public-API slice of the port."""
+`raytracercuda_tpu/trace/shade.py`): attribute interpolation, the
+bit-parity packed normal shader and its float-RGB twin, texture sampling,
+material albedo, Lambert shading (the generic, differentiable route, and
+the `FaceTables` route for callers that do not differentiate) and
+packing."""
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.interpolate import face_interpolate
-from ..ops.math import normalize
+from ..ops.math import normalize, pack_rgb
 from ..types import Hit
+
+#: The miss colour ``255 << 8`` of the packed normal shader.
+MISS_COLOR_PACKED = 255 << 8
 
 
 def interpolate_slot(scene, hit: Hit, slot: int) -> torch.Tensor:
     return face_interpolate(scene.attrs[slot], scene.faces, hit.face, hit.u,
                             hit.v)
+
+
+def shade_normal_packed(scene, hit: Hit) -> torch.Tensor:
+    """Bit-parity normal shading -> packed framebuffer values (int64):
+    ``|n.z * 255|`` truncated toward zero in the red channel on hits,
+    ``255 << 8`` on misses (`BuildTree.cu:486-496`)."""
+    n = normalize(interpolate_slot(scene, hit, VERTEX_DATA_NORMAL), eps=1e-30)
+    red = (n[..., 2] * 255.0).abs().to(torch.int64) << 16
+    return torch.where(hit.hit_mask, red, MISS_COLOR_PACKED)
 
 
 def shade_normal_rgb(scene, hit: Hit, background=(0.0, 1.0, 0.0)):
@@ -70,16 +84,63 @@ def material_albedo(scene, hit: Hit) -> torch.Tensor:
     return albedo
 
 
+class FaceTables(NamedTuple):
+    """Per-face shading rows: ``rows [F, 13(+6)]`` = n0|n1|n2 (9) | albedo
+    (3) | tex_id (1) | optionally uv0|uv1|uv2 (6), so shading a hit is one
+    row gather.  Built once per scene; not for differentiating through
+    vertex attributes (the generic route keeps the two-level gathers)."""
+
+    rows: torch.Tensor
+
+    @property
+    def has_uv(self) -> bool:
+        return self.rows.shape[1] >= 19
+
+
+def build_face_tables(scene) -> FaceTables:
+    """Per-face shading rows of ``scene`` (once per scene update)."""
+    f = scene.faces.long()
+    n = scene.attrs[VERTEX_DATA_NORMAL]
+    cols = [n[f[:, 0]], n[f[:, 1]], n[f[:, 2]]]
+    mat = scene.mesh_material[f[:, 3]]
+    cols.append(scene.albedo[mat])
+    cols.append(scene.texture_id[mat].to(torch.float32)[:, None])
+    if VERTEX_DATA_UV1 in scene.attrs:
+        uv = scene.attrs[VERTEX_DATA_UV1]
+        cols += [uv[f[:, 0], :2], uv[f[:, 1], :2], uv[f[:, 2], :2]]
+    return FaceTables(rows=torch.cat(cols, dim=1))
+
+
 def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
                       ray_dir: torch.Tensor, light_dir=(0.4, 0.8, -0.45),
                       shadow_mask: torch.Tensor | None = None,
                       ambient: float = 0.08,
-                      background=(0.0, 1.0, 0.0)) -> torch.Tensor:
+                      background=(0.0, 1.0, 0.0),
+                      tables: Optional[FaceTables] = None) -> torch.Tensor:
     """Lambert N·L shading with optional shadow attenuation -> float RGB
-    ``[..., 3]`` (the generic route: interpolate, then shade)."""
+    ``[..., 3]``.  The generic route interpolates, then shades; with
+    ``tables`` (`build_face_tables`) each hit is one row gather."""
     del ray_origin  # the JAX signature's; a directional light needs none
     dev = ray_dir.device
-    n = normalize(interpolate_slot(scene, hit, VERTEX_DATA_NORMAL), eps=1e-30)
+    if tables is not None:
+        row = tables.rows[hit.face.clamp(min=0).long()]
+        w = 1.0 - (hit.u + hit.v)
+        n = (row[:, 0:3] * w[:, None] + row[:, 3:6] * hit.u[:, None]
+             + row[:, 6:9] * hit.v[:, None])
+        albedo = row[:, 9:12]
+        if tables.has_uv:
+            tex_id = row[:, 12].to(torch.int32)
+            uv = (row[:, 13:15] * w[:, None] + row[:, 15:17] * hit.u[:, None]
+                  + row[:, 17:19] * hit.v[:, None])
+            tex_rgb = sample_texture(scene.textures, tex_id, uv[:, 0],
+                                     uv[:, 1])
+            albedo = torch.where((tex_id >= 0)[:, None], albedo * tex_rgb,
+                                 albedo)
+        n = normalize(n, eps=1e-30)
+    else:
+        n = normalize(interpolate_slot(scene, hit, VERTEX_DATA_NORMAL),
+                      eps=1e-30)
+        albedo = None
     # Face the normal against the incoming ray.
     flip = torch.sum(n * ray_dir, dim=-1) > 0.0
     n = torch.where(flip[..., None], -n, n)
@@ -87,7 +148,13 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
     ndotl = torch.clamp(torch.sum(n * l, dim=-1), min=0.0)
     if shadow_mask is not None:
         ndotl = torch.where(shadow_mask, 0.0, ndotl)
-    albedo = material_albedo(scene, hit)
+    if albedo is None:
+        albedo = material_albedo(scene, hit)
     rgb = albedo * (ambient + (1.0 - ambient) * ndotl)[..., None]
     bg = torch.tensor(background, dtype=torch.float32, device=dev)
     return torch.where(hit.hit_mask[..., None], rgb, bg)
+
+
+def pack_shaded(rgb: torch.Tensor) -> torch.Tensor:
+    """Float RGB ``[..., 3]`` -> packed ``0x00RRGGBB`` (int64)."""
+    return pack_rgb(rgb[..., 0], rgb[..., 1], rgb[..., 2])

@@ -1,5 +1,6 @@
-"""Tile sweeps: per-tile cluster lists, kernels A, B, C and H, and their
-plain versions (counterpart of `raytracercuda_tpu/trace/pallas_sweep.py`).
+"""Tile sweeps: per-tile cluster lists, kernels A, B, C, F and H, and
+their plain versions (counterpart of `raytracercuda_tpu/trace/
+pallas_sweep.py`, and of `pallas_bounce.py`'s kernel).
 
 Each 16x16 pixel tile gets the list of clusters that survive its cull, in
 ascending cluster id.  The kernels live in `csrc/sweep.cu`:
@@ -7,6 +8,10 @@ ascending cluster id.  The kernels live in `csrc/sweep.cu`:
   * A (replacing `pallas_sweep._primary_shade_kernel`) finds each ray's
     closest hit over the tile's clusters and interpolates the winner's
     attributes, on planar ``[T, 3, R]`` directions;
+  * F (replacing `pallas_bounce._general_shade_kernel`) is A with planar
+    per-ray origins and an activity mask, always with reflectivity; its
+    entry point, with the cull that feeds it, is
+    `bounce_sweep.trace_shade_general_planar`;
   * B (replacing `pallas_sweep._occlusion_cols_kernel`) answers any-hit
     along one light direction from planar per-ray origins;
   * C (replacing `pallas_sweep._primary_kernel`) is A without the
@@ -65,8 +70,12 @@ SHADE_COLS = 32
 GEOM_COLS = 9
 
 #: Kernel launches per wrapper, counted where the kernel is launched.
-launch_counts = {"primary_shade": 0, "occlusion": 0, "primary": 0,
-                 "occlusion_rows": 0}
+launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
+                 "primary": 0, "occlusion_rows": 0}
+
+#: Tiles a plain version sweeps at once: its ``[n, G, R]`` temporaries then
+#: stay near 33 MB each at G = 128, R = 256, whatever the frame size.
+_PLAIN_TILES = 256
 
 
 def reset_launch_counts() -> None:
@@ -187,13 +196,18 @@ def _mt_cols(tri, ox, oy, oz, dx, dy, dz, t_eps):
     return torch.where(miss, float(FLT_MAX), t), u, v
 
 
-def _listed_blocks(lists: TileLists, blocks: torch.Tensor, r: int):
-    """Tiles with more than ``r`` clusters, and their ``r``-th cluster's
-    v0|e1|e2 columns as nine ``[n, G, 1]`` tensors."""
-    tiles = (lists.counts > r).nonzero()[:, 0]
-    cid = lists.ids[lists.offsets[tiles].long() + r].long()
-    blk = blocks[cid]
-    return tiles, cid, tuple(blk[:, :, k:k + 1] for k in range(9))
+def _rank_chunks(lists: TileLists, blocks: torch.Tensor):
+    """For each list rank ``r``, the tiles listing more than ``r`` clusters,
+    at most `_PLAIN_TILES` at a time: ``(tiles, cid, tri)`` with the
+    ``r``-th cluster's ids and v0|e1|e2 columns as nine ``[n, G, 1]``
+    tensors."""
+    max_count = int(lists.counts.max()) if lists.counts.numel() else 0
+    for r in range(max_count):
+        listing = (lists.counts > r).nonzero()[:, 0]
+        for tiles in listing.split(_PLAIN_TILES):
+            cid = lists.ids[lists.offsets[tiles].long() + r].long()
+            blk = blocks[cid]
+            yield tiles, cid, tuple(blk[:, :, k:k + 1] for k in range(9))
 
 
 def _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl):
@@ -218,10 +232,11 @@ def _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl):
     return [torch.where(hit, o, 0.0) for o in outs]
 
 
-def _closest_plain(lists, eye, d3_tiles, blocks, t_eps):
-    """Closest hit of each ray of planar ``[T, 3, R]`` direction tiles:
-    every listed cluster of a tile at once as a ``[G, R]`` rectangle,
-    first minimum within the cluster, strict ``<`` across clusters
+def _closest_plain(lists, origin, d3_tiles, blocks, t_eps):
+    """Closest hit of each ray of planar ``[T, 3, R]`` direction tiles from
+    the common ``origin [3]`` or planar per-ray origins ``[T, 3, R]``:
+    every listed cluster of a tile at once as a ``[G, R]`` rectangle, first
+    minimum within the cluster, strict ``<`` across clusters
     (`pallas_sweep.py:664-692`).  Returns ``(t, slot, u, v)`` ``[T, R]``."""
     num_tiles, _, R = d3_tiles.shape
     g = blocks.shape[1]
@@ -230,12 +245,17 @@ def _closest_plain(lists, eye, d3_tiles, blocks, t_eps):
     bs = torch.zeros((num_tiles, R), dtype=torch.int32, device=dev)
     bu = torch.zeros((num_tiles, R), device=dev)
     bv = torch.zeros((num_tiles, R), device=dev)
-    ox, oy, oz = eye[0], eye[1], eye[2]
+    per_ray = origin.dim() == 3
     d = d3_tiles[:, :, None, :]  # [T,3,1,R]
-    max_count = int(lists.counts.max()) if num_tiles else 0
-    for r in range(max_count):
-        tiles, cid, tri = _listed_blocks(lists, blocks, r)
+    if per_ray:
+        o = origin[:, :, None, :]
+    else:
+        ox, oy, oz = origin[0], origin[1], origin[2]
+    for tiles, cid, tri in _rank_chunks(lists, blocks):
         dt = d[tiles]
+        if per_ray:
+            ot = o[tiles]
+            ox, oy, oz = ot[:, 0], ot[:, 1], ot[:, 2]
         t, u, v = _mt_cols(tri, ox, oy, oz, dt[:, 0], dt[:, 1], dt[:, 2],
                            t_eps)
         t_blk, j = t.min(dim=1)  # first minimum over the cluster's slots
@@ -266,15 +286,27 @@ def _primary_plain(lists, eye, d_tiles, blocks, t_eps):
     return bt, bu, bv, bs
 
 
+def _general_shade_plain(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
+                         t_eps):
+    """Plain version of kernel F: `_closest_plain` from per-ray origins,
+    inactive rays set to the miss defaults, then the winner's attributes
+    with reflectivity."""
+    bt, bs, bu, bv = _closest_plain(lists, o3_tiles, d3_tiles, blocks, t_eps)
+    bt = torch.where(active, bt, float(FLT_MAX))
+    bs = torch.where(active, bs, 0)
+    bu = torch.where(active, bu, 0.0)
+    bv = torch.where(active, bv, 0.0)
+    attrs = _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, True)
+    return (bt, bs, bu, bv, *attrs)
+
+
 def _occlusion_plain(lists, light, o3_tiles, active, blocks, t_eps):
     """Plain version of kernel B: any hit along ``light`` from each active
     ray's origin over its tile's listed clusters."""
     occ = torch.zeros(active.shape, dtype=torch.bool, device=active.device)
     dx, dy, dz = light[0], light[1], light[2]
     o = o3_tiles[:, :, None, :]  # [T,3,1,R]
-    max_count = int(lists.counts.max()) if active.shape[0] else 0
-    for r in range(max_count):
-        tiles, _, tri = _listed_blocks(lists, blocks, r)
+    for tiles, _, tri in _rank_chunks(lists, blocks):
         ot = o[tiles]
         t, _, _ = _mt_cols(tri, ot[:, 0], ot[:, 1], ot[:, 2], dx, dy, dz,
                            t_eps)
@@ -365,6 +397,35 @@ def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
     return occ > 0
 
 
+def _general_shade_cuda(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
+                        t_eps):
+    """Launch kernel F; outputs as in `_general_shade_plain`."""
+    from ..ops.cuda_build import load_library
+
+    num_tiles, _, R = d3_tiles.shape
+    c, g = blocks.shape[0], blocks.shape[1]
+    dev = d3_tiles.device
+    _check_lists(lists, dev, num_tiles)
+    _check_cuda("o3_tiles", o3_tiles, dev, torch.float32, (num_tiles, 3, R))
+    _check_cuda("d3_tiles", d3_tiles, dev, torch.float32, (num_tiles, 3, R))
+    _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
+    act = active.to(torch.int32)
+    n_f = (12 if has_uv else 9) + 1
+    out_f = torch.empty((n_f, num_tiles, R), dtype=torch.float32, device=dev)
+    out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    err = load_library().rt_general_shade(
+        lists.offsets.data_ptr(), lists.ids.data_ptr(), o3_tiles.data_ptr(),
+        d3_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles, R,
+        g, int(has_uv), int(t_eps is not None),
+        0.0 if t_eps is None else float(t_eps), out_f.data_ptr(),
+        out_slot.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel F launch failed: CUDA error {err}")
+    launch_counts["general_shade"] += 1
+    return (out_f[0], out_slot, *out_f[1:])
+
+
 def _primary_cuda(lists, eye, d_tiles, blocks, t_eps):
     """Launch kernel C; outputs as in `_primary_plain`."""
     from ..ops.cuda_build import load_library
@@ -429,7 +490,9 @@ def _pick(x: torch.Tensor, plain, cuda):
 # ---------------------------------------------------------------------------
 
 
-def _t_eps(trace_cfg: TraceConfig):
+def t_eps_of(trace_cfg: TraceConfig):
+    """The kernels' ``t_eps``: ``t_epsilon`` as float32 when backward hits
+    are clipped, else None."""
     return (np.float32(trace_cfg.t_epsilon) if trace_cfg.clip_backward_hits
             else None)
 
@@ -454,7 +517,7 @@ def trace_shade_tiles_planar(
     run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
     return run(lists, eye.to(torch.float32).contiguous(),
                d3_tiles.contiguous(), shade_blocks, has_uv, with_refl,
-               _t_eps(trace_cfg))
+               t_eps_of(trace_cfg))
 
 
 def occlusion_tiles_planar(
@@ -497,7 +560,7 @@ def trace_tiles(
     run = _pick(d_tiles, _primary_plain, _primary_cuda)
     bt, bu, bv, bs = (x.reshape(-1) for x in run(
         lists, eye.to(torch.float32).contiguous(), d_tiles.contiguous(),
-        tri_blocks, _t_eps(trace_cfg)))
+        tri_blocks, t_eps_of(trace_cfg)))
     # A miss already carries FLT_MAX, u = v = 0 and slot 0.
     face = torch.where(bt < FLT_MAX, cs.face_order[bs.long()], -1)
     return Hit(t=bt, u=bu, v=bv, face=face.to(torch.int32))
