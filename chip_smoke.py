@@ -60,10 +60,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
  20. at 256x144, holds the cluster-route frame against the brute-force
      route's (kernel E): at least 99% of pixels within 1e-4;
  21. times the frame, A, B and F per launch and one `sort_bounces=True`
-     frame.
+     frame;
+ 22. runs config 1 at 256x256: `clear_buffer` (kernel D), `color_gradient`
+     (kernel I) and `blob` at three times (kernel J), requiring each
+     kernel launched;
+ 23. holds I equal to its plain version and to a numpy transcription of
+     `Gradient.cu`, J within 1 per u8 channel of its plain version (and
+     prints how many pixels differ), and requires two times to give two
+     frames;
+ 24. times the config-1 frame (D then I), I and J beside their plain
+     versions over 200 launches (plain 100);
+ 25. writes a textured stand-in for suzanne.obj (15,488 triangles, two
+     materials, a 64x64 24-bit BMP) and loads it through `load_model`,
+     requiring the native OBJ tokenizer;
+ 26. runs the render CLI on it at 512x512 (three frames, 15 degrees of
+     orbit each): lambert-shadow through `FrameRenderer` (A, B; with the
+     per-phase profiler), parity on CLUSTER (C), and parity on BRUTE at
+     256x256 (E), requiring each route's kernels launched;
+ 27. runs the same three CLI calls on the plain versions and holds the
+     PNGs: parity routes equal, lambert-shadow within 1 per u8 channel;
+ 28. runs the fly loop for four frames on BRUTE at 256x256 with a
+     scripted event list, requiring the render targets 1, 2, 0, 1;
+ 29. prints each kernel's time beside its bound: the larger of its FP32
+     operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
+     this run's inputs (ray-triangle tests from the tile lists, 46
+     operations each), and, for D and G, the time of the one PyTorch call
+     that computes the same function (`torch.full`, `index_add_`).
 
 Any failure exits non-zero.  The last two lines of standard output are a
-JSON object of the kernels' counts, errors and times, and
+JSON object of the ten kernels' counts, errors, times and bounds, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -99,6 +124,26 @@ C5_MESHES = (  # (faces, radius, centre, seed)
     (100002, 0.7, (-1.5, 0.6, -0.3), 3),
 )
 C5_SMALL = (256, 144)  # the frame held against the brute-force route
+# Config 1 (scripts/bench_configs.py:67-75): 256x256 full-frame fills.
+C1_SIZE = 256
+BLOB_TIMES = (0.0, 1.25, 2.7)
+# The app path: the render CLI's default size, the fly loop's frames.
+APP_SIZE = 512
+FLY_SIZE = 256
+FLY_FRAMES = 4
+# Bounds (the H100 SXM's published peaks): FP32 outside
+# the tensor cores, and device memory.
+FP32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# FP32 operations of one Moller-Trumbore test in `csrc/sweep.cu:mt` and
+# `csrc/brute.cu`: 45 adds, subtracts and multiplies, one division, and
+# u + v (the comparisons are not counted).
+MT_OPS = 46
+# FP32 operations per pixel of kernel I (a division and a multiply) and of
+# kernel J (`csrc/frame.cu:blob_kernel`, counting min, max, abs and sqrt
+# as one each; sin and cos run once per thread).
+GRADIENT_OPS = 2
+BLOB_OPS = 47
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -143,6 +188,55 @@ def time_once(fn):
     return out, start.elapsed_time(end)
 
 
+def nbytes(*xs) -> int:
+    """Bytes of the tensors in ``xs`` (tensors, or tuples of them such as
+    `TileLists`); other values count 0."""
+    import torch
+
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, tuple):
+            total += nbytes(*x)
+    return total
+
+
+def bound(ops: float, moved: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: the
+    larger of ``ops`` FP32 operations at the FP32 peak and ``moved`` bytes
+    at the device memory rate."""
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sweep_tests(lists, rays_per_tile, g, active=None, occluded=None) -> int:
+    """Ray-triangle tests a tile sweep needs on these inputs: every listed
+    cluster's ``g`` triangles for each ray of its tile (``active`` [T, R]
+    rays only, when given).  For an any-hit sweep (``occluded`` [T, R]),
+    only the rays that find no hit must test the whole list; an occluded
+    ray needs one test."""
+    counts = lists.counts.long()
+    if active is None:
+        return int(counts.sum()) * rays_per_tile * g
+    free = active if occluded is None else active & ~occluded
+    tests = int((counts * free.sum(dim=1)).sum()) * g
+    if occluded is not None:
+        tests += int((active & occluded).sum())
+    return tests
+
+
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
+                  bound_ms_by, library_ms=None) -> dict:
+    """One entry of the kernels line."""
+    bound_ms, bound_by = bound_ms_by
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def rel_err_on_hits(x, y, hit, name: str) -> float:
     """Require ``x`` within 1e-6 relative of ``y`` where ``hit``; returns
     the largest absolute difference there."""
@@ -179,6 +273,83 @@ def occlusion_err(k, p, name: str) -> float:
     check(torch.equal(k, p), f"{name}: masks differ from plain: "
           f"{int((k != p).sum())} rays")
     return float((k.int() - p.int()).abs().max())
+
+
+def write_bmp(path: str, rgb, bpp: int = 24, top_down: bool = False) -> None:
+    """Write ``[H, W, 3]`` uint8 RGB as an uncompressed BMP: 8-bit paletted
+    (at most 256 colours), 24- or 32-bit; rows bottom-up unless
+    ``top_down`` (a negative height)."""
+    import struct
+
+    import numpy as np
+
+    rgb = np.asarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+    palette = b""
+    if bpp == 8:
+        colours, index = np.unique(rgb.reshape(-1, 3), axis=0,
+                                   return_inverse=True)
+        if len(colours) > 256:
+            raise ValueError(f"{len(colours)} colours for an 8-bit BMP")
+        pal = np.zeros((256, 4), np.uint8)
+        pal[:len(colours), :3] = colours[:, ::-1]  # BGRA entries
+        palette = pal.tobytes()
+        px = index.reshape(h, w, 1).astype(np.uint8)
+    elif bpp in (24, 32):
+        px = rgb[..., ::-1]  # BGR
+        if bpp == 32:
+            px = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], 2)
+    else:
+        raise ValueError(f"bpp {bpp}")
+    nch = px.shape[2]
+    rows = np.zeros((h, (w * nch + 3) & ~3), np.uint8)
+    rows[:, :w * nch] = px.reshape(h, w * nch)
+    data = (rows if top_down else rows[::-1]).tobytes()
+    offset = 14 + 40 + len(palette)
+    header = struct.pack("<2sIHHI", b"BM", offset + len(data), 0, 0, offset)
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp,
+                       0, len(data), 2835, 2835, 256 if bpp == 8 else 0, 0)
+    with open(path, "wb") as f:
+        f.write(header + info + palette + data)
+
+
+def write_textured_obj(directory: str, faces: int = C2_SUZANNE,
+                       tex_size: int = 64, seed: int = 0) -> str:
+    """A textured stand-in for suzanne.obj, written into ``directory``:
+    ``bumpy_sphere_mesh(faces)`` at the origin as OBJ text with
+    ``v/vt/vn`` corners; its first half of faces in material ``skin``
+    (Kd 0.9 0.7 0.5, ``map_Kd`` a ``tex_size``² 24-bit BMP of seeded
+    texels), the rest in ``eyes`` (Kd 0.2 0.3 0.8, untextured), both named
+    by one ``mtllib``.  Returns the OBJ's path."""
+    import numpy as np
+
+    from raytracercuda_torch.models.mesh import (VERTEX_DATA_NORMAL,
+                                                 VERTEX_DATA_UV1)
+    from raytracercuda_torch.models.procedural import bumpy_sphere_mesh
+
+    mesh = bumpy_sphere_mesh(faces, center=(0.0, 0.0, 0.0), seed=seed)
+    tri = mesh.indices.reshape(-1, 3).astype(np.int64) + 1
+    write_bmp(os.path.join(directory, "skin.bmp"),
+              np.random.default_rng(seed).integers(
+                  0, 256, (tex_size, tex_size, 3), dtype=np.uint8))
+    with open(os.path.join(directory, "model.mtl"), "w") as f:
+        f.write("newmtl skin\nKd 0.9 0.7 0.5\nmap_Kd skin.bmp\n"
+                "newmtl eyes\nKd 0.2 0.3 0.8\n")
+
+    def rows(tag, a):
+        return [f"{tag} " + " ".join(f"{x:.9g}" for x in r) for r in a]
+
+    half = len(tri) // 2
+    corner = [" ".join(f"{i}/{i}/{i}" for i in t) for t in tri]
+    lines = (["mtllib model.mtl"] + rows("v", mesh.positions)
+             + rows("vt", mesh.vertex_data(VERTEX_DATA_UV1))
+             + rows("vn", mesh.vertex_data(VERTEX_DATA_NORMAL))
+             + ["usemtl skin"] + [f"f {c}" for c in corner[:half]]
+             + ["usemtl eyes"] + [f"f {c}" for c in corner[half:]])
+    path = os.path.join(directory, "model.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
 
 class PhaseClock:
@@ -504,24 +675,45 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         print(f"kernel {name}: {ms:.4f} ms per launch (plain {pms:.4f} ms)")
     clock.done("13 (timing)")
 
+    # Bounds on these inputs.  G's library call: `index_add_` on the same
+    # rows, ids and output (the row layout made outside the timing).
+    c_tests = sweep_tests(c_args[0], c_args[2].shape[1], c_args[3].shape[1])
+    c_bound = bound(c_tests * MT_OPS, nbytes(c_args, kc))
+    h_tests = sweep_tests(h_args[0], h_args[2].shape[1], h_args[4].shape[1],
+                          active=h_args[3], occluded=ph)
+    h_bound = bound(h_tests * MT_OPS, nbytes(h_args) + 4 * ph.numel())
+    print(f"kernel C: {c_tests} ray-triangle tests; kernel H: {h_tests} "
+          f"(rays that find no hit test their whole list)")
+    g_bounds, g_library = [], []
+    for g, idx, rows in g_calls:
+        d = g.shape[1]
+        flat = idx.reshape(-1).long()
+        keep = (flat >= 0) & (flat < rows)
+        src_rows = g.transpose(1, 2).reshape(-1, d)[keep].contiguous()
+        flat = flat[keep].contiguous()
+        out = torch.zeros((rows, d), dtype=torch.float32, device=dev)
+        g_library.append(time_cuda(lambda: out.index_add_(0, flat, src_rows),
+                                   20))
+        # The cotangents of dropped ids (misses) need not be read.
+        kept = int(keep.sum())
+        g_bounds.append(bound(kept * d, 4 * kept * d + nbytes(idx)
+                              + 4 * rows * d))
+    g_bound = (sum(b[0] for b in g_bounds) / len(g_bounds), g_bounds[0][1])
     src = "raytracercuda_torch/csrc/sweep.cu"
     return [
-        {"name": "primary", "route": "cuda", "source": src,
-         "replaces": "raytracercuda_tpu/trace/pallas_sweep.py:118",
-         "launches": prog_launches["primary"] + grad_launches["primary"],
-         "max_abs_err": c_err, "ms": times["C"][0],
-         "plain_ms": times["C"][1]},
-        {"name": "occlusion_rows", "route": "cuda", "source": src,
-         "replaces": "raytracercuda_tpu/trace/pallas_sweep.py:201",
-         "launches": prog_launches["occlusion_rows"]
-         + grad_launches["occlusion_rows"],
-         "max_abs_err": h_err, "ms": times["H"][0],
-         "plain_ms": times["H"][1]},
-        {"name": "scatter_add", "route": "cuda",
-         "source": "raytracercuda_torch/csrc/scatter.cu",
-         "replaces": "raytracercuda_tpu/diff/scatter.py:52",
-         "launches": grad_launches["scatter_add"], "max_abs_err": g_err,
-         "ms": times["G"][0], "plain_ms": times["G"][1]},
+        kernel_record("primary", src,
+                      "raytracercuda_tpu/trace/pallas_sweep.py:118",
+                      prog_launches["primary"] + grad_launches["primary"],
+                      c_err, *times["C"], c_bound),
+        kernel_record("occlusion_rows", src,
+                      "raytracercuda_tpu/trace/pallas_sweep.py:201",
+                      prog_launches["occlusion_rows"]
+                      + grad_launches["occlusion_rows"],
+                      h_err, *times["H"], h_bound),
+        kernel_record("scatter_add", "raytracercuda_torch/csrc/scatter.cu",
+                      "raytracercuda_tpu/diff/scatter.py:52",
+                      grad_launches["scatter_add"], g_err, *times["G"],
+                      g_bound, sum(g_library) / len(g_library)),
     ]
 
 
@@ -553,7 +745,7 @@ def config2_scene(dev, size, suzanne_faces):
 
 def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     """Phases 14-16: config 2's frame through the public API, kernels D
-    and E.  Returns their JSON records."""
+    and E.  Returns their figures for the kernels line, by name."""
     import torch
 
     import raytracercuda_torch as rt
@@ -661,18 +853,17 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     print(f"kernel E: {e_ms:.4f} ms per launch (plain {e_plain_ms:.4f} ms); "
           f"kernel D: {d_ms:.4f} ms (plain {d_plain_ms:.4f} ms)")
     clock.done("16 (config 2 checks, timing)")
-    return [
-        {"name": "clear", "route": "cuda",
-         "source": "raytracercuda_torch/csrc/frame.cu",
-         "replaces": "raytracercuda_tpu/ops/clear.py:21",
-         "launches": launches["clear"], "max_abs_err": 0.0, "ms": d_ms,
-         "plain_ms": d_plain_ms},
-        {"name": "brute", "route": "cuda",
-         "source": "raytracercuda_torch/csrc/brute.cu",
-         "replaces": "raytracercuda_tpu/trace/pallas_brute.py:36",
-         "launches": launches["brute"], "max_abs_err": e_err, "ms": e_ms,
-         "plain_ms": e_plain_ms},
-    ]
+    e_tests = e_args[1].shape[0] * e_args[2].shape[1]
+    print(f"kernel E: {e_tests} ray-triangle tests")
+    # D's plain version is one PyTorch call, `torch.full`: its library time.
+    return {
+        "clear": dict(launches=launches["clear"], err=0.0, ms=d_ms,
+                      plain_ms=d_plain_ms, bound_ms_by=bound(0, 8 * n),
+                      library_ms=d_plain_ms),
+        "brute": dict(launches=launches["brute"], err=e_err, ms=e_ms,
+                      plain_ms=e_plain_ms,
+                      bound_ms_by=bound(e_tests * MT_OPS, nbytes(e_args, ke))),
+    }
 
 
 def config5_scene(dev, meshes):
@@ -850,13 +1041,278 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
           f"{a_ms:.4f} ms (plain {a_plain_ms:.4f} ms, one run), kernel B "
           f"{b_ms:.4f} ms (plain {b_plain_ms:.4f} ms, one run)")
     clock.done("21 (config 5 timing)")
-    f_record = {"name": "general_shade", "route": "cuda",
-                "source": "raytracercuda_torch/csrc/sweep.cu",
-                "replaces": "raytracercuda_tpu/trace/pallas_bounce.py:108",
-                "launches": launches["general_shade"], "max_abs_err": f_err,
-                "ms": f_ms, "plain_ms": f_plain_ms}
+    f_tests = sweep_tests(f_args[0], f_args[2].shape[2], f_args[4].shape[1],
+                          active=f_args[3])
+    print(f"kernel F (bounce 1): {f_tests} ray-triangle tests")
+    f_record = kernel_record(
+        "general_shade", "raytracercuda_torch/csrc/sweep.cu",
+        "raytracercuda_tpu/trace/pallas_bounce.py:108",
+        launches["general_shade"], f_err, f_ms, f_plain_ms,
+        bound(f_tests * MT_OPS, nbytes(f_args, kf)))
     return [f_record], {"primary_shade": (launches["primary_shade"], a_err),
                         "occlusion": (launches["occlusion"], b_err)}
+
+
+def gradient_reference(size: int):
+    """numpy transcription of `Gradient.cu:5-41`: float32 arithmetic as the
+    CUDA kernel computes it, packed pixels as int64."""
+    import numpy as np
+
+    i = np.arange(size)
+    block = size // 6
+    c = (np.float32(255) * ((i % block).astype(np.float32)
+                            / np.float32(block))).astype(np.int64)
+    bands = [c << 16, c << 8, c, (c << 16) | (c << 8), (c << 8) | c,
+             (c << 16) | c]
+    return np.select([i // block == k for k in range(6)], bands, 0)
+
+
+def u8_diff(a, b) -> int:
+    """The largest difference of one u8 channel between packed frames."""
+    return max(int((((a >> s) & 0xFF) - ((b >> s) & 0xFF)).abs().max())
+               for s in (16, 8, 0))
+
+
+def fill_path(dev, clock, card, size=C1_SIZE):
+    """Phases 22-24: config 1's full-frame fills, kernels D, I and J.
+    Returns I's and J's records and D's launches on this path."""
+    import torch
+
+    from raytracercuda_torch.ops import blob, clear, gradient
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    n = size * size
+    times = [torch.tensor([t], dtype=torch.float32, device=dev)
+             for t in BLOB_TIMES]
+
+    # 22. The main path: clear (D), the gradient (I), then the blob (J) at
+    # three times, the first given as a float.
+    for m in (clear, gradient, blob):
+        m.reset_launch_counts()
+    cleared = clear.clear_buffer(n, CLEAR_VALUE, dev)
+    frame = gradient.color_gradient(size, size, dev)
+    blobs = [blob.blob(size, size, BLOB_TIMES[0], dev)]
+    blobs += [blob.blob(size, size, t, dev) for t in times[1:]]
+    sync()
+    launches = {**clear.launch_counts, **gradient.launch_counts,
+                **blob.launch_counts}
+    print(f"config 1 launches: {launches}")
+    check(launches["clear"] > 0, "kernel D never launched")
+    check(launches["gradient"] > 0, "kernel I never launched")
+    check(launches["blob"] == len(BLOB_TIMES), "kernel J launched "
+          f"{launches['blob']} times, not {len(BLOB_TIMES)}")
+    check(torch.equal(cleared, torch.full((n,), CLEAR_VALUE,
+                                          dtype=torch.int64, device=dev)),
+          "kernel D: buffer differs from torch.full")
+    clock.done("22 (config 1 frame)")
+
+    # 23. I against its plain version and `Gradient.cu`; J against its
+    # plain version at each time.
+    check(torch.equal(frame, gradient._gradient_plain(n, dev)),
+          "kernel I differs from its plain version")
+    check(torch.equal(frame.cpu(), torch.from_numpy(gradient_reference(n))),
+          "kernel I differs from the transcription of Gradient.cu")
+    print(f"kernel I equals its plain version and Gradient.cu at "
+          f"{size}x{size}")
+    j_err, j_px = 0, 0
+    for t, k in zip(times, blobs):
+        p = blob._blob_plain(size, size, t)
+        worst = u8_diff(k, p)
+        check(worst <= 1, f"kernel J at time {float(t)}: u8 diff {worst}")
+        j_err, j_px = max(j_err, worst), j_px + int((k != p).sum())
+    print(f"kernel J matches plain at times {BLOB_TIMES}: max u8 diff "
+          f"{j_err}, {j_px} of {len(BLOB_TIMES) * n} pixels differ")
+    check(not torch.equal(blobs[0], blobs[1]),
+          "kernel J: two times give the same frame")
+    clock.done("23 (D, I, J vs plain)")
+
+    # 24. Timing, 200 launches each (plain versions 100).
+    print(f"timing on {card}")
+
+    def config1_frame():
+        clear.clear_buffer(n, CLEAR_VALUE, dev)
+        return gradient.color_gradient(size, size, dev)
+
+    frame_ms = time_cuda(config1_frame, 200)
+    with PlainOnCard({clear: {"_clear_cuda": clear._clear_plain},
+                      gradient: {"_gradient_cuda": gradient._gradient_plain}}):
+        frame_plain_ms = time_cuda(config1_frame, 100)
+    i_ms = time_cuda(lambda: gradient._gradient_cuda(n, dev), 200)
+    i_plain_ms = time_cuda(lambda: gradient._gradient_plain(n, dev), 100)
+    j_ms = time_cuda(lambda: blob._blob_cuda(size, size, times[1]), 200)
+    j_plain_ms = time_cuda(lambda: blob._blob_plain(size, size, times[1]),
+                           100)
+    print(f"config 1 frame ({size}x{size}, clear then gradient): kernel "
+          f"path {frame_ms:.4f} ms, plain path {frame_plain_ms:.4f} ms")
+    clock.done("24 (config 1 timing)")
+    src = "raytracercuda_torch/csrc/frame.cu"
+    return [
+        kernel_record("gradient", src, "raytracercuda_tpu/ops/gradient.py:60",
+                      launches["gradient"], 0.0, i_ms, i_plain_ms,
+                      bound(GRADIENT_OPS * n, 8 * n)),
+        kernel_record("blob", src, "raytracercuda_tpu/ops/blob.py:66",
+                      launches["blob"], float(j_err), j_ms, j_plain_ms,
+                      bound(BLOB_OPS * n, 8 * n + 4)),
+    ], launches["clear"]
+
+
+def read_png(path: str):
+    """``[H, W, 3]`` uint8 pixels of an RGB PNG with unfiltered rows (what
+    `utils/png.write_png` writes)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), f"{path}: filtered rows")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
+             fly_size=FLY_SIZE):
+    """Phases 25-28: the TestProgram path.  A textured stand-in for
+    suzanne.obj through `load_model` (the native tokenizer), the render
+    CLI's three routes (A and B, C, E) held against the same runs on the
+    plain versions, and the fly loop on BRUTE (E).  Returns the launches
+    of A, B, C and E on this path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import raytracercuda_torch as rt
+    from raytracercuda_torch.apps import fly, render_cli
+    from raytracercuda_torch.models import loader
+    from raytracercuda_torch.trace import bruteforce, sweep
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 25. The model, through load_model on the native tokenizer.
+        path = write_textured_obj(tmp, faces, 64)
+        scene = rt.Scene.create(rt.RenderConfig(accel=rt.AccelKind.BRUTE),
+                                device=dev)
+        native = loader.parse_routes["native"]
+        t0 = time.perf_counter()
+        check(loader.load_model(path, scene), "load_model failed")
+        data = scene.data()
+        sync()
+        load_s = time.perf_counter() - t0
+        check(loader.parse_routes["native"] == native + 1,
+              "load_model did not run the native OBJ tokenizer")
+        check(data.num_faces == faces, f"{data.num_faces} faces loaded")
+        print(f"load_model: {data.num_faces} faces, {len(scene.materials)} "
+              f"materials, {len(scene.textures)} texture(s), {load_s:.3f} s "
+              f"(native tokenizer)")
+        clock.done("25 (load_model)")
+
+        # 26. The CLI's routes through the kernels.
+        routes = {  # name: (flags, the kernels the route must launch)
+            "lambert-shadow": (["--accel", "cluster", "--shading",
+                                "lambert-shadow", "--size", str(size)],
+                               ("primary_shade", "occlusion")),
+            "parity": (["--accel", "cluster", "--shading", "parity",
+                        "--size", str(size)], ("primary",)),
+            "brute": (["--accel", "brute", "--shading", "parity", "--size",
+                       str(fly_size)], ("brute",)),
+        }
+        common = ["--frames", str(frames), "--orbit", "15"]
+        launches = {"primary_shade": 0, "occlusion": 0, "primary": 0,
+                    "brute": 0}
+        for name, (flags, kernels) in routes.items():
+            argv = [path, *flags, *common, "-o", os.path.join(tmp, name)]
+            if name == "lambert-shadow":
+                argv.append("--profile")
+            sweep.reset_launch_counts()
+            bruteforce.reset_launch_counts()
+            check(render_cli.main(argv) == 0, f"render CLI ({name}) failed")
+            sync()
+            counts = {**sweep.launch_counts, **bruteforce.launch_counts}
+            print(f"render CLI {name}: launches {counts}")
+            for k in kernels:
+                check(counts[k] > 0, f"render CLI {name}: kernel {k} never "
+                      "launched")
+                launches[k] += counts[k]
+        clock.done("26 (render CLI)")
+
+        # 27. The same runs on the plain versions: parity routes equal,
+        # lambert within 1 per u8 channel.
+        with PlainOnCard({
+                sweep: {"_primary_shade_cuda": sweep._primary_shade_plain,
+                        "_occlusion_cuda": sweep._occlusion_plain,
+                        "_primary_cuda": sweep._primary_plain},
+                bruteforce: {"_brute_cuda": bruteforce._brute_plain}}):
+            for name, (flags, _) in routes.items():
+                check(render_cli.main([path, *flags, *common, "-o",
+                                       os.path.join(tmp, name + "_plain")])
+                      == 0, f"render CLI ({name}, plain) failed")
+        for name in routes:
+            bar = 1 if name == "lambert-shadow" else 0
+            worst, hit = 0, 0.0
+            for f in range(frames):
+                png = f"frame_{f:04d}.png"
+                k = read_png(os.path.join(tmp, name, png)).astype(np.int64)
+                p = read_png(os.path.join(tmp, name + "_plain", png))
+                worst = max(worst, int(np.abs(k - p).max()))
+                hit = max(hit, float((k != k[0, 0]).any(axis=-1).mean()))
+            print(f"render CLI {name}: {frames} frames, max u8 diff to the "
+                  f"plain path {worst} (bar {bar}), up to {hit:.4f} of "
+                  f"pixels off the background")
+            check(worst <= bar, f"render CLI {name}: u8 diff {worst}")
+            check(hit > 0.0, f"render CLI {name}: the model is not in view")
+        clock.done("27 (CLI plain path)")
+
+        # 28. The fly loop on BRUTE with a scripted event list.
+        cam = rt.Camera.create(dev)
+        check(cam.set_initial_rays(fly_size, fly_size) == 0, "fly camera")
+        rts = [rt.RenderTarget.create(fly_size, fly_size, dev)
+               for _ in range(fly.NUM_RT)]
+        check(rts[0].lock() == 0, "fly: lock")
+        lo = data.positions.amin(dim=0).cpu().numpy()
+        hi = data.positions.amax(dim=0).cpu().numpy()
+        state = fly.FlyState((lo + hi) / 2 - np.array(
+            [0.0, 0.0, 2.0 * float(np.max(hi - lo))]))
+        events = {0: [{"event": "keydown", "key": "w"}],
+                  1: [{"event": "mouse", "xrel": 40, "yrel": -12}],
+                  2: [{"event": "keyup", "key": "w"},
+                      {"event": "keydown", "key": "q"}]}
+        seen = []
+        bruteforce.reset_launch_counts()
+        done = fly.run_loop(scene, cam, rts, state, events, FLY_FRAMES, None,
+                            on_frame=lambda f, s, i, buf: seen.append(
+                                (i, float((buf != 255 << 8).mean()))))
+        sync()
+        fly_launches = bruteforce.launch_counts["brute"]
+        print(f"fly loop: {done} frames, render targets "
+              f"{[i for i, _ in seen]}, hit shares "
+              f"{[round(s, 4) for _, s in seen]}, {fly_launches} launches "
+              f"of E, eye {state.pos.tolist()}")
+        check(done == FLY_FRAMES, f"fly loop rendered {done} frames")
+        check([i for i, _ in seen] == [1, 2, 0, 1][:FLY_FRAMES],
+              "fly loop: render-target rotation")
+        check(fly_launches >= FLY_FRAMES, "fly loop: kernel E not launched")
+        check(not any(r.locked for r in rts), "fly loop left a target locked")
+        launches["brute"] += fly_launches
+        clock.done("28 (fly loop)")
+    return launches
 
 
 def main() -> None:
@@ -996,25 +1452,56 @@ def main() -> None:
     clock.done("6 (frame timing)")
 
     c4_kernels = diff_path(dev, clock, card)
-    c2_kernels = api_path(dev, clock, card)
+    c2 = api_path(dev, clock, card)
     c5_kernels, c5_ab = bounce_path(dev, clock, card)
+    c1_kernels, c1_clear = fill_path(dev, clock, card)
+    app = app_path(dev, clock, card)
 
-    # A and B: launches of both paths that run them, the larger error;
-    # times at the bench frame's shapes (config 5's are printed above).
+    # Bounds of A and B on the bench frame's inputs, where their times are
+    # taken (config 5's are printed above).
+    a_tests = sweep_tests(lists, a_args[2].shape[2], a_args[3].shape[1])
+    b_tests = sweep_tests(b_args[0], b_args[2].shape[2], b_args[4].shape[1],
+                          active=b_args[3], occluded=pb)
+    print(f"bench frame: kernel A {a_tests} ray-triangle tests, kernel B "
+          f"{b_tests}")
+    # Launches: every path that runs a kernel; A's and B's error the larger
+    # of the bench frame's and config 5's.
     src = "raytracercuda_torch/csrc/sweep.cu"
-    print(json.dumps({"kernels": [
-        {"name": "primary_shade", "route": "cuda", "source": src,
-         "replaces": "raytracercuda_tpu/trace/pallas_sweep.py:598",
-         "launches": launches["primary_shade"] + c5_ab["primary_shade"][0],
-         "max_abs_err": max(a_err, c5_ab["primary_shade"][1]),
-         "ms": a_ms, "plain_ms": a_plain_ms},
-        {"name": "occlusion", "route": "cuda", "source": src,
-         "replaces": "raytracercuda_tpu/trace/pallas_sweep.py:870",
-         "launches": launches["occlusion"] + c5_ab["occlusion"][0],
-         "max_abs_err": max(b_err, c5_ab["occlusion"][1]),
-         "ms": b_ms, "plain_ms": b_plain_ms},
-        *c4_kernels, *c2_kernels, *c5_kernels,
-    ]}))
+    kernels = [
+        kernel_record("primary_shade", src,
+                      "raytracercuda_tpu/trace/pallas_sweep.py:598",
+                      launches["primary_shade"] + c5_ab["primary_shade"][0]
+                      + app["primary_shade"],
+                      max(a_err, c5_ab["primary_shade"][1]), a_ms, a_plain_ms,
+                      bound(a_tests * MT_OPS, nbytes(a_args, ka))),
+        kernel_record("occlusion", src,
+                      "raytracercuda_tpu/trace/pallas_sweep.py:870",
+                      launches["occlusion"] + c5_ab["occlusion"][0]
+                      + app["occlusion"], max(b_err, c5_ab["occlusion"][1]),
+                      b_ms, b_plain_ms,
+                      bound(b_tests * MT_OPS, nbytes(b_args) + 4 * pb.numel())),
+        *c4_kernels,
+        kernel_record("clear", "raytracercuda_torch/csrc/frame.cu",
+                      "raytracercuda_tpu/ops/clear.py:21",
+                      **{**c2["clear"],
+                         "launches": c2["clear"]["launches"] + c1_clear}),
+        kernel_record("brute", "raytracercuda_torch/csrc/brute.cu",
+                      "raytracercuda_tpu/trace/pallas_brute.py:36",
+                      **{**c2["brute"],
+                         "launches": c2["brute"]["launches"] + app["brute"]}),
+        *c5_kernels, *c1_kernels,
+    ]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["primary"]["launches"] += app["primary"]  # the CLI's parity route
+    print(f"kernels against their bounds on {card}:")
+    for k in kernels:
+        library = k["library_ms"]
+        print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.6f} "
+              f"ms by {k['bound_by']} ({k['bound_ms'] / k['ms']:.2%} of it "
+              f"reached), plain {k['plain_ms']:.4f} ms, library "
+              f"{'none' if library is None else f'{library:.4f} ms'}, "
+              f"{k['launches']} launches")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))

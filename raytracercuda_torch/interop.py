@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .accel.clusters import ClusterSet, edge_rows
+from .device import resolve_device
 from .models.scene import SceneData
 
 
@@ -22,9 +23,10 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 def scene_from_numpy(positions, faces, attrs, mesh_material, albedo,
                      texture_id, textures, reflectivity=None, *,
-                     device: torch.device | str = "cpu") -> SceneData:
+                     device: torch.device | str | None = None) -> SceneData:
     """A port `SceneData` from the fields of a JAX `SceneData` (or any
-    array-likes of the same shapes)."""
+    array-likes of the same shapes), on ``device`` (the card when None)."""
+    device = resolve_device(device)
     return SceneData(
         positions=_tensor(positions, device, np.float32),
         faces=_tensor(faces, device, np.int64),
@@ -40,10 +42,13 @@ def scene_from_numpy(positions, faces, attrs, mesh_material, albedo,
 
 
 def cluster_set_from_numpy(cmin, cmax, tris, face_order, face_rank=None, *,
-                           device: torch.device | str = "cpu") -> ClusterSet:
+                           device: torch.device | str | None = None
+                           ) -> ClusterSet:
     """A port `ClusterSet` from a JAX `ClusterSet`'s cluster boxes, sorted
     triangles, slot -> face table and (when it has one) face -> slot
-    table.  The geometry rows of kernels C and H are derived here."""
+    table, on ``device`` (the card when None).  The geometry rows of
+    kernels C and H are derived here."""
+    device = resolve_device(device)
     tris = _tensor(tris, device, np.float32)
     return ClusterSet(cmin=_tensor(cmin, device, np.float32),
                       cmax=_tensor(cmax, device, np.float32),

@@ -8,6 +8,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..errors import (
     ERROR_ALL_FINE,
     ERROR_INVALID_PARAMETER,
@@ -23,13 +24,15 @@ def camera_ray_grid(
     top: float = 1.0,
     bottom: float = -1.0,
     zoom: float = 1.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
-    """Normalized pinhole ray directions, ``[height*width, 3]`` float32.
+    """Normalized pinhole ray directions, ``[height*width, 3]`` float32, on
+    ``device`` (the card when None).
 
     Pixel centres at half-step offsets, direction ``(rx, ry, zoom) /
     sqrt(zoom^2 + rx^2 + ry^2)``, row-major with y outer; the same
     float32 operations in the same order as the JAX package."""
+    device = resolve_device(device)
     dx = (right - left) / width
     dy = (bottom - top) / height
     rx = left + dx * (torch.arange(width, dtype=torch.float32, device=device)
@@ -59,15 +62,15 @@ class Camera:
     """Host-side camera (``ICamera``): a precomputed pinhole ray grid on
     ``device``; status codes as the reference returns them."""
 
-    def __init__(self, device: torch.device | str = "cpu") -> None:
+    def __init__(self, device: torch.device | str | None = None) -> None:
         # The reference's defaults, 1000x1000 (`Camera.cpp:33-36`).
         self.width = 1000
         self.height = 1000
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.initial_rays: Optional[torch.Tensor] = None
 
     @staticmethod
-    def create(device: torch.device | str = "cpu") -> "Camera":
+    def create(device: torch.device | str | None = None) -> "Camera":
         return Camera(device)
 
     def set_initial_rays(self, width: int, height: int, left: float = -1.0,

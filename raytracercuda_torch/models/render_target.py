@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from ..errors import ERROR_ALL_FINE, ERROR_LOCK_FIRST, ERROR_UNLOCK_FIRST
 
 
@@ -21,19 +22,20 @@ class RenderTarget:
     _current: Optional["RenderTarget"] = None
 
     def __init__(self, width: int, height: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.width = int(width)
         self.height = int(height)
         self.pitch = self.width * 4  # bytes per row, RGBA8 as in the GL TBO
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.buffer = torch.zeros(self.width * self.height, dtype=torch.int64,
                                   device=self.device)
         self._locked = False
 
     @staticmethod
     def create(width: int, height: int,
-               device: torch.device | str = "cpu") -> "RenderTarget":
-        """Allocate a ``width x height`` framebuffer on ``device``."""
+               device: torch.device | str | None = None) -> "RenderTarget":
+        """Allocate a ``width x height`` framebuffer on ``device`` (the card
+        when None)."""
         return RenderTarget(width, height, device)
 
     def lock(self) -> int:

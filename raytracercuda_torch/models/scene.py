@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import AccelKind, DEFAULT_CONFIG, RenderConfig
+from ..device import resolve_device
 from ..errors import (
     ERROR_ALL_FINE,
     ERROR_NO_RENDER_TARGET,
@@ -59,9 +60,11 @@ def flatten_meshes(
     meshes: list[Mesh],
     materials: Optional[list[Material]] = None,
     textures: Optional[list[np.ndarray]] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> SceneData:
-    """Concatenate meshes into one SoA scene on ``device``."""
+    """Concatenate meshes into one SoA scene on ``device`` (the card when
+    None)."""
+    device = resolve_device(device)
     if not meshes:
         raise ValueError("scene has no meshes")
     if materials is None:
@@ -134,13 +137,13 @@ class Scene:
     ``march``."""
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         if config.accel not in (AccelKind.CLUSTER, AccelKind.BRUTE):
             raise NotImplementedError(
                 f"{config.accel} waits for slice 6 of the port (the "
                 "remaining backends); the port builds CLUSTER and BRUTE")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._meshes: list[Mesh] = []
         self.materials: list[Material] = [Material()]
         self.textures: list[np.ndarray] = []
@@ -150,8 +153,9 @@ class Scene:
 
     @staticmethod
     def create(config: RenderConfig = DEFAULT_CONFIG,
-               device: torch.device | str = "cpu") -> "Scene":
-        """``IScene::create``: the structure is chosen by ``config.accel``."""
+               device: torch.device | str | None = None) -> "Scene":
+        """``IScene::create``: the structure is chosen by ``config.accel``;
+        tensors on ``device``, the card when None."""
         return Scene(config, device)
 
     def add_mesh(self, mesh: Mesh) -> None:

@@ -1,0 +1,104 @@
+"""Animated rounded-square SDF "blob", kernel J (counterpart of
+`raytracercuda_tpu/ops/blob.py`).
+
+The reference's procedural-animation test (`Blob.cu:5-69`): a rotating
+rounded-square signed distance field, smoothstep-mixed with red over a
+vignetted white background.  The time is a runtime value: kernel J
+(`csrc/frame.cu:blob_kernel`, replacing `blob.blob`'s inline kernel) reads
+it from a one-element float32 tensor on the card, so a new time neither
+rebuilds nor syncs the host.  `blob` runs the plain PyTorch version for
+the CPU and launches kernel J on a GPU; there is no fallback from one to
+the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from .math import pack_rgb
+
+#: Kernel launches, counted where the kernel is launched.
+launch_counts = {"blob": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _square_sdf(ux, uy, hx, hy):
+    """`Blob.cu:5-11`: rounded-square distance."""
+    dx = torch.abs(ux) - hx
+    dy = torch.abs(uy) - hy
+    t = torch.clamp(torch.maximum(dx, dy), max=0.0)
+    lx = torch.clamp(dx, min=0.0)
+    ly = torch.clamp(dy, min=0.0)
+    return t + torch.sqrt(lx * lx + ly * ly)
+
+
+def _smoothstep(e0, e1, x):
+    t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def blob_values(i: torch.Tensor, w: int, h: int,
+                time: torch.Tensor) -> torch.Tensor:
+    """Packed pixels (int64) for linear indices ``i`` at ``time`` (a
+    float32 tensor of one element) (`Blob.cu:27-58`)."""
+    size = w * h
+    i = torch.clamp(i, max=size)
+    ux = (i % w).to(torch.float32) - (w // 2)
+    uy = (i // w).to(torch.float32) - (h // 2)
+    s, c = torch.sin(time), torch.cos(time)
+    rx = c * ux - s * uy
+    ry = s * ux + c * uy
+    ry = ry * 2.0
+    d = _square_sdf(rx, ry, 100.0, 100.0)
+    f = 1.0 - _smoothstep(-1.0, 1.0, d)
+    # A divisor tensor, not a scalar: on the card torch turns division by a
+    # scalar into a multiply by its reciprocal, which rounds otherwise.
+    shade = 1.0 - torch.clamp(d / torch.full_like(d, 1500.0), 0.0, 1.0)
+    bg = shade * shade  # pow(s, 2) * white background
+    # mix(bg, red, f) componentwise: red = (1, 0, 0).
+    mr = bg * (1.0 - f) + 1.0 * f
+    mg = bg * (1.0 - f)
+    mb = bg * (1.0 - f)
+    return pack_rgb(mr, mg, mb)
+
+
+def _blob_plain(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
+    return blob_values(torch.arange(width * height, device=time.device),
+                       width, height, time)
+
+
+def _blob_cuda(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
+    """Launch kernel J; output as in `_blob_plain`."""
+    from ..trace.sweep import _check_cuda
+    from .cuda_build import load_library
+
+    dev = time.device
+    _check_cuda("time", time, dev, torch.float32, (1,))
+    out = torch.empty(width * height, dtype=torch.int64, device=dev)
+    err = load_library().rt_blob(
+        out.data_ptr(), width, height, time.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel J launch failed: CUDA error {err}")
+    launch_counts["blob"] += 1
+    return out
+
+
+def blob(width: int, height: int, time,
+         device: torch.device | str | None = None) -> torch.Tensor:
+    """``bmStartBlob``: the ``[width*height]`` int64 frame at ``time`` on
+    ``device`` (the card when None).  ``time`` is a float, copied to the
+    device as float32, or a tensor of one element, used in place when it
+    is float32 on the device already."""
+    device = resolve_device(device)
+    if isinstance(time, torch.Tensor):
+        t = time.to(device=device, dtype=torch.float32).reshape(1)
+    else:
+        t = torch.tensor([float(time)], dtype=torch.float32, device=device)
+    run = _blob_plain if device.type == "cpu" else _blob_cuda
+    return run(int(width), int(height), t)

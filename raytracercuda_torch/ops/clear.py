@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
+
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"clear": 0}
 
@@ -43,9 +45,10 @@ def _clear_cuda(num_pixels: int, value: int, device) -> torch.Tensor:
 
 
 def clear_buffer(num_pixels: int, value: int,
-                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """A ``[num_pixels]`` int64 framebuffer of the u32 ``value``."""
-    device = torch.device(device)
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    """A ``[num_pixels]`` int64 framebuffer of the u32 ``value`` on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     value = int(value) & 0xFFFFFFFF  # the JAX package's uint32 cast
     run = _clear_plain if device.type == "cpu" else _clear_cuda
     return run(int(num_pixels), value, device)

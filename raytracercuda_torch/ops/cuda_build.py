@@ -108,4 +108,8 @@ def load_library() -> ctypes.CDLL:
     lib.rt_brute.restype = i
     lib.rt_clear.argtypes = [p, i64, u32, p]
     lib.rt_clear.restype = i
+    lib.rt_gradient.argtypes = [p, i64, p]
+    lib.rt_gradient.restype = i
+    lib.rt_blob.argtypes = [p, i, i, p, p]
+    lib.rt_blob.restype = i
     return lib

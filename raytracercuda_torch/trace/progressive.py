@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..device import resolve_device
 from ..diff.render_grad import render_rgb
 
 
@@ -45,10 +46,12 @@ def jittered_ray_grid(
     top: float = 1.0,
     bottom: float = -1.0,
     zoom: float = 1.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Pinhole grid ``[H*W, 3]`` sampled at sub-pixel offset (jx, jy) in
-    [0, 1) instead of the pixel centres (`camera_ray_grid`)."""
+    [0, 1) instead of the pixel centres (`camera_ray_grid`), on ``device``
+    (the card when None)."""
+    device = resolve_device(device)
     dx = (right - left) / width
     dy = (bottom - top) / height
     jx = torch.tensor(jitter_x, dtype=torch.float32, device=device)
@@ -74,10 +77,12 @@ class ProgressiveState(NamedTuple):
         return self.accum / float(max(self.count, 1))
 
 
-def init_progressive(num_rays: int,
-                     device: torch.device | str = "cpu") -> ProgressiveState:
+def init_progressive(num_rays: int, device: torch.device | str | None = None
+                     ) -> ProgressiveState:
+    """An empty accumulation on ``device`` (the card when None)."""
     return ProgressiveState(
-        accum=torch.zeros((num_rays, 3), dtype=torch.float32, device=device),
+        accum=torch.zeros((num_rays, 3), dtype=torch.float32,
+                          device=resolve_device(device)),
         count=0)
 
 

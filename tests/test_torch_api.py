@@ -52,6 +52,12 @@ from raytracercuda_torch.types import Hit
 EYE = np.array([0.0, 0.0, -2.1], np.float32)  # the reference's start pose
 
 
+def cpu(pkg) -> dict:
+    """The keyword that puts the port's objects on the CPU (the JAX
+    package's constructors take none)."""
+    return {"device": "cpu"} if pkg is trt else {}
+
+
 # ---------------------------------------------------------------------------
 # Kernel D and the status codes.
 # ---------------------------------------------------------------------------
@@ -62,7 +68,7 @@ def test_clear_buffer_matches_jax(num_pixels):
     value = 0xFF00FF00
     want = np.asarray(jax_clear(num_pixels, jnp.uint32(value)))
     tclear.reset_launch_counts()
-    got = tclear.clear_buffer(num_pixels, value)
+    got = tclear.clear_buffer(num_pixels, value, "cpu")
     assert tclear.launch_counts["clear"] == 0  # CPU: the plain version
     assert got.dtype == torch.int64 and got.shape == (num_pixels,)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
@@ -76,7 +82,7 @@ def test_clear_kernel_wrapper_rejects_cpu():
 
 def test_render_target_lock_state_machine():
     for pkg in (jrt, trt):
-        rt = pkg.RenderTarget.create(8, 8)
+        rt = pkg.RenderTarget.create(8, 8, **cpu(pkg))
         assert pkg.RenderTarget.get() is None
         assert rt.lock() == pkg.ERROR_ALL_FINE
         assert pkg.RenderTarget.get() is rt and rt.locked
@@ -84,27 +90,27 @@ def test_render_target_lock_state_machine():
         assert rt.unlock() == pkg.ERROR_ALL_FINE
         assert rt.unlock() == pkg.ERROR_LOCK_FIRST
         assert pkg.RenderTarget.get() is None
-    assert trt.RenderTarget.create(4, 3).image().shape == (3, 4)
+    assert trt.RenderTarget.create(4, 3, "cpu").image().shape == (3, 4)
 
 
 def test_camera_validation_matches_jax():
     cases = [(0, 10), (10, 0), (16, 16), (8, 6, -1, 1, -1, 1, 2.0),
              (4, 4, -1, 1, 1, -1, float("inf"))]
     for args in cases:
-        jcam, tcam = jrt.Camera.create(), trt.Camera.create()
+        jcam, tcam = jrt.Camera.create(), trt.Camera.create("cpu")
         code = jcam.set_initial_rays(*args)
         assert tcam.set_initial_rays(*args) == code, args
         assert (tcam.width, tcam.height) == (jcam.width, jcam.height)
         if code == jrt.ERROR_ALL_FINE:
             np.testing.assert_array_equal(tcam.initial_rays.numpy(),
                                           np.asarray(jcam.initial_rays))
-    assert trt.Camera.create().set_initial_rays(0, 10) \
+    assert trt.Camera.create("cpu").set_initial_rays(0, 10) \
         == trt.ERROR_INVALID_PARAMETER
 
 
 def test_camera_clear_codes():
-    cam = trt.Camera.create()
-    rt = trt.RenderTarget.create(4, 4)
+    cam = trt.Camera.create("cpu")
+    rt = trt.RenderTarget.create(4, 4, "cpu")
     assert cam.clear(None, 5) == trt.ERROR_NO_RENDER_TARGET
     assert cam.clear(rt, 0x123456) == trt.ERROR_ALL_FINE
     assert (rt.buffer == 0x123456).all() and rt.buffer.shape == (16,)
@@ -127,18 +133,19 @@ def tri_mesh(pkg_mesh):
 def march_codes(pkg):
     """The status codes of `test_scene_api.test_march_validation_codes`'s
     cases and of the camera's own checks, in order."""
-    s = pkg.Scene.create(pkg.RenderConfig(accel=pkg.AccelKind.BRUTE))
+    kw = cpu(pkg)
+    s = pkg.Scene.create(pkg.RenderConfig(accel=pkg.AccelKind.BRUTE), **kw)
     s.add_mesh(tri_mesh(pkg.Mesh))
-    cam = pkg.Camera.create()
+    cam = pkg.Camera.create(**kw)
     codes = [cam.trace_scene(np.zeros(3), np.eye(3), s,
-                             pkg.RenderTarget.create(8, 8)),  # no rays yet
+                             pkg.RenderTarget.create(8, 8, **kw)),  # no rays yet
              cam.set_initial_rays(8, 8),
              cam.trace_scene(np.zeros(3), np.eye(3), s, None),
              cam.trace_scene(np.zeros(3), np.eye(3), s,
-                             pkg.RenderTarget.create(16, 8)),
+                             pkg.RenderTarget.create(16, 8, **kw)),
              cam.trace_scene(None, np.eye(3), s, None),
              cam.trace_scene(np.zeros(3), np.eye(3), None, None)]
-    rt = pkg.RenderTarget.create(8, 8)
+    rt = pkg.RenderTarget.create(8, 8, **kw)
     codes.append(cam.trace_scene(np.zeros(3), np.eye(3), s, rt))
     return codes, np.asarray(rt.image()).astype(np.int64)
 
@@ -152,7 +159,7 @@ def test_march_validation_codes_match_jax():
 
 
 def test_scene_backends_and_meshes():
-    s = trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.BRUTE))
+    s = trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.BRUTE), "cpu")
     a, b = tri_mesh(trt.Mesh), tri_mesh(trt.Mesh)
     s.add_mesh(a)
     s.add_mesh(b)
@@ -161,13 +168,13 @@ def test_scene_backends_and_meshes():
     s.remove_mesh(a)
     assert len(s.meshes) == 1 and s.meshes[0] is b
     assert s.data().faces.shape == (1, 4)
-    c = trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.CLUSTER))
+    c = trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.CLUSTER), "cpu")
     c.add_mesh(b)
     assert c.accel.num_clusters == 1
     for kind in (trt.AccelKind.BVH, trt.AccelKind.GRID,
                  trt.AccelKind.WAVEFRONT):
         with pytest.raises(NotImplementedError, match="slice 6"):
-            trt.Scene.create(trt.RenderConfig(accel=kind))
+            trt.Scene.create(trt.RenderConfig(accel=kind), "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -178,16 +185,16 @@ def test_scene_backends_and_meshes():
 def api_scene(pkg, proc, config):
     """Config 2's scene at a small size: a bumpy sphere at the origin and
     the reference's quad behind it."""
-    scene = pkg.Scene.create(config)
+    scene = pkg.Scene.create(config, **cpu(pkg))
     scene.add_mesh(proc.bumpy_sphere_mesh(600, center=(0.0, 0.0, 0.0)))
     scene.add_mesh(proc.quad_mesh(z=2.5))
     return scene
 
 
 def api_frame(pkg, scene, height, width, orient):
-    cam = pkg.Camera.create()
+    cam = pkg.Camera.create(**cpu(pkg))
     assert cam.set_initial_rays(width, height, -1, 1, -1, 1, 1) == 0
-    rt = pkg.RenderTarget.create(width, height)
+    rt = pkg.RenderTarget.create(width, height, **cpu(pkg))
     assert rt.lock() == 0
     assert cam.trace_scene(EYE, orient, scene, rt) == 0
     assert rt.unlock() == 0
@@ -238,7 +245,7 @@ def test_trace_scene_matches_jax(case):
 
 def test_bundle_without_common_origin_raises():
     ts = api_scene(trt, tproc, trt.RenderConfig(accel=trt.AccelKind.CLUSTER))
-    dirs = trt.camera_ray_grid(16, 16)
+    dirs = trt.camera_ray_grid(16, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         tpipe.trace_hit(ts.data(), ts.accel, torch.zeros_like(dirs), dirs,
                         ts.config)

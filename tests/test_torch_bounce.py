@@ -223,7 +223,7 @@ def test_general_shade_from_eye_equals_primary():
     jc = jax_build(js.positions, js.faces, ClusterConfig(cluster_size=128))
     tc = torch_clusters(jc)
     blocks, has_uv = tsweep.shade_segment_blocks(tc, ts)
-    d3 = tbounce.tile_pixels_planar(camera_ray_grid(48, 48).T, 48, 48, 16)
+    d3 = tbounce.tile_pixels_planar(camera_ray_grid(48, 48, device="cpu").T, 48, 48, 16)
     eye = torch.tensor([0.1, -0.2, 0.0])
     primary = tsweep.trace_shade_tiles_planar(tc, blocks, has_uv, eye, d3,
                                               with_refl=True)
@@ -268,7 +268,7 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 def port_frame(ts, tc, side_h, side_w, use_brute=False, **kw):
     return render_bounces(tc, ts, torch.zeros(3),
-                          camera_ray_grid(side_w, side_h), side_h, side_w,
+                          camera_ray_grid(side_w, side_h, device="cpu"), side_h, side_w,
                           torch_config(), use_brute=use_brute, **kw).numpy()
 
 
@@ -322,11 +322,11 @@ def test_sorted_bounces_match_jax():
     kw = dict(num_bounces=2, trace_cfg=TraceConfig())
     got = tbounce.render_bounces_tiled(
         tc, tblocks, has_uv, ts.textures, torch.zeros(3),
-        camera_ray_grid(32, 32), 32, 32, sort_bounces=True, **kw).numpy()
+        camera_ray_grid(32, 32, device="cpu"), 32, 32, sort_bounces=True, **kw).numpy()
     assert_frames_close(got, want, "port sorted bounces vs JAX")
     unsorted = tbounce.render_bounces_tiled(
         tc, tblocks, has_uv, ts.textures, torch.zeros(3),
-        camera_ray_grid(32, 32), 32, 32, **kw).numpy()
+        camera_ray_grid(32, 32, device="cpu"), 32, 32, **kw).numpy()
     np.testing.assert_array_equal(got, unsorted)
 
 

@@ -281,7 +281,7 @@ def test_zero_det_gradients_finite(tiled):
     assert int(cs.face_order[0]) == 0  # the flat triangle is slot 0
     if not tiled:
         cs = cs._replace(face_rank=None)
-    rays = rays_fn(side, side).clone()
+    rays = rays_fn(side, side, device="cpu").clone()
     rays[: 4 * side, 1] = 0.0  # four rows of rays parallel to y = -5
     eye = torch.tensor(EYE[:1] + (0.0,) + EYE[2:])  # eye in the plane y=0
     ids = trg.hit_ids_nondiff(ts, cs, eye.expand(rays.shape), rays, cfg,

@@ -57,7 +57,7 @@ def test_frame_matches_jax(case):
                                                 tcfg.cluster),
                              tcfg, SIDE, SIDE, shadows=shadows)
     got = renderer.render(torch.zeros(3), torch.from_numpy(orient),
-                          camera_ray_grid(SIDE, SIDE))
+                          camera_ray_grid(SIDE, SIDE, device="cpu"))
     assert got.shape == (SIDE * SIDE,) and got.dtype == torch.int64
     want = np.asarray(want)
     assert_u8_close(got.numpy(), want)

@@ -79,7 +79,7 @@ def test_normalize_and_tri_intersect():
 @pytest.mark.parametrize("args", [
     (64, 64), (48, 32, -1.0, 1.0, 0.75, -0.75, 1.5)])
 def test_camera_ray_grid(args):
-    np.testing.assert_allclose(tcam.camera_ray_grid(*args).numpy(),
+    np.testing.assert_allclose(tcam.camera_ray_grid(*args, device="cpu").numpy(),
                                np.asarray(jcam.camera_ray_grid(*args)),
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(tcam.orient_from_pan_pitch(0.3, -0.2),
@@ -149,7 +149,7 @@ def test_flatten_meshes():
     tmats = [tscene.Material(m[:3], m[3], m[4]) for m in mats]
     tex = [np.random.default_rng(7).random((4, 6, 3))]
     want = jscene.flatten_meshes(jm, jmats, tex)
-    got = tscene.flatten_meshes(tm, tmats, tex)
+    got = tscene.flatten_meshes(tm, tmats, tex, device="cpu")
     for k in ("positions", "faces", "mesh_material", "albedo", "texture_id",
               "textures", "reflectivity"):
         np.testing.assert_array_equal(getattr(got, k).numpy(),

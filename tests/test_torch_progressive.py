@@ -39,7 +39,7 @@ def test_halton_matches_jax(base):
 def test_jittered_ray_grid_matches_jax(jitter):
     jx, jy = (np.float32(j) for j in jitter)
     want = np.asarray(jprog.jittered_ray_grid(48, 32, jx, jy, zoom=1.3))
-    got = tprog.jittered_ray_grid(48, 32, jx, jy, zoom=1.3)
+    got = tprog.jittered_ray_grid(48, 32, jx, jy, zoom=1.3, device="cpu")
     assert got.shape == (48 * 32, 3) and got.dtype == torch.float32
     # One ulp apart in places, as `camera_ray_grid` is: XLA rounds the
     # 1/sqrt otherwise.
@@ -60,7 +60,7 @@ EYE = np.asarray([0.05, -0.02, 1.0], np.float32)
 def test_two_progressive_steps_match_jax():
     js, ts, jc, tc, jcfg, tcfg, side = setup()
     jstate = jprog.init_progressive(side * side)
-    tstate = tprog.init_progressive(side * side)
+    tstate = tprog.init_progressive(side * side, device="cpu")
     tsweep.reset_launch_counts()
     for _ in range(2):
         jstate = jprog.progressive_step(jstate, js, jc, jnp.asarray(EYE),
@@ -74,7 +74,7 @@ def test_two_progressive_steps_match_jax():
     want = np.asarray(jstate.image)
     np.testing.assert_allclose(tstate.image.numpy(), want, rtol=0, atol=1e-5)
     # The jitter moved the samples: the two frames differ.
-    first = tprog.progressive_step(tprog.init_progressive(side * side), ts,
+    first = tprog.progressive_step(tprog.init_progressive(side * side, "cpu"), ts,
                                    tc, torch.from_numpy(EYE), torch.eye(3),
                                    side, side, tcfg, with_shadows=True)
     assert (first.image - tstate.image).abs().max() > 1e-2
@@ -86,8 +86,8 @@ def test_gradients_flow_through_progressive_step():
     tex = ts.textures.clone().requires_grad_()
     eye = torch.from_numpy(EYE).requires_grad_()
     state = tprog.progressive_step(
-        tprog.init_progressive(side * side), ts._replace(positions=p,
-                                                         textures=tex),
+        tprog.init_progressive(side * side, "cpu"),
+        ts._replace(positions=p, textures=tex),
         tc, eye, torch.eye(3), side, side, tcfg, with_shadows=True)
     (state.image ** 2).mean().backward()
     for g in (p.grad, tex.grad, eye.grad):

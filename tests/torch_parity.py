@@ -3,8 +3,9 @@ JAX package: one numpy scene feeds both sides, JAX runs its Pallas
 kernels in interpret mode, the port runs its kernels' plain versions on
 the CPU.
 
-Importing this module checks that the port's sources never import jax,
-before any test file imports the port.
+Importing this module checks that the port's sources and `chip_smoke.py`
+import neither jax nor the JAX package, before any test file imports the
+port.
 """
 
 from __future__ import annotations
@@ -20,20 +21,23 @@ import torch
 # one thread per core would oversubscribe them.
 torch.set_num_threads(1)
 
-PORT_DIR = pathlib.Path(__file__).resolve().parent.parent / "raytracercuda_torch"
-_JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+REPO_DIR = pathlib.Path(__file__).resolve().parent.parent
+PORT_DIR = REPO_DIR / "raytracercuda_torch"
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|raytracercuda_tpu)\b", re.M)
 
 
 def port_files_importing_jax() -> list[str]:
-    """The port's ``.py`` sources that import jax (should be none)."""
-    return sorted(str(p.relative_to(PORT_DIR))
-                  for p in PORT_DIR.rglob("*.py")
+    """The port's ``.py`` sources and `chip_smoke.py` that import jax or the
+    JAX package (should be none)."""
+    files = [*PORT_DIR.rglob("*.py"), REPO_DIR / "chip_smoke.py"]
+    return sorted(str(p.relative_to(REPO_DIR)) for p in files
                   if _JAX_IMPORT.search(p.read_text()))
 
 
 _offenders = port_files_importing_jax()
 if _offenders:
-    raise ImportError(f"raytracercuda_torch imports jax in {_offenders}")
+    raise ImportError(f"jax or raytracercuda_tpu imported in {_offenders}")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -77,14 +81,14 @@ def jax_scene(fields: dict) -> JaxSceneData:
 
 
 def torch_scene(fields: dict):
-    return interop.scene_from_numpy(**fields)
+    return interop.scene_from_numpy(**fields, device="cpu")
 
 
 def torch_clusters(cs):
     """The port's `ClusterSet` from a JAX `ClusterSet`."""
     return interop.cluster_set_from_numpy(
         np.asarray(cs.cmin), np.asarray(cs.cmax), np.asarray(cs.tris),
-        np.asarray(cs.face_order), np.asarray(cs.face_rank))
+        np.asarray(cs.face_order), np.asarray(cs.face_rank), device="cpu")
 
 
 def jax_config(list_width: int = 32) -> RenderConfig:
