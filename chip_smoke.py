@@ -26,15 +26,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      least two launches of kernel G;
  10. holds C, H and G against their plain versions on the inputs of
      phases 8-9 (C: slots equal, t/u/v within 1e-6 relative on hits; H:
-     equal masks; G: |k - p| <= 1e-5 max|p| + 1e-6, and whether two runs
-     of G are bitwise equal);
+     equal masks; G: rows no ray names exactly 0.0, the rest within
+     |k - p| <= 1e-5 max|p| + 1e-6, and whether two runs of G are bitwise
+     equal), and G on three synthetic cases (`G_CASES`: 22 columns with
+     ragged rows and ids out of range on both sides, 7 columns at the
+     scalar atomic width, a warp whose ids are all equal);
  11. takes the grad step with the plain versions on the card: equal ids,
      shadow masks and images, gradients within G's summation-order bar;
  12. takes five Adam steps (lr 1e-2) on positions and textures from a
      perturbed texture toward the image of the true one, and requires the
      loss after them to be below the loss before them;
  13. times the progressive and grad steps on both paths and C, H and G
-     beside their plain versions;
+     beside their plain versions; for each of G's calls (shapes, kept
+     rays and atomic width printed) also G in plain stream order (no
+     programmatic dependent launch), `index_add_` alone and `torch.zeros`
+     + `index_add_` on the same kept rows, each by events, by profiler
+     device time and with the host's cost hidden (`time_queued`);
  14. builds config 2's scene through the public API on BRUTE (a
      15,488-triangle bumpy sphere standing in for suzanne.obj, and the
      reference's quad) with a 256x256 `Camera` and `RenderTarget`;
@@ -42,10 +49,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      against `torch.full`) and traces it through `Camera.trace_scene`
      (kernel E), requiring both kernels launched and status 0;
  16. holds E against its plain version on the frame's rays (equal faces,
-     t/u/v bit-equal) and D against its plain version, renders the frame
-     with the plain versions (equal packed frames), prints the hit share
-     and the status codes of the API's misuse cases, and times the frame,
-     E and D beside their plain versions;
+     t/u/v bit-equal) and D against its plain version and against
+     `torch.full` at `CLEAR_SIZES` (1, 65,535, 65,536 and 1920x1088
+     pixels), renders the frame with the plain versions (equal packed
+     frames), prints the hit share and the status codes of the API's
+     misuse cases, and times the frame, E and D beside their plain
+     versions (D and `torch.full` also by profiler device time and with
+     the host's cost hidden);
  17. builds config 5's scene (three bumpy spheres of 69,451, 345,944 and
      100,002 triangles, reflectivity 0.3) and renders its 1920x1080 frame
      with two mirror bounces and shadows through `render_bounces`,
@@ -85,11 +95,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
      this run's inputs (ray-triangle tests from the tile lists, 46
      operations each), and, for D and G, the time of the one PyTorch call
-     that computes the same function (`torch.full`, `index_add_`).
+     that computes the same function (`torch.full`, `index_add_`), their
+     device times and G's `torch.zeros` + `index_add_`.
 
 Any failure exits non-zero.  The last two lines of standard output are a
-JSON object of the ten kernels' counts, errors, times and bounds, and
-``{"ok": true, "device": {...}}``.
+JSON object of the ten kernels' counts, errors, times and bounds (D's and
+G's with ``device_ms`` and ``library_device_ms``, G's with
+``library_zeroed_ms``; null elsewhere), and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -114,6 +127,18 @@ ADAM_STEPS = 5
 C2_SIZE = 256
 C2_SUZANNE = 15488
 CLEAR_VALUE = 0xFF00FF00
+# Kernel D against `torch.full`: one pixel, an odd count, 256², and
+# config 5's edge-padded 1920x1088 frame.
+CLEAR_SIZES = (1, 65535, 65536, 1920 * 1088)
+# Kernel G's synthetic cases, name: (tiles, rays per tile, columns, rows,
+# lowest id, highest id + 1, equal ids across warps): ragged rows and ids
+# out of range on both sides at the float2 width; the scalar width; a warp
+# (and a tile) whose ids are all equal at the float4 width.
+G_CASES = {
+    "d22_ragged": (16, 256, 22, 1001, -40, 1041, False),
+    "d7_scalar": (16, 256, 7, 517, -1, 517, False),
+    "equal_warp": (4, 256, 28, 64, -1, 64, True),
+}
 # Config 5 (scripts/bench_configs.py:164-200): 1920x1080, two bounces.
 # The bunny stand-in sits on bunny.obj's bounding box: centre
 # (-0.0168, 0.1101, -0.0016), half its largest extent as radius.
@@ -135,6 +160,9 @@ FLY_FRAMES = 4
 # the tensor cores, and device memory.
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# The card's spin before `time_queued`'s calls: 2e7 cycles, about 10 ms
+# at the H100's 1.98 GHz, long enough for the host to queue them all.
+QUEUE_SPIN_CYCLES = 20_000_000
 # FP32 operations of one Moller-Trumbore test in `csrc/sweep.cu:mt` and
 # `csrc/brute.cu`: 45 adds, subtracts and multiplies, one division, and
 # u + v (the comparisons are not counted).
@@ -171,6 +199,74 @@ def time_cuda(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn, iters: int) -> dict:
+    """Mean device milliseconds per call of ``fn`` by activity name: the
+    kernels, copies and fills that `torch.profiler` records over ``iters``
+    calls back to back, after a warm-up ({} when it records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us:
+            times[e.key] = us / 1e3 / iters
+    return times
+
+
+def device_time(fn, iters: int):
+    """`device_times` summed: the card's time per call, or None when the
+    profiler records nothing.  Beside `time_cuda`'s event time it says
+    whether a call costs the host or the device.  Kernels that overlap
+    (G's fill and scatter under programmatic dependent launch) each count
+    whole, so the sum can exceed the card's span; `time_queued` gives the
+    span."""
+    return sum(device_times(fn, iters).values()) or None
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    parameter list: ``scatter_add_kernel<4>``."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
+
+
+def time_queued(fn, iters: int):
+    """Mean milliseconds per call of ``fn`` on the card with the host's
+    cost hidden: the card first spins (`torch.cuda._sleep`) while the host
+    queues all ``iters`` calls, so the events time the card's kernels and
+    the gaps between them.  None when the host was not done queueing
+    before the spin ended."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    hidden = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if hidden else None
+
+
+def ms_text(ms) -> str:
+    """A time for the log: ms to four decimals, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def time_once(fn):
@@ -228,13 +324,18 @@ def sweep_tests(lists, rays_per_tile, g, active=None, occluded=None) -> int:
 
 
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
-                  bound_ms_by, library_ms=None) -> dict:
-    """One entry of the kernels line."""
+                  bound_ms_by, library_ms=None, device_ms=None,
+                  library_device_ms=None, library_zeroed_ms=None) -> dict:
+    """One entry of the kernels line.  ``device_ms`` and
+    ``library_device_ms`` are profiler device times per call (D and G);
+    ``library_zeroed_ms`` is G's `torch.zeros` + `index_add_`."""
     bound_ms, bound_by = bound_ms_by
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "library_zeroed_ms": library_zeroed_ms}
 
 
 def rel_err_on_hits(x, y, hit, name: str) -> float:
@@ -273,6 +374,53 @@ def occlusion_err(k, p, name: str) -> float:
     check(torch.equal(k, p), f"{name}: masks differ from plain: "
           f"{int((k != p).sum())} rays")
     return float((k.int() - p.int()).abs().max())
+
+
+def scatter_err(k, p, idx, num_rows: int, name: str) -> float:
+    """Hold kernel G's output ``k`` against its plain version's ``p``:
+    rows that no kept id names exactly 0.0, the rest within G's
+    summation-order bar, |k - p| <= 1e-5 max|p| + 1e-6.  Returns the
+    largest absolute error."""
+    import torch
+
+    flat = idx.reshape(-1).long()
+    kept = flat[(flat >= 0) & (flat < num_rows)]
+    touched = torch.bincount(kept, minlength=num_rows) > 0
+    check(bool((k[~touched] == 0.0).all()),
+          f"{name}: {int((k[~touched] != 0.0).any(dim=1).sum())} untouched "
+          "rows are not 0.0")
+    err = float((k - p).abs().max()) if k.numel() else 0.0
+    bar = 1e-5 * float(p.abs().max()) + 1e-6 if p.numel() else 1e-6
+    check(err <= bar, f"{name}: max abs err {err} > {bar}")
+    return err
+
+
+def scatter_cases(dev) -> float:
+    """Kernel G against its plain version on `G_CASES`; returns the largest
+    absolute error."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.diff import scatter
+
+    worst = 0.0
+    for name, (t, b, d, rows, lo, hi, equal) in G_CASES.items():
+        rng = np.random.default_rng(sorted(G_CASES).index(name))
+        ids = rng.integers(lo, hi, (t, b))
+        if equal:
+            ids[0, 32:64] = 5  # the second warp of tile 0
+            ids[1, :] = rows - 1  # and every warp of tile 1
+        idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(t, d, b)).astype(
+            np.float32)).to(dev)
+        k = scatter._scatter_add_cuda(g, idx, rows)
+        p = scatter._scatter_add_plain(g, idx, rows)
+        err = scatter_err(k, p, idx, rows, f"kernel G ({name})")
+        worst = max(worst, err)
+        print(f"kernel G matches plain on {name}: g {(t, d, b)} -> {rows} "
+              f"rows, atomic width {scatter._atomic_width(d)}, ids "
+              f"[{lo}, {hi}), max abs err {err:.3g}, untouched rows 0.0")
+    return worst
 
 
 def write_bmp(path: str, rgb, bpp: int = 24, top_down: bool = False) -> None:
@@ -563,14 +711,13 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         kg2 = scatter._scatter_add_cuda(*args)
         pg = scatter._scatter_add_plain(*args)
         sync()
-        err = float((kg - pg).abs().max())
-        bar = 1e-5 * float(pg.abs().max()) + 1e-6
-        check(err <= bar, f"kernel G [{args[0].shape}]: max abs err {err} "
-              f"> {bar}")
+        err = scatter_err(kg, pg, args[1], args[2],
+                          f"kernel G [{tuple(args[0].shape)}]")
         g_err = max(g_err, err)
         print(f"kernel G matches plain, g {tuple(args[0].shape)} -> "
-              f"{args[2]} rows: max abs err {err:.3g} (bar {bar:.3g}); two "
-              f"kernel runs bitwise equal: {torch.equal(kg, kg2)}")
+              f"{args[2]} rows: max abs err {err:.3g}, untouched rows 0.0; "
+              f"two kernel runs bitwise equal: {torch.equal(kg, kg2)}")
+    g_err = max(g_err, scatter_cases(dev))
     clock.done("10 (kernels vs plain)")
 
     # 11. The grad step (and a shadowed render) with the plain versions.
@@ -659,14 +806,74 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         "H": (time_cuda(lambda: sweep._occlusion_rows_cuda(*h_args), 20),
               time_cuda(lambda: sweep._occlusion_rows_plain(*h_args), 3)),
     }
-    g_times = [(time_cuda(lambda a=a: scatter._scatter_add_cuda(*a), 20),
-                time_cuda(lambda a=a: scatter._scatter_add_plain(*a), 20))
-               for a in g_calls]
-    for a, (ms, pms) in zip(g_calls, g_times):
-        print(f"kernel G, g {tuple(a[0].shape)} -> {a[2]} rows: {ms:.4f} ms "
-              f"(plain {pms:.4f} ms)")
+    # G and its yardsticks on each of the backward's calls: event time and
+    # profiler device time.  `index_add_` alone (the one PyTorch call, on
+    # an output zeroed once, which accumulates over the calls) and
+    # `torch.zeros` + `index_add_` (the same function as G) on the same
+    # kept rows and ids, their layout made outside the timing.
+    g_rows = []
+    for g, idx, rows in g_calls:
+        d = g.shape[1]
+        flat = idx.reshape(-1).long()
+        keep = (flat >= 0) & (flat < rows)
+        src_rows = g.transpose(1, 2).reshape(-1, d)[keep].contiguous()
+        flat = flat[keep].contiguous()
+        acc = torch.zeros((rows, d), dtype=torch.float32, device=dev)
+
+        def kernel(a=(g, idx, rows)):
+            return scatter._scatter_add_cuda(*a)
+
+        def ordered(a=(g, idx, rows)):
+            return scatter._scatter_add_cuda(*a, overlap=False)
+
+        def library(acc=acc, flat=flat, src_rows=src_rows):
+            return acc.index_add_(0, flat, src_rows)
+
+        def zeroed(rows=rows, d=d, flat=flat, src_rows=src_rows):
+            return torch.zeros((rows, d), dtype=torch.float32,
+                               device=dev).index_add_(0, flat, src_rows)
+
+        split = device_times(kernel, 20)
+        r = {"ms": time_cuda(kernel, 20),
+             "device_ms": sum(split.values()) or None,
+             "queued_ms": time_queued(kernel, 20),
+             "ordered_ms": time_cuda(ordered, 20),
+             "ordered_queued_ms": time_queued(ordered, 20),
+             "plain_ms": time_cuda(lambda a=(g, idx, rows):
+                                   scatter._scatter_add_plain(*a), 20),
+             "library_ms": time_cuda(library, 20),
+             "library_device_ms": device_time(library, 20),
+             "library_queued_ms": time_queued(library, 20),
+             "library_zeroed_ms": time_cuda(zeroed, 20),
+             "library_zeroed_device_ms": device_time(zeroed, 20),
+             "library_zeroed_queued_ms": time_queued(zeroed, 20),
+             "kept": int(keep.sum())}
+        # The cotangents of dropped ids (misses) need not be read.
+        r["bound"] = bound(r["kept"] * d, 4 * r["kept"] * d + nbytes(idx)
+                           + 4 * rows * d)
+        g_rows.append(r)
+        print(f"kernel G, g {tuple(g.shape)} -> {rows} rows of {d} "
+              f"({r['kept']} kept rays, atomic width "
+              f"{scatter._atomic_width(d)}), bound {r['bound'][0]:.6f} ms:")
+        parts = "".join(f", {short_kernel_name(name)} {ms:.4f}"
+                        for name, ms in split.items())
+        print(f"  G {r['ms']:.4f} ms, device {ms_text(r['device_ms'])}"
+              f"{parts}; host hidden {ms_text(r['queued_ms'])}; in stream "
+              f"order (no PDL) {r['ordered_ms']:.4f} ms, host hidden "
+              f"{ms_text(r['ordered_queued_ms'])}; plain "
+              f"{r['plain_ms']:.4f} ms")
+        for name, key in (("index_add_", "library"),
+                          ("zeros + index_add_", "library_zeroed")):
+            print(f"  {name} {r[key + '_ms']:.4f} ms, device "
+                  f"{ms_text(r[key + '_device_ms'])}, host hidden "
+                  f"{ms_text(r[key + '_queued_ms'])}")
+
+    def g_mean(key):
+        vals = [r[key] for r in g_rows]
+        return None if None in vals else sum(vals) / len(vals)
+
     # G's record: the mean of the backward's launches.
-    times["G"] = tuple(sum(x) / len(g_times) for x in zip(*g_times))
+    times["G"] = (g_mean("ms"), g_mean("plain_ms"))
     print(f"progressive step ({size}x{size}, shadows): kernel path "
           f"{prog_ms:.4f} ms, plain path {prog_plain_ms:.4f} ms")
     print(f"grad step ({size}x{size}): kernel path {grad_ms:.4f} ms, plain "
@@ -675,8 +882,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         print(f"kernel {name}: {ms:.4f} ms per launch (plain {pms:.4f} ms)")
     clock.done("13 (timing)")
 
-    # Bounds on these inputs.  G's library call: `index_add_` on the same
-    # rows, ids and output (the row layout made outside the timing).
+    # Bounds on these inputs (G's above).
     c_tests = sweep_tests(c_args[0], c_args[2].shape[1], c_args[3].shape[1])
     c_bound = bound(c_tests * MT_OPS, nbytes(c_args, kc))
     h_tests = sweep_tests(h_args[0], h_args[2].shape[1], h_args[4].shape[1],
@@ -684,21 +890,8 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     h_bound = bound(h_tests * MT_OPS, nbytes(h_args) + 4 * ph.numel())
     print(f"kernel C: {c_tests} ray-triangle tests; kernel H: {h_tests} "
           f"(rays that find no hit test their whole list)")
-    g_bounds, g_library = [], []
-    for g, idx, rows in g_calls:
-        d = g.shape[1]
-        flat = idx.reshape(-1).long()
-        keep = (flat >= 0) & (flat < rows)
-        src_rows = g.transpose(1, 2).reshape(-1, d)[keep].contiguous()
-        flat = flat[keep].contiguous()
-        out = torch.zeros((rows, d), dtype=torch.float32, device=dev)
-        g_library.append(time_cuda(lambda: out.index_add_(0, flat, src_rows),
-                                   20))
-        # The cotangents of dropped ids (misses) need not be read.
-        kept = int(keep.sum())
-        g_bounds.append(bound(kept * d, 4 * kept * d + nbytes(idx)
-                              + 4 * rows * d))
-    g_bound = (sum(b[0] for b in g_bounds) / len(g_bounds), g_bounds[0][1])
+    g_bound = (sum(r["bound"][0] for r in g_rows) / len(g_rows),
+               g_rows[0]["bound"][1])
     src = "raytracercuda_torch/csrc/sweep.cu"
     return [
         kernel_record("primary", src,
@@ -713,7 +906,10 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         kernel_record("scatter_add", "raytracercuda_torch/csrc/scatter.cu",
                       "raytracercuda_tpu/diff/scatter.py:52",
                       grad_launches["scatter_add"], g_err, *times["G"],
-                      g_bound, sum(g_library) / len(g_library)),
+                      g_bound, g_mean("library_ms"),
+                      device_ms=g_mean("device_ms"),
+                      library_device_ms=g_mean("library_device_ms"),
+                      library_zeroed_ms=g_mean("library_zeroed_ms")),
     ]
 
 
@@ -806,6 +1002,12 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     kd = clear._clear_cuda(n, CLEAR_VALUE, dev)
     pd = clear._clear_plain(n, CLEAR_VALUE, dev)
     check(torch.equal(kd, pd), "kernel D differs from its plain version")
+    for m in CLEAR_SIZES:
+        check(torch.equal(clear._clear_cuda(m, CLEAR_VALUE, dev),
+                          torch.full((m,), CLEAR_VALUE, dtype=torch.int64,
+                                     device=dev)),
+              f"kernel D differs from torch.full at {m} pixels")
+    print(f"kernel D equals torch.full at {list(CLEAR_SIZES)} pixels")
     plain = PlainOnCard({bruteforce: {"_brute_cuda": bruteforce._brute_plain},
                          clear: {"_clear_cuda": clear._clear_plain}})
     plain_target = rt.RenderTarget.create(size, size, dev)
@@ -844,14 +1046,26 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
                          20)
     e_ms = time_cuda(lambda: bruteforce._brute_cuda(*e_args), 20)
     e_plain_ms = time_cuda(lambda: bruteforce._brute_plain(*e_args), 3)
-    d_ms = time_cuda(lambda: clear._clear_cuda(n, CLEAR_VALUE, dev), 100)
-    d_plain_ms = time_cuda(lambda: clear._clear_plain(n, CLEAR_VALUE, dev),
-                           100)
+    def kernel_d():
+        return clear._clear_cuda(n, CLEAR_VALUE, dev)
+
+    def plain_d():
+        return clear._clear_plain(n, CLEAR_VALUE, dev)
+
+    d_ms = time_cuda(kernel_d, 100)
+    d_device_ms = device_time(kernel_d, 100)
+    d_queued_ms = time_queued(kernel_d, 100)
+    d_plain_ms = time_cuda(plain_d, 100)
+    d_plain_device_ms = device_time(plain_d, 100)
+    d_plain_queued_ms = time_queued(plain_d, 100)
     print(f"config 2 frame ({size}x{size}, BRUTE): kernel path "
           f"{frame_ms:.4f} ms, plain path {plain_frame_ms:.4f} ms, "
           f"{n / frame_ms * 1e3:.6g} rays/s")
     print(f"kernel E: {e_ms:.4f} ms per launch (plain {e_plain_ms:.4f} ms); "
-          f"kernel D: {d_ms:.4f} ms (plain {d_plain_ms:.4f} ms)")
+          f"kernel D: {d_ms:.4f} ms, device {ms_text(d_device_ms)}, host "
+          f"hidden {ms_text(d_queued_ms)} (plain = torch.full "
+          f"{d_plain_ms:.4f} ms, device {ms_text(d_plain_device_ms)}, host "
+          f"hidden {ms_text(d_plain_queued_ms)})")
     clock.done("16 (config 2 checks, timing)")
     e_tests = e_args[1].shape[0] * e_args[2].shape[1]
     print(f"kernel E: {e_tests} ray-triangle tests")
@@ -859,7 +1073,8 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     return {
         "clear": dict(launches=launches["clear"], err=0.0, ms=d_ms,
                       plain_ms=d_plain_ms, bound_ms_by=bound(0, 8 * n),
-                      library_ms=d_plain_ms),
+                      library_ms=d_plain_ms, device_ms=d_device_ms,
+                      library_device_ms=d_plain_device_ms),
         "brute": dict(launches=launches["brute"], err=e_err, ms=e_ms,
                       plain_ms=e_plain_ms,
                       bound_ms_by=bound(e_tests * MT_OPS, nbytes(e_args, ke))),
@@ -1496,11 +1711,16 @@ def main() -> None:
     print(f"kernels against their bounds on {card}:")
     for k in kernels:
         library = k["library_ms"]
-        print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.6f} "
-              f"ms by {k['bound_by']} ({k['bound_ms'] / k['ms']:.2%} of it "
-              f"reached), plain {k['plain_ms']:.4f} ms, library "
-              f"{'none' if library is None else f'{library:.4f} ms'}, "
-              f"{k['launches']} launches")
+        device = ("" if k["device_ms"] is None else
+                  f" (device {k['device_ms']:.4f} ms)")
+        zeroed = ("" if k["library_zeroed_ms"] is None else
+                  f", zeros + library {k['library_zeroed_ms']:.4f} ms")
+        print(f"  {k['name']}: {k['ms']:.4f} ms{device}, bound "
+              f"{k['bound_ms']:.6f} ms by {k['bound_by']} "
+              f"({k['bound_ms'] / k['ms']:.2%} of it reached), plain "
+              f"{k['plain_ms']:.4f} ms, library "
+              f"{'none' if library is None else f'{library:.4f} ms'}"
+              f"{zeroed}, {k['launches']} launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

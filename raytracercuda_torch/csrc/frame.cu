@@ -20,14 +20,20 @@
 // What bounds them on the H100: the store bandwidth, 8 bytes per pixel (a
 // 256x256 frame is 512 KB, about 0.16 us at 3.35 TB/s, so at that size the
 // launch itself dominates); J's ~40 FP32 operations per pixel are far below
-// the FP32 rate.  The design: a grid-stride loop, one 8-byte store per pixel
-// per step.  The library is built with -fmad=false and IEEE division and
+// the FP32 rate.  The design: grid-stride loops.  D, a pure store stream,
+// stores two pixels (16 bytes) per thread per step over a grid sized to
+// the card (`launch.cuh`), and its wrapper takes the lean host path
+// (`cuda_build.kernel_fn`, `raw_stream`), since at 256x256 the call is
+// the cost; I and J store one pixel per step.  The library is built with
+// -fmad=false and IEEE division and
 // square root, and J calls the full-precision sinf/cosf: every expression
 // rounds as in the plain PyTorch versions (`ops/gradient.py`,
 // `ops/blob.py`), so `c*ux - s*uy`, `lx*lx + ly*ly` and `bg*(1-f) + f` are
 // not contracted.
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -47,10 +53,17 @@ __device__ __forceinline__ long long grid_stride() {
   return static_cast<long long>(gridDim.x) * blockDim.x;
 }
 
+// out[0, n) = value: 16-byte stores of two pixels over the pairs (`out`
+// is 16-byte aligned), the odd last pixel by the first thread.
 __global__ void clear_kernel(long long* __restrict__ out, long long n,
                              unsigned int value) {
   const long long v = static_cast<long long>(value);
-  for (long long i = first_index(); i < n; i += grid_stride()) out[i] = v;
+  const longlong2 vv = make_longlong2(v, v);
+  const long long pairs = n / 2;
+  longlong2* out2 = reinterpret_cast<longlong2*>(out);
+  for (long long i = rt::thread_index(); i < pairs; i += rt::thread_count())
+    out2[i] = vv;
+  if ((n & 1) && rt::thread_index() == 0) out[n - 1] = v;
 }
 
 // `Gradient.cu:8-40`: i = i < size ? i : 0; block = size / 6; band i / block;
@@ -124,9 +137,10 @@ extern "C" {
 
 // Each returns cudaGetLastError() after its launch (0 on success).
 
+// `out` must be 16-byte aligned.
 int rt_clear(long long* out, long long n, unsigned int value, void* stream) {
   if (n == 0) return 0;
-  clear_kernel<<<grid_for(n), kThreads, 0,
+  clear_kernel<<<rt::card_grid(n / 2), rt::kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(out, n, value);
   return static_cast<int>(cudaGetLastError());
 }

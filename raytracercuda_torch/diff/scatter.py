@@ -3,8 +3,9 @@ gathers (counterpart of `raytracercuda_tpu/diff/scatter.py:112-315`).
 
 `_rows_recompute_shade` gathers one attribute row per ray; the backward
 of that gather is ``out[idx[n]] += g[n]``.  Kernel G (`csrc/scatter.cu`,
-replacing `scatter._scatter_kernel`) does it per 256-ray pixel tile with
-float atomics: one thread per ray adds its ``D`` cotangents into its row.
+replacing `scatter._scatter_kernel`) writes the output's zeros itself and
+adds each kept ray's ``D`` cotangents into its row with float atomics,
+``_atomic_width(D)`` floats at a time.
 
 The JAX package's per-tile windows (`tile_bases`), their 128-alignment
 and the exact fallbacks for rays outside every window (the stray
@@ -17,12 +18,17 @@ plain version to float32 rounding, not bit for bit.
 
 `tile_scatter_add` runs G's plain version (``index_add_``) for tensors on
 the CPU and launches G for tensors on a GPU; there is no fallback from
-one to the other.  ``launch_counts`` counts G's launches.
+one to the other.  One launch of G is one call of its C entry, which
+writes the output's zeros and scatters into it (two kernels);
+``launch_counts`` counts those calls.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.cuda_build import kernel_fn, raw_stream
+from ..trace import sweep
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"scatter_add": 0}
@@ -31,6 +37,13 @@ launch_counts = {"scatter_add": 0}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _atomic_width(d: int) -> int:
+    """Floats per atomic add of kernel G for rows of ``d`` columns: 4
+    (``float4``) when 4 divides ``d``, 2 (``float2``) when 2 does, else 1.
+    A row of ``d`` floats then starts on a multiple of that width."""
+    return 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
 
 
 def _scatter_add_plain(g: torch.Tensor, idx: torch.Tensor,
@@ -46,22 +59,26 @@ def _scatter_add_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, flat[keep], rows[keep])
 
 
-def _scatter_add_cuda(g: torch.Tensor, idx: torch.Tensor,
-                      num_rows: int) -> torch.Tensor:
-    """Launch kernel G; output as in `_scatter_add_plain`."""
-    from ..ops.cuda_build import load_library
-    from ..trace.sweep import _check_cuda
-
+def _scatter_add_cuda(g: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                      overlap: bool = True) -> torch.Tensor:
+    """Launch kernel G; output as in `_scatter_add_plain`.  ``overlap``
+    launches the scatter with programmatic dependent launch, so that it
+    starts during the fill (False: plain stream order, kept to time the
+    two against each other)."""
     t, d, b = g.shape
     dev = g.device
-    _check_cuda("g", g, dev, torch.float32, (t, d, b))
-    _check_cuda("idx", idx, dev, torch.int32, (t, b))
-    if not 0 < b <= 1024:
-        raise ValueError(f"kernel G takes 1 to 1024 rays per tile, got {b}")
-    out = torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
-    err = load_library().rt_scatter_add(
-        g.data_ptr(), idx.data_ptr(), t, d, b, num_rows, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # One pass over the conditions; `_check_cuda` names the one that fails.
+    if not (g.is_cuda and g.dtype == torch.float32 and g.is_contiguous()
+            and idx.dtype == torch.int32 and idx.is_contiguous()
+            and idx.shape == (t, b) and idx.device == dev):
+        sweep._check_cuda("g", g, dev, torch.float32, (t, d, b))
+        sweep._check_cuda("idx", idx, dev, torch.int32, (t, b))
+    if not 0 <= num_rows < 1 << 31:
+        raise ValueError(f"kernel G takes 0 to 2^31 - 1 rows, got {num_rows}")
+    out = g.new_empty((num_rows, d))  # float32 on g's card
+    err = kernel_fn("rt_scatter_add")(
+        g.data_ptr(), idx.data_ptr(), t, d, b, num_rows, _atomic_width(d),
+        overlap, out.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel G launch failed: CUDA error {err}")
     launch_counts["scatter_add"] += 1
@@ -75,9 +92,7 @@ def tile_scatter_add(g: torch.Tensor, idx: torch.Tensor,
     ``g`` ``[T, D, B]`` float32 cotangents, rays last (planar); ``idx``
     ``[T, B]`` int32 rows, ids below 0 (and from ``num_rows`` up)
     dropped."""
-    from ..trace.sweep import _pick
-
-    run = _pick(g, _scatter_add_plain, _scatter_add_cuda)
+    run = sweep._pick(g, _scatter_add_plain, _scatter_add_cuda)
     return run(g.contiguous(), idx.to(torch.int32).contiguous(), num_rows)
 
 

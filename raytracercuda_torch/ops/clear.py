@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from .cuda_build import kernel_fn, raw_stream
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"clear": 0}
@@ -30,14 +31,11 @@ def _clear_plain(num_pixels: int, value: int, device) -> torch.Tensor:
 
 def _clear_cuda(num_pixels: int, value: int, device) -> torch.Tensor:
     """Launch kernel D; output as in `_clear_plain`."""
-    from .cuda_build import load_library
-
     if device.type != "cuda":
         raise ValueError(f"kernel D writes a CUDA tensor, not one on {device}")
     out = torch.empty(num_pixels, dtype=torch.int64, device=device)
-    err = load_library().rt_clear(
-        out.data_ptr(), num_pixels, value,
-        torch.cuda.current_stream(device).cuda_stream)
+    err = kernel_fn("rt_clear")(out.data_ptr(), num_pixels, value,
+                                raw_stream(device))
     if err:
         raise RuntimeError(f"kernel D launch failed: CUDA error {err}")
     launch_counts["clear"] += 1

@@ -3,8 +3,13 @@
 The sources are compiled with ``nvcc`` at first use, one process per
 source, all started together, and linked into one shared library with a
 plain C interface in ``raytracercuda_torch/_build/`` (git-ignored).  The
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt.  Nothing here runs at import.
+library's name carries a hash of the sources, headers and flags, so an
+edited source is rebuilt.  Nothing here runs at import.
+
+`kernel_fn` and `raw_stream` are the lean launch path of the wrappers
+whose kernels are short enough for the host call to matter (D, G): the
+library's function looked up once, and the current stream's handle
+without building a `torch.cuda.Stream`.
 """
 
 from __future__ import annotations
@@ -19,9 +24,12 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("sweep.cu", "scatter.cu", "brute.cu", "frame.cu"))
+HEADERS = (_PKG / "csrc" / "launch.cuh",)
 BUILD_DIR = _PKG / "_build"
 # -fmad=false and IEEE division (no --use_fast_math): every expression
 # rounds as the plain PyTorch versions' separate operations do.
@@ -42,7 +50,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"librt_kernels_{h.hexdigest()[:16]}.so"
 
@@ -102,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.rt_primary.restype = i
     lib.rt_occlusion_rows.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
     lib.rt_occlusion_rows.restype = i
-    lib.rt_scatter_add.argtypes = [p, p, i, i, i, i, p, p]
+    lib.rt_scatter_add.argtypes = [p, p, i, i, i, i, i, i, p, p]
     lib.rt_scatter_add.restype = i
     lib.rt_brute.argtypes = [p, p, p, i, i, i, f, p, p, p, p, p]
     lib.rt_brute.restype = i
@@ -113,3 +121,30 @@ def load_library() -> ctypes.CDLL:
     lib.rt_blob.argtypes = [p, i, i, p, p]
     lib.rt_blob.restype = i
     return lib
+
+
+_KERNEL_FNS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def kernel_fn(name: str) -> ctypes._CFuncPtr:
+    """The library's C entry ``name`` with its signature declared, built
+    and loaded at the first call and looked up once."""
+    fn = _KERNEL_FNS.get(name)
+    if fn is None:
+        fn = _KERNEL_FNS[name] = getattr(load_library(), name)
+    return fn
+
+
+def raw_stream(device: torch.device | int) -> int:
+    """The handle of ``device``'s current CUDA stream, as
+    `torch.cuda.current_stream(device).cuda_stream` gives it (0 for the
+    default stream) but through `torch._C._cuda_getCurrentRawStream`,
+    without building a `Stream` object.  Raises `RuntimeError` when torch
+    has no CUDA."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        raise RuntimeError(
+            "torch has no CUDA (torch._C._cuda_getCurrentRawStream is "
+            "missing): no stream to launch a kernel on")
+    index = device if isinstance(device, int) else device.index
+    return get(torch.cuda.current_device() if index is None else index)

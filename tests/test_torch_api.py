@@ -19,6 +19,10 @@ Tolerances, stated per check:
     equal values.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +49,7 @@ from raytracercuda_tpu.types import Hit as JaxHit
 import raytracercuda_torch as trt
 from raytracercuda_torch.models import procedural as tproc
 from raytracercuda_torch.ops import clear as tclear
+from raytracercuda_torch.ops import cuda_build
 from raytracercuda_torch.trace import pipeline as tpipe
 from raytracercuda_torch.trace import shade as tshade
 from raytracercuda_torch.types import Hit
@@ -78,6 +83,39 @@ def test_clear_buffer_matches_jax(num_pixels):
 def test_clear_kernel_wrapper_rejects_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         tclear._clear_cuda(16, 7, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("device", [torch.device("cuda", 0),
+                                    torch.device("cuda"), 0])
+def test_raw_stream_raises_without_cuda(device):
+    """D's and G's wrappers take the stream from `raw_stream`.  On a torch
+    built without CUDA it raises, naming the missing call, and never
+    returns stream 0 in place of the current stream."""
+    if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+        pytest.skip("this torch has CUDA")
+    with pytest.raises(RuntimeError, match="_cuda_getCurrentRawStream"):
+        cuda_build.raw_stream(device)
+
+
+def test_importing_cuda_build_builds_nothing():
+    """Importing the port, the build module and the lean-path wrappers
+    runs no compiler and loads no library; `kernel_fn` looks nothing up
+    until it is called."""
+    code = "\n".join([
+        "import subprocess, torch",
+        "def refuse(*a, **k):",
+        "    raise AssertionError(f'a process ran at import: {a}')",
+        "subprocess.Popen = subprocess.run = refuse",
+        "import raytracercuda_torch",
+        "from raytracercuda_torch.ops import clear, cuda_build",
+        "from raytracercuda_torch.diff import scatter",
+        "assert cuda_build.load_library.cache_info().currsize == 0",
+        "assert not cuda_build._KERNEL_FNS",
+    ])
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_render_target_lock_state_machine():

@@ -36,6 +36,11 @@ def _bimodal(rng, t, b, f):
                            rng.integers(6000, 6300, (t, b // 2))], axis=1)
 
 
+def _with_misses(rng, t, b, f):
+    ids = _coherent(rng, t, b, f)
+    return np.where(rng.random((t, b)) < 0.3, -1, ids)
+
+
 # name: (tiles, rays, cols, rows, id maker, JAX window, windows, stray_cap)
 SCATTER_CASES = {
     "windowed": (4, 256, 12, 1024, _coherent, 512, 1, 16384),
@@ -51,6 +56,11 @@ SCATTER_CASES = {
     "over_stray_cap": (3, 128, 8, 2048,
                        lambda rng, t, b, f: rng.integers(0, f, (t, b)), 256,
                        1, 16),
+    # Kernel G's widths on config 4's path, over row counts that are not a
+    # multiple of 4 (its fill's scalar tail), with misses: 22 columns (face
+    # rows without uvs, float2 atomics) and 28 (with uvs, float4).
+    "d22_ragged_rows": (3, 256, 22, 1001, _with_misses, 512, 1, 16384),
+    "d28_ragged_rows": (4, 256, 28, 2051, _with_misses, 512, 2, 16384),
 }
 
 
@@ -127,6 +137,16 @@ def test_retile_2d_is_pixel_squares():
     # Tile 1 is the second 16x16 square of the first tile row.
     np.testing.assert_array_equal(t[1, :16].numpy(), np.arange(16, 32))
     np.testing.assert_array_equal(t[1, 16:32].numpy(), np.arange(64, 80))
+
+
+@pytest.mark.parametrize("d, width", [(1, 1), (2, 2), (7, 1), (12, 4),
+                                      (22, 2), (28, 4)])
+def test_atomic_width(d, width):
+    """Kernel G adds ``width`` floats per atomic: float4 where 4 divides
+    the row, float2 where 2 does, else scalar; a row of ``d`` floats then
+    starts on a multiple of the width."""
+    assert tscatter._atomic_width(d) == width
+    assert d % width == 0
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
