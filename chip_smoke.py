@@ -25,19 +25,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      against a zero target and requires finite, nonzero gradients and at
      least two launches of kernel G;
  10. holds C, H and G against their plain versions on the inputs of
-     phases 8-9 (C: slots equal, t/u/v within 1e-6 relative on hits; H:
-     equal masks; G: rows no ray names exactly 0.0, the rest within
-     |k - p| <= 1e-5 max|p| + 1e-6, and whether two runs of G are bitwise
-     equal), and G on three synthetic cases (`G_CASES`: 22 columns with
-     ragged rows and ids out of range on both sides, 7 columns at the
-     scalar atomic width, a warp whose ids are all equal);
+     phases 8-9 (C, on the progressive and the grad step's inputs: slots
+     equal, t/u/v bit-equal, and its work items, K and active lanes per
+     warp printed; H: equal masks; G: rows no ray names exactly 0.0, the
+     rest within |k - p| <= 1e-5 max|p| + 1e-6, and whether two runs of G
+     are bitwise equal), and G on three synthetic cases (`G_CASES`: 22
+     columns with ragged rows and ids out of range on both sides, 7
+     columns at the scalar atomic width, a warp whose ids are all equal);
+ 10b. runs G's sorted route (`torch.use_deterministic_algorithms(True)`)
+     on phase 9's calls and on `G_CASES`: two runs bitwise equal, and
+     equal to the plain version run on the CPU; times it beside the
+     atomic route;
+ 10c. traces CLUSTER ray bundles that are not a pinhole frame:
+     `render_rgb` without ``frame_hw`` at 256x256 with shadows (C's
+     epilogue over F's sweep, then H) and `trace_hit` on 2,048 rays with
+     scattered origins, each held against the same call on the plain
+     versions (equal ids, masks and faces; images and t/u/v bit-equal);
  11. takes the grad step with the plain versions on the card: equal ids,
      shadow masks and images, gradients within G's summation-order bar;
  12. takes five Adam steps (lr 1e-2) on positions and textures from a
      perturbed texture toward the image of the true one, and requires the
      loss after them to be below the loss before them;
  13. times the progressive and grad steps on both paths and C, H and G
-     beside their plain versions; for each of G's calls (shapes, kept
+     beside their plain versions, C also by profiler device time (its
+     C entry's three kernels, apart from the work-item split's PyTorch
+     kernels), with the host's cost hidden, and at K = 1 to 16 clusters
+     per work item; for each of G's calls (shapes, kept
      rays and atomic width printed) also G in plain stream order (no
      programmatic dependent launch), `index_add_` alone and `torch.zeros`
      + `index_add_` on the same kept rows, each by events, by profiler
@@ -61,16 +74,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      with two mirror bounces and shadows through `render_bounces`,
      requiring kernels A and B and two launches of kernel F;
  18. prints the active rays and cluster-list lengths of the primary
-     pass, the shadows and each bounce, and the share of pixels the
-     bounces change;
+     pass, the shadows and each bounce, F's work items, K and active
+     lanes per warp on each bounce, and the share of pixels the bounces
+     change;
  19. holds A (with reflectivity) and B against their plain versions on
-     that frame's inputs, and F on the first bounce's (A and F: slots
-     equal, t/u/v within 1e-6 relative on hits, attributes within 1e-5;
-     B: equal masks);
+     that frame's inputs (A: slots equal, t/u/v within 1e-6 relative on
+     hits, attributes within 1e-5; B: equal masks), and F on each
+     bounce's (slots equal, t/u/v bit-equal, attributes within 1e-5);
+ 19b. holds C and F, the same way, against their plain versions on
+     synthetic inputs over config 5's clusters: a tile that lists every
+     cluster, an exact tie between a triangle and its copy a work item
+     later (the earlier slot must win), ``clip_backward_hits=False`` from
+     inside a mesh (hits at negative t), and for F one active ray;
  20. at 256x144, holds the cluster-route frame against the brute-force
      route's (kernel E): at least 99% of pixels within 1e-4;
  21. times the frame, A, B and F per launch and one `sort_bounces=True`
-     frame;
+     frame, F also by profiler device time and with the host's cost
+     hidden (as C), and on both bounces at K = 4 to 64;
  22. runs config 1 at 256x256: `clear_buffer` (kernel D), `color_gradient`
      (kernel I) and `blob` at three times (kernel J), requiring each
      kernel launched;
@@ -99,10 +119,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      device times and G's `torch.zeros` + `index_add_`.
 
 Any failure exits non-zero.  The last two lines of standard output are a
-JSON object of the ten kernels' counts, errors, times and bounds (D's and
-G's with ``device_ms`` and ``library_device_ms``, G's with
-``library_zeroed_ms``; null elsewhere), and ``{"ok": true, "device":
-{...}}``.
+JSON object of the ten kernels' counts, errors, times and bounds (C's, D's,
+F's and G's with ``device_ms``, D's and G's with ``library_device_ms``,
+G's with ``library_zeroed_ms``; null elsewhere), and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -149,6 +169,10 @@ C5_MESHES = (  # (faces, radius, centre, seed)
     (100002, 0.7, (-1.5, 0.6, -0.3), 3),
 )
 C5_SMALL = (256, 144)  # the frame held against the brute-force route
+# Ray bundles that are not a pinhole frame (config 4's scene): render_rgb
+# without frame_hw at this size, trace_hit on this many scattered rays.
+BUNDLE_SIZE = 256
+BUNDLE_RAYS = 2048
 # Config 1 (scripts/bench_configs.py:67-75): 256x256 full-frame fills.
 C1_SIZE = 256
 BLOB_TIMES = (0.0, 1.25, 2.7)
@@ -327,8 +351,9 @@ def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
                   bound_ms_by, library_ms=None, device_ms=None,
                   library_device_ms=None, library_zeroed_ms=None) -> dict:
     """One entry of the kernels line.  ``device_ms`` and
-    ``library_device_ms`` are profiler device times per call (D and G);
-    ``library_zeroed_ms`` is G's `torch.zeros` + `index_add_`."""
+    ``library_device_ms`` are profiler device times per call (C, D, F and
+    G; the library's D and G); ``library_zeroed_ms`` is G's
+    `torch.zeros` + `index_add_`."""
     bound_ms, bound_by = bound_ms_by
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -374,6 +399,87 @@ def occlusion_err(k, p, name: str) -> float:
     check(torch.equal(k, p), f"{name}: masks differ from plain: "
           f"{int((k != p).sum())} rays")
     return float((k.int() - p.int()).abs().max())
+
+
+def sync_device(dev) -> None:
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bits_equal(x, y) -> bool:
+    """Whether two float32 tensors hold the same bits (-0.0 is not 0.0)."""
+    import torch
+
+    return torch.equal(x.contiguous().view(torch.int32),
+                       y.contiguous().view(torch.int32))
+
+
+def closest_err(k, p, name: str) -> tuple[int, int]:
+    """Hold a split sweep's (t, u, v, slot) ``k`` against its plain
+    version's ``p`` (kernel C, and C's epilogue over F's sweep): slots
+    equal, t/u/v bit-equal.  Returns the number of hit rays and of hits
+    at a negative t."""
+    import torch
+
+    check(torch.equal(k[3], p[3]), f"{name}: slots differ from plain: "
+          f"{int((k[3] != p[3]).sum())} rays")
+    for i, plane in enumerate("tuv"):
+        check(bits_equal(k[i], p[i]), f"{name}: {plane} not bit-equal to "
+              f"plain on {int((k[i].view(torch.int32) != p[i].view(torch.int32)).sum())} rays")
+    hit = p[0] < float(3.4028234663852886e38)
+    return int(hit.sum()), int((hit & (p[0] < 0)).sum())
+
+
+def general_err(k, p, name: str) -> tuple[float, int, int]:
+    """Hold kernel F's planes ``k`` (t, slot, u, v, attributes) against
+    its plain version's ``p``: `closest_err` on t, u, v and slot, the
+    attributes within 1e-5.  Returns the largest attribute error, the
+    hit rays and the hits at a negative t."""
+    hits, negative = closest_err((k[0], k[2], k[3], k[1]),
+                                 (p[0], p[2], p[3], p[1]), name)
+    err = 0.0
+    for i in range(4, len(p)):
+        d = float((k[i] - p[i]).abs().max())
+        check(d <= 1e-5, f"{name} plane {i}: max abs err {d}")
+        err = max(err, d)
+    return err, hits, negative
+
+
+def split_stats(lists, k: int, rays_per_tile: int, active=None):
+    """A split sweep's work on these lists at K = ``k`` (kernels C and F):
+    the real work items, and the mean active lanes of the warps that
+    test (every ray of C's tiles; F's active rays, packed into the
+    leading lanes)."""
+    import torch
+
+    per_tile = (lists.counts.long() + k - 1) // k
+    lanes = (active.sum(dim=1).long() if active is not None
+             else torch.full_like(per_tile, rays_per_tile))
+    warps = int((per_tile * ((lanes + 31) // 32)).sum())
+    lane_sum = float((per_tile * lanes).sum())
+    return int(per_tile.sum()), lane_sum / warps if warps else 0.0
+
+
+#: The kernels of the split sweeps' C entries (`csrc/sweep.cu`), by the
+#: profiler's names: the key fill and the two passes.
+SPLIT_KERNELS = ("fill_keys_kernel", "sweep_items_kernel",
+                 "closest_epilogue_kernel", "general_epilogue_kernel")
+
+
+def split_device_ms(fn, iters: int):
+    """A split sweep's device time per call: its C entry's kernels summed
+    (`SPLIT_KERNELS`), and the rest (the work-item split and the
+    allocations' PyTorch kernels); (None, None) when the profiler records
+    nothing."""
+    times = device_times(fn, iters)
+    if not times:
+        return None, None
+    mine = sum(ms for name, ms in times.items()
+               if short_kernel_name(name).split("<")[0] in SPLIT_KERNELS)
+    return mine, sum(times.values()) - mine
 
 
 def scatter_err(k, p, idx, num_rows: int, name: str) -> float:
@@ -663,6 +769,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     grad_step()  # warm-up
     sync()
     rec_grad = Recorder(scatter, ["_scatter_add_cuda"])
+    rec_grad_c = Recorder(sweep, ["_primary_cuda"])
     try:
         sweep.reset_launch_counts()
         scatter.reset_launch_counts()
@@ -671,6 +778,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         grad_launches = {**sweep.launch_counts, **scatter.launch_counts}
     finally:
         rec_grad.restore()
+        rec_grad_c.restore()
     print(f"grad step launches: {grad_launches}; loss {float(loss):.6g}")
     check(grad_launches["scatter_add"] >= 2,
           "kernel G launched fewer than twice in a backward")
@@ -688,16 +796,18 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     c_args = rec_prog.calls["_primary_cuda"][-1]
     h_args = rec_prog.calls["_occlusion_rows_cuda"][-1]
     g_calls = rec_grad.calls["_scatter_add_cuda"]
-    kc = sweep._primary_cuda(*c_args)
-    pc = sweep._primary_plain(*c_args)
-    sync()
-    check(torch.equal(kc[3], pc[3]), "kernel C: slots differ from plain: "
-          f"{int((kc[3] != pc[3]).sum())} rays")
-    hit = pc[0] < float(np.float32(3.4028234663852886e38))
-    c_err = max(rel_err_on_hits(kc[k], pc[k], hit, f"kernel C plane {k}")
-                for k in range(3))  # t, u, v
-    print(f"kernel C matches plain: {int(hit.sum())} hit rays of "
-          f"{hit.numel()}, max abs err {c_err:.3g}")
+    c_err = 0.0  # bit-equal, checked below
+    for what, args in (("progressive step", c_args),
+                       ("grad step", rec_grad_c.calls["_primary_cuda"][-1])):
+        kc = sweep._primary_cuda(*args)
+        pc = sweep._primary_plain(*args)
+        sync()
+        hits, _ = closest_err(kc, pc, f"kernel C ({what})")
+        items, lanes = split_stats(args[0], sweep.PRIMARY_CHUNK,
+                                   args[2].shape[1])
+        print(f"kernel C ({what}) matches plain bit for bit: {hits} hit "
+              f"rays of {pc[0].numel()}; {items} work items at K = "
+              f"{sweep.PRIMARY_CHUNK}, {lanes:.2f} active lanes per warp")
     kh = sweep._occlusion_rows_cuda(*h_args)
     ph = sweep._occlusion_rows_plain(*h_args)
     sync()
@@ -719,6 +829,10 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
               f"two kernel runs bitwise equal: {torch.equal(kg, kg2)}")
     g_err = max(g_err, scatter_cases(dev))
     clock.done("10 (kernels vs plain)")
+    sorted_g_checks(dev, g_calls)
+    clock.done("10b (G's sorted route)")
+    bundle_checks(dev, data, accel, eye, orient, config)
+    clock.done("10c (ray bundles)")
 
     # 11. The grad step (and a shadowed render) with the plain versions.
     plain = PlainOnCard({
@@ -800,12 +914,24 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     grad_ms = time_cuda(grad_step, 5)
     with plain:
         grad_plain_ms = time_cuda(grad_step, 2)
+    def kernel_c():
+        return sweep._primary_cuda(*c_args)
+
     times = {
-        "C": (time_cuda(lambda: sweep._primary_cuda(*c_args), 20),
+        "C": (time_cuda(kernel_c, 20),
               time_cuda(lambda: sweep._primary_plain(*c_args), 3)),
         "H": (time_cuda(lambda: sweep._occlusion_rows_cuda(*h_args), 20),
               time_cuda(lambda: sweep._occlusion_rows_plain(*h_args), 3)),
     }
+    c_device_ms, c_glue_ms = split_device_ms(kernel_c, 20)
+    c_queued_ms = time_queued(kernel_c, 10)
+    print(f"kernel C: {times['C'][0]:.4f} ms per launch, device (both "
+          f"passes and the key fill) {ms_text(c_device_ms)}, the split's "
+          f"PyTorch kernels {ms_text(c_glue_ms)}, host hidden "
+          f"{ms_text(c_queued_ms)}")
+    c_k = k_sweep(sweep, "PRIMARY_CHUNK", (1, 2, 4, 8, 16), kernel_c, 20,
+                  c_args[0], c_args[2].shape[1])
+    print(f"kernel C by K (events, ms per launch): {c_k}")
     # G and its yardsticks on each of the backward's calls: event time and
     # profiler device time.  `index_add_` alone (the one PyTorch call, on
     # an output zeroed once, which accumulates over the calls) and
@@ -884,7 +1010,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
 
     # Bounds on these inputs (G's above).
     c_tests = sweep_tests(c_args[0], c_args[2].shape[1], c_args[3].shape[1])
-    c_bound = bound(c_tests * MT_OPS, nbytes(c_args, kc))
+    c_bound = bound(c_tests * MT_OPS, nbytes(c_args, kernel_c()))
     h_tests = sweep_tests(h_args[0], h_args[2].shape[1], h_args[4].shape[1],
                           active=h_args[3], occluded=ph)
     h_bound = bound(h_tests * MT_OPS, nbytes(h_args) + 4 * ph.numel())
@@ -897,7 +1023,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         kernel_record("primary", src,
                       "raytracercuda_tpu/trace/pallas_sweep.py:118",
                       prog_launches["primary"] + grad_launches["primary"],
-                      c_err, *times["C"], c_bound),
+                      c_err, *times["C"], c_bound, device_ms=c_device_ms),
         kernel_record("occlusion_rows", src,
                       "raytracercuda_tpu/trace/pallas_sweep.py:201",
                       prog_launches["occlusion_rows"]
@@ -911,6 +1037,155 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
                       library_device_ms=g_mean("library_device_ms"),
                       library_zeroed_ms=g_mean("library_zeroed_ms")),
     ]
+
+
+def k_sweep(sweep, name: str, ks, fn, iters: int, lists, rays_per_tile,
+            active=None) -> dict:
+    """``fn``'s event time (ms per call) with `sweep`'s chunk constant
+    ``name`` (K) at each of ``ks``, with the work items and active lanes
+    per warp at each; the constant is put back."""
+    keep = getattr(sweep, name)
+    out = {}
+    try:
+        for k in ks:
+            setattr(sweep, name, k)
+            items, lanes = split_stats(lists, k, rays_per_tile, active)
+            out[k] = (round(time_cuda(fn, iters), 4), items, round(lanes, 2))
+    finally:
+        setattr(sweep, name, keep)
+    return out
+
+
+def sorted_g_checks(dev, g_calls) -> None:
+    """G's sorted route (`torch.use_deterministic_algorithms(True)`) on the
+    grad step's calls and on `G_CASES`: two runs bitwise equal, and equal
+    to the plain version run on the CPU from the same inputs; its time
+    beside the atomic route's."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.diff import scatter
+
+    cases = [(f"grad step call {i + 1}", args) for i, args in
+             enumerate(g_calls)]
+    for name, (t, b, d, rows, lo, hi, equal) in G_CASES.items():
+        rng = np.random.default_rng(sorted(G_CASES).index(name))
+        ids = rng.integers(lo, hi, (t, b))
+        if equal:
+            ids[0, 32:64] = 5
+            ids[1, :] = rows - 1
+        cases.append((name, (torch.from_numpy(rng.normal(size=(t, d, b))
+                                              .astype(np.float32)).to(dev),
+                             torch.from_numpy(ids.astype(np.int32)).to(dev),
+                             rows)))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, args in cases:
+            scatter.reset_launch_counts()
+            k1 = scatter.tile_scatter_add(*args)
+            k2 = scatter.tile_scatter_add(*args)
+            sync_device(dev)
+            check(scatter.launch_counts == {"scatter_add": 0,
+                                            "scatter_sorted": 2},
+                  f"G's sorted route: launches {scatter.launch_counts}")
+            check(bits_equal(k1, k2), f"G's sorted route ({name}): two runs "
+                  "differ")
+            p = scatter._scatter_add_plain(args[0].cpu(), args[1].cpu(),
+                                           args[2])
+            check(bits_equal(k1.cpu(), p), f"G's sorted route ({name}): not "
+                  f"bitwise equal to the plain version on the CPU")
+            line = (f"G's sorted route ({name}, g {tuple(args[0].shape)} -> "
+                    f"{args[2]} rows): two runs bitwise equal, and equal to "
+                    f"the plain version on the CPU")
+            if name.startswith("grad"):
+                ms = time_cuda(lambda a=args: scatter.tile_scatter_add(*a), 20)
+                line += f"; {ms:.4f} ms a call"
+            print(line)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for name, args in cases[:len(g_calls)]:
+        ms = time_cuda(lambda a=args: scatter.tile_scatter_add(*a), 20)
+        print(f"G's atomic route ({name}): {ms:.4f} ms a call")
+
+
+def scattered_bundle(dev, lo, hi, n: int, seed: int):
+    """``n`` rays from points on a sphere around the box ``[lo, hi]``
+    toward points inside it (directions of length 0.5 to 2): a bundle with
+    no shared origin and no order."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+    around = rng.normal(size=(n, 3))
+    origins = (lo + hi) / 2 + float(np.linalg.norm(hi - lo)) * around \
+        / np.linalg.norm(around, axis=1, keepdims=True)
+    d = lo + rng.random((n, 3)) * (hi - lo) - origins
+    d *= rng.uniform(0.5, 2.0, (n, 1)) / np.linalg.norm(d, axis=1,
+                                                         keepdims=True)
+    return (torch.from_numpy(origins.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def bundle_checks(dev, data, accel, eye, orient, config,
+                  size: int = BUNDLE_SIZE, scattered: int = BUNDLE_RAYS):
+    """Phase 10c: CLUSTER ray bundles that are not a pinhole frame, on the
+    card against the same calls on the plain versions: `render_rgb`
+    without ``frame_hw`` at ``size``² with shadows (C's epilogue over F's
+    sweep, then H; equal ids, masks and images), and `trace_hit` on
+    ``scattered`` rays with scattered origins (equal faces, t/u/v
+    bit-equal)."""
+    import torch
+
+    from raytracercuda_torch.diff import render_grad
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.trace import bounce_sweep, sweep
+    from raytracercuda_torch.trace.pipeline import trace_hit
+
+    rays = camera_ray_grid(size, size, device=dev)
+    origins, dirs = scattered_bundle(dev, data.positions.amin(dim=0),
+                                     data.positions.amax(dim=0), scattered,
+                                     seed=6)
+
+    def run():
+        with torch.no_grad():
+            ids, mask = render_grad._discrete(
+                data, accel, rays, eye, orient, config, "lambert", True,
+                (0.4, 0.8, -0.45), None)
+            img = render_grad.render_rgb(data, accel, rays, eye, orient,
+                                         config, with_shadows=True)
+            return ids, mask, img, trace_hit(data, accel, origins, dirs,
+                                             config)
+
+    sweep.reset_launch_counts()
+    k_ids, k_mask, k_img, k_hit = run()
+    sync_device(dev)
+    launches = dict(sweep.launch_counts)
+    check(launches["closest_rays"] >= 3 and launches["occlusion_rows"] >= 2,
+          f"ray bundles: launches {launches}")
+    with PlainOnCard({
+            bounce_sweep: {"_closest_rays_cuda": sweep._closest_rays_plain},
+            sweep: {"_occlusion_rows_cuda": sweep._occlusion_rows_plain}}):
+        p_ids, p_mask, p_img, p_hit = run()
+    sync_device(dev)
+    check(torch.equal(k_ids, p_ids), "ray bundles: other hit ids than plain")
+    check(torch.equal(k_mask, p_mask), "ray bundles: other shadow mask")
+    check(bits_equal(k_img, p_img), "ray bundles: image differs from plain")
+    check(torch.equal(k_hit.face, p_hit.face),
+          "scattered bundle: faces differ from plain")
+    for name in ("t", "u", "v"):
+        check(bits_equal(getattr(k_hit, name), getattr(p_hit, name)),
+              f"scattered bundle: {name} not bit-equal to plain")
+    hit = k_ids >= 0
+    check(0 < int(hit.sum()) and int(k_mask.sum()) > 0
+          and int((k_hit.face >= 0).sum()) > 0,
+          "ray bundles: nothing hit or shadowed")
+    print(f"ray bundles match plain: render_rgb without frame_hw at "
+          f"{size}x{size} ({int(hit.sum())} hits, {int(k_mask.sum())} "
+          f"shadowed, image bit-equal); trace_hit on {scattered} scattered "
+          f"rays ({int((k_hit.face >= 0).sum())} hits, t/u/v bit-equal); "
+          f"launches {launches}")
 
 
 def config2_scene(dev, size, suzanne_faces):
@@ -1181,8 +1456,12 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
           f"{list_stats(b_args[0])}")
     for b, args in enumerate(rec_f.calls["_general_shade_cuda"]):
         act = args[3]
+        items, lanes = split_stats(args[0], sweep.GENERAL_CHUNK,
+                                   act.shape[1], act)
         print(f"bounce {b + 1}: {int(act.sum())} active rays in "
-              f"{int(act.any(dim=1).sum())} tiles; {list_stats(args[0])}")
+              f"{int(act.any(dim=1).sum())} tiles; {list_stats(args[0])}; "
+              f"kernel F: {items} work items at K = {sweep.GENERAL_CHUNK}, "
+              f"{lanes:.2f} active lanes per warp")
     flat = frame(0)
     changed = float(((img - flat).abs() > 1e-6).any(dim=-1).float().mean())
     print(f"bounce_changed_px_frac {changed:.6f}")
@@ -1201,14 +1480,21 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
     print(f"kernel A (with reflectivity) matches plain on config 5: {a_hits} "
           f"hit rays, max abs err {a_err:.3g}; kernel B matches plain: "
           f"{int(pb.sum())} shadowed of {int(b_args[3].sum())} active rays")
+    f_err = 0.0
+    for b, args in enumerate(rec_f.calls["_general_shade_cuda"]):
+        kf = bounce_sweep._general_shade_cuda(*args)
+        pf, plain_ms = time_once(
+            lambda a=args: bounce_sweep._general_shade_plain(*a))
+        err, f_hits, _ = general_err(kf, pf, f"kernel F (bounce {b + 1})")
+        f_err = max(f_err, err)
+        if b == 0:
+            f_plain_ms = plain_ms
+        print(f"kernel F matches plain on bounce {b + 1}: {f_hits} hit "
+              f"rays, t/u/v bit-equal, attributes max abs err {err:.3g}")
     f_args = rec_f.calls["_general_shade_cuda"][0]
-    kf = bounce_sweep._general_shade_cuda(*f_args)
-    pf, f_plain_ms = time_once(
-        lambda: bounce_sweep._general_shade_plain(*f_args))
-    f_err, f_hits = shade_err(kf, pf, "kernel F")
-    print(f"kernel F matches plain on bounce 1: {f_hits} hit rays, "
-          f"max abs err {f_err:.3g}")
     clock.done("19 (A, B, F vs plain)")
+    f_err = max(f_err, split_sweep_cases(dev, accel, data, eye, config))
+    clock.done("19b (C and F synthetic cases)")
 
     # 20. The cluster route against the brute-force route at a reduced
     # size (the JAX package's bar for its kernel route, test_bounce.py:192).
@@ -1231,7 +1517,23 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
     # 21. Timing: the frame, F, one frame with the bounces re-binned.
     print(f"timing on {card}")
     frame_ms = time_cuda(frame, frames)
-    f_ms = time_cuda(lambda: bounce_sweep._general_shade_cuda(*f_args), 5)
+
+    def kernel_f():
+        return bounce_sweep._general_shade_cuda(*f_args)
+
+    f_ms = time_cuda(kernel_f, 5)
+    f_device_ms, f_glue_ms = split_device_ms(kernel_f, 5)
+    f_queued_ms = time_queued(kernel_f, 5)
+    print(f"kernel F (bounce 1): {f_ms:.4f} ms per launch, device (both "
+          f"passes and the key fill) {ms_text(f_device_ms)}, the split's "
+          f"PyTorch kernels {ms_text(f_glue_ms)}, host hidden "
+          f"{ms_text(f_queued_ms)}")
+    for b, args in enumerate(rec_f.calls["_general_shade_cuda"]):
+        f_k = k_sweep(sweep, "GENERAL_CHUNK", (4, 8, 16, 32, 64),
+                      lambda a=args: bounce_sweep._general_shade_cuda(*a), 5,
+                      args[0], args[3].shape[1], args[3])
+        print(f"kernel F (bounce {b + 1}) by K (events, ms per launch, work "
+              f"items, active lanes per warp): {f_k}")
     a_ms = time_cuda(lambda: sweep._primary_shade_cuda(*a_args), 20)
     b_ms = time_cuda(lambda: sweep._occlusion_cuda(*b_args), 20)
     tp = config.trace.dense_tile_px
@@ -1263,9 +1565,124 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
         "general_shade", "raytracercuda_torch/csrc/sweep.cu",
         "raytracercuda_tpu/trace/pallas_bounce.py:108",
         launches["general_shade"], f_err, f_ms, f_plain_ms,
-        bound(f_tests * MT_OPS, nbytes(f_args, kf)))
+        bound(f_tests * MT_OPS, nbytes(f_args, kernel_f())),
+        device_ms=f_device_ms)
     return [f_record], {"primary_shade": (launches["primary_shade"], a_err),
                         "occlusion": (launches["occlusion"], b_err)}
+
+
+def split_sweep_cases(dev, accel, data, eye, config) -> float:
+    """Phase 19b: kernels C and F on synthetic inputs over config 5's
+    clusters, each held against its plain version (slots equal, t/u/v
+    bit-equal, F's attributes within 1e-5): one tile that lists every
+    cluster (and one that lists none); an exact tie, one triangle copied
+    into the last cluster, a work item away, where the earlier slot must
+    win; ``clip_backward_hits=False`` with the origin inside a mesh, where
+    hits at a negative t win; for F, a bounce with one active ray.
+    Returns F's largest attribute error."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.trace import sweep
+
+    rng = np.random.default_rng(11)
+    geom = sweep.segment_blocks(accel)
+    shade, has_uv = sweep.shade_segment_blocks(accel, data)
+    c, g = geom.shape[0], geom.shape[1]
+    r = 256
+    t_eps = sweep.t_eps_of(config.trace)
+    every = torch.ones((1, c), dtype=torch.bool, device=dev)
+    lists = sweep._tile_lists(torch.cat([every, ~every]))  # all, none
+    one = sweep._tile_lists(every)
+    slots = (accel.face_order >= 0).nonzero()[:, 0]
+    tris = accel.tris.reshape(-1, 9)
+
+    def on_triangles(n, slot=None):
+        """Points on ``n`` random real triangles (or all on ``slot``)."""
+        pick = (slots[torch.from_numpy(rng.integers(0, slots.numel(), n))
+                      .to(dev)] if slot is None
+                else torch.full((n,), slot, device=dev))
+        tri = tris[pick]
+        w = torch.from_numpy(rng.dirichlet((1.0, 1.0, 1.0), n)
+                             .astype(np.float32)).to(dev)
+        return (tri[:, 0:3] * w[:, 0:1] + tri[:, 3:6] * w[:, 1:2]
+                + tri[:, 6:9] * w[:, 2:3])
+
+    def jitter(p, n, scale):
+        return p + torch.from_numpy(rng.normal(0.0, scale, (n, 3))
+                                    .astype(np.float32)).to(dev)
+
+    # The tie: slot `a` copied over slot `b` in the last cluster, the eye
+    # just above the triangle's centre, the rays through points on it.
+    a = int(slots[slots.numel() // 3])
+    b = (c - 1) * g + 5
+    geom_tie, shade_tie = geom.clone(), shade.clone()
+    geom_tie.view(-1, 9)[b] = geom.view(-1, 9)[a]
+    shade_tie.view(-1, shade.shape[2])[b] = shade.view(-1, shade.shape[2])[a]
+    v0, e1, e2 = geom.view(-1, 9)[a].view(3, 3)
+    normal = torch.linalg.cross(e1, e2)
+    tie_eye = (v0 + (e1 + e2) / 3 + normal / normal.norm()
+               * 0.25 * float(e1.norm())).contiguous()
+    centre = torch.tensor(C5_MESHES[1][2], dtype=torch.float32, device=dev)
+
+    # name: (lists, origins [T*R, 3], directions [T*R, 3], geometry, shade
+    # rows, t_eps, active [T, R] for F or None)
+    cases = {}
+    d2 = on_triangles(2 * r) - eye
+    cases["every_cluster"] = (lists, eye.expand(2 * r, 3), d2, geom, shade,
+                              t_eps, None)
+    cases["tie_across_items"] = (one, tie_eye.expand(r, 3),
+                                 on_triangles(r, a) - tie_eye, geom_tie,
+                                 shade_tie, t_eps, None)
+    units = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(r, 3)).astype(np.float32)).to(dev), dim=1)
+    cases["inside_no_clip"] = (one, centre.expand(r, 3), units, geom, shade,
+                               None, None)
+    single = torch.zeros((1, r), dtype=torch.bool, device=dev)
+    single[0, 77] = True
+    cases["one_active_ray"] = (one, jitter(eye.expand(r, 3), r, 0.01),
+                               on_triangles(r) - eye, geom, shade, t_eps,
+                               single)
+    worst = 0.0
+    for name, (lst, o, d, gm, sh, te, act) in cases.items():
+        num_tiles = lst.counts.numel()
+        d_tiles = d.reshape(num_tiles, r, 3).contiguous()
+        checked = []
+        if act is None:  # C: the common origin
+            args = (lst, o[0].contiguous(), d_tiles, gm, te)
+            kc = sweep._primary_cuda(*args)
+            pc = sweep._primary_plain(*args)
+            hits, negative = closest_err(kc, pc, f"kernel C ({name})")
+            checked.append(f"C {hits} hits, {negative} at t < 0")
+            won = pc[3]
+        active = act if act is not None else torch.rand(
+            (num_tiles, r), generator=torch.Generator(dev).manual_seed(3),
+            device=dev) < 0.9
+        fargs = (lst, o.reshape(num_tiles, r, 3).transpose(1, 2).contiguous(),
+                 d_tiles.transpose(1, 2).contiguous(), active, sh, has_uv,
+                 te, gm)
+        kf = sweep._general_shade_cuda(*fargs)
+        pf = sweep._general_shade_plain(*fargs)
+        err, hits, negative = general_err(kf, pf, f"kernel F ({name})")
+        worst = max(worst, err)
+        checked.append(f"F {hits} hits of {int(active.sum())} active rays, "
+                       f"{negative} at t < 0")
+        if act is None:
+            won = torch.cat([won.reshape(-1), pf[1].reshape(-1)])
+        if name == "tie_across_items":
+            check(int((won == a).sum()) > 0 and not bool((won == b).any()),
+                  f"tie: slot {a} won {int((won == a).sum())} times, its "
+                  f"copy {b} {int((won == b).sum())} times")
+            checked.append(f"slot {a} won {int((won == a).sum())} rays over "
+                           f"its copy {b}")
+        if name == "inside_no_clip":
+            check(negative > 0, "inside_no_clip: no hit at a negative t")
+        if name == "one_active_ray":
+            check(hits <= 1 and int(kf[1][~active].abs().sum()) == 0,
+                  "one_active_ray: inactive rays hit")
+        print(f"split sweep case {name}: {'; '.join(checked)}; equal to "
+              f"plain (t/u/v bit-equal)")
+    return worst
 
 
 def gradient_reference(size: int):

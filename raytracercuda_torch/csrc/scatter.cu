@@ -36,8 +36,14 @@
 //     fill's tail instead of a launch gap.
 //
 // Float atomics sum in an order that changes from run to run, so the
-// result is not bit-reproducible.  A deterministic sorted segment-reduce,
-// and combining equal ids within a warp first, are later work.
+// result is not bit-reproducible.  Under torch's deterministic mode the
+// wrapper takes the sorted route instead: it sorts the ray positions by
+// row id, stably, with torch ops (`diff/scatter.py:sorted_segments`), and
+// `segment_sum_kernel` has one thread per output float add its row's terms
+// in that order, ascending (tile, ray), from 0.0, as `index_add_` on the
+// CPU does.  It reads its terms from the planar layout one at a time, so
+// it is slower than the atomics; its point is the repeatable sum.
+// Combining equal ids within a warp first is later work.
 
 #include <cuda_runtime.h>
 
@@ -161,9 +167,42 @@ cudaError_t launch_scatter(const float* g, const int* idx, long long n,
                             num_rows, out);
 }
 
+// out[r, k] = sum of g[p / b, k, p % b] over p in order[seg[r]:seg[r + 1]],
+// in that order, from 0.0; one thread per output float, grid-stride.
+__global__ void segment_sum_kernel(const float* __restrict__ g,
+                                   const int* __restrict__ order,
+                                   const int* __restrict__ seg, int d, int b,
+                                   long long n_out, float* __restrict__ out) {
+  for (long long e = rt::thread_index(); e < n_out; e += rt::thread_count()) {
+    const long long r = e / d;
+    const int k = static_cast<int>(e - r * d);
+    float acc = 0.0f;
+    const int end = seg[r + 1];
+    for (int q = seg[r]; q < end; ++q) {
+      const int p = order[q];
+      const int tile = p / b;
+      acc += g[(static_cast<long long>(tile) * d + k) * b + (p - tile * b)];
+    }
+    out[e] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The sorted route: out [num_rows, d] from g [T, d, b], the ray positions
+// `order` sorted by row id and the rows' bounds `seg` [num_rows + 1].
+// Returns the launch error (0 on success).
+int rt_segment_sum(const float* g, const int* order, const int* seg, int d,
+                   int b, int num_rows, float* out, void* stream) {
+  const long long n_out = static_cast<long long>(num_rows) * d;
+  if (n_out == 0) return 0;
+  segment_sum_kernel<<<rt::card_grid(n_out), rt::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(g, order, seg, d,
+                                                            b, n_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Writes out [num_rows, d] = zeros, then adds g [num_tiles, d, b] into it
 // by idx [num_tiles, b]: the fill and the scatter on `stream`, the scatter

@@ -6,19 +6,20 @@
 //   closest hit of each ray from the common eye over the tile's listed
 //   128-triangle clusters, and the winner's interpolated normal, albedo,
 //   texture id, uv and reflectivity.
-// F, `general_shade_kernel`, replaces `_general_shade_kernel` in
-//   raytracercuda_tpu/trace/pallas_bounce.py: A with per-ray origins
-//   (planar [T, 3, R]) and an activity mask [T, R], always with
-//   reflectivity; inactive rays write the miss defaults.  A and F share one
-//   body (a template over the origin source), each its own kernel and
-//   launch.
+// F, `sweep_items_kernel<true, true>` + `general_epilogue_kernel`,
+//   replaces `_general_shade_kernel` in raytracercuda_tpu/trace/
+//   pallas_bounce.py: A with per-ray origins (planar [T, 3, R]) and an
+//   activity mask [T, R], always with reflectivity; inactive rays write
+//   the miss defaults.
 // B, `occlusion_kernel`, replaces `_occlusion_cols_kernel` in
 //   pallas_sweep.py: any hit along one light direction from each active
 //   ray's origin (planar [T, 3, R] origins).
-// C, `primary_kernel`, replaces `_primary_kernel` in the same file: A's
-//   sweep without the attribute epilogue, on row-major [T, R, 3] directions
-//   and geometry-only [C, G, 9] rows; writes t, u, v and the winning slot
-//   for the differentiable route.
+// C, `sweep_items_kernel<false, false>` + `closest_epilogue_kernel<false,
+//   false>`, replaces `_primary_kernel` in the same file: A's sweep without
+//   the attribute epilogue, on row-major [T, R, 3] directions; writes t, u,
+//   v and the winning slot for the differentiable route.  Its epilogue over
+//   F's sweep (`rt_closest_rays`) traces ray bundles that are not a pinhole
+//   frame.
 // H, `occlusion_rows_kernel`, replaces `_occlusion_kernel` in the same
 //   file: B on row-major [T, R, 3] origins and geometry-only rows.  B and H
 //   share one body (a template over the origin layout), each its own
@@ -28,39 +29,57 @@
 // operations and one IEEE division per ray-triangle pair, with each
 // triangle read once per block from shared memory.  A tile's listed
 // clusters are a few kilobytes each, so the kernels are bound by the FP32
-// pipes and by how evenly the blocks' list lengths fill the SMs, not by
-// bytes from device memory.  F's lists are the most lopsided: reflected
-// bundles off curved surfaces spread, so a few tiles list thousands of
-// clusters and set the kernel's time.
+// pipes and by how evenly the work fills the 132 SMs, not by bytes from
+// device memory.
 //
-// The design is the simple one: one block per tile, one thread per ray.
-// The block copies each listed cluster's v0|e1|e2 columns into shared
-// memory (structure of arrays, so a warp reads one broadcast word per
-// operand) and every thread scans the cluster's triangles in slot order.
-// A strict `<` over ascending (cluster, slot) picks exactly the JAX
-// kernel's winner: there, the first minimum wins inside a cluster and
-// clusters combine with a strict `<`.  A and F interpolate attributes
-// once, after the loop, from the winner's row in device memory; C stops at
-// the winner.  C and H read 36-byte geometry rows, so a cluster is one
-// contiguous 4.6 KB run that the block's threads copy with consecutive
-// loads.  B and H let a thread stop at its first hit and the block leave
-// the list when every thread is done; F's inactive threads skip the tests
-// but still reach every barrier.  The library is built with -fmad=false
-// and IEEE division, so each expression rounds as in the plain PyTorch
-// version.
+// A, B and H keep the TPU's grid shape: one block per tile, one thread per
+// ray, a loop over the tile's whole list.  The block copies each listed
+// cluster's v0|e1|e2 columns into shared memory (structure of arrays, so a
+// warp reads one broadcast word per operand) and every thread scans the
+// cluster's triangles in slot order.  A strict `<` over ascending
+// (cluster, slot) picks exactly the JAX kernel's winner: there, the first
+// minimum wins inside a cluster and clusters combine with a strict `<`.
+// B and H let a thread stop at its first hit and the block leave the list
+// when every thread is done.
 //
-// Later work: a warp per cluster, cp.async or TMA double-buffering of the
-// cluster rows, persistent blocks over a tile queue, lists split over
-// several blocks.
+// C and F split each tile's list over many blocks, because one long list
+// set the kernel's time (a reflected tile of config 5 lists all 4,027
+// clusters) and a few dozen listing tiles cannot fill the card (config 4).
+// `sweep.split_lists` cuts the lists into work items of at most K
+// consecutive clusters; pass 1, `sweep_items_kernel`, runs one block per
+// item.  The block stages one cluster at a time, double-buffered with
+// cp.async, as [g][12] rows (v0|e1|e2 and three pad floats, three 16-byte
+// loads a triangle) from the 36-byte geometry rows [C, g, 9], and tests its
+// tile's rays against it with the strict `<`.  F first packs the tile's
+// active rays into the leading lanes (a ballot and a prefix), so that a
+// warp with no active ray tests nothing, and an item whose tile has no
+// active ray leaves before it stages anything.  A ray with a hit in the
+// item then merges it with one 64-bit atomicMin on (ordered t, slot): the
+// smallest t wins and, among equal t, the smallest slot, which is the
+// first in ascending (cluster, slot) order since lists ascend and slot =
+// cluster * g + j.  -0.0 takes +0.0's key (the two tie under `<`).  Pass 2,
+// one thread per ray, decodes the key and re-runs the same `mt_tri` on the
+// winning triangle, so t, u and v are bit-equal to the sweep's; F then
+// interpolates the winner's attributes as A does.  The library is built
+// with -fmad=false and IEEE division, so each expression rounds as in the
+// plain PyTorch version.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
-constexpr int kCols = 32;     // floats per shade-block row (A, B)
-constexpr int kGeomCols = 9;  // floats per geometry row (C, H)
+constexpr int kCols = 32;     // floats per shade-block row (A, B, F)
+constexpr int kGeomCols = 9;  // floats per geometry row (C, F, H)
+constexpr int kRowFloats = 12;  // floats per staged triangle (C, F)
+constexpr int kMaxRays = 1024;  // rays per tile a sweep block can take
 constexpr float kFltMax = 3.40282346638528859812e+38f;
 constexpr float kDetTiny = 1.1754944e-38f;
+// The key of a miss: FLT_MAX's ordered bits, slot 0.  Every hit's key is
+// smaller.
+constexpr unsigned long long kMissKey = 0xFF7FFFFF00000000ull;
 
 // Copy cluster `c`'s v0|e1|e2 columns into shared memory as [9][g]; the
 // block's rows are `cols` floats apart, the first 9 being v0|e1|e2.
@@ -74,15 +93,16 @@ __device__ __forceinline__ void load_cluster(float* s, const float* blocks,
   }
 }
 
-// Moller-Trumbore against slot j of the shared cluster, in the operation
-// order of `_mt_cols` (pallas_sweep.py:707-732).  Returns t, FLT_MAX on miss.
-__device__ __forceinline__ float mt(const float* s, int g, int j, float ox,
-                                    float oy, float oz, float dx, float dy,
-                                    float dz, bool use_eps, float t_eps,
-                                    float& u, float& v) {
-  const float v0x = s[0 * g + j], v0y = s[1 * g + j], v0z = s[2 * g + j];
-  const float e1x = s[3 * g + j], e1y = s[4 * g + j], e1z = s[5 * g + j];
-  const float e2x = s[6 * g + j], e2y = s[7 * g + j], e2z = s[8 * g + j];
+// Moller-Trumbore of one ray against the triangle v0|e1|e2, in the
+// operation order of `_mt_cols` (pallas_sweep.py:707-732).  Returns t,
+// FLT_MAX on miss.
+__device__ __forceinline__ float mt_tri(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        bool use_eps, float t_eps, float& u,
+                                        float& v) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
@@ -101,14 +121,33 @@ __device__ __forceinline__ float mt(const float* s, int g, int j, float ox,
   return miss ? kFltMax : t;
 }
 
+// `mt_tri` against slot j of the shared [9][g] cluster.
+__device__ __forceinline__ float mt(const float* s, int g, int j, float ox,
+                                    float oy, float oz, float dx, float dy,
+                                    float dz, bool use_eps, float t_eps,
+                                    float& u, float& v) {
+  return mt_tri(s[0 * g + j], s[1 * g + j], s[2 * g + j], s[3 * g + j],
+                s[4 * g + j], s[5 * g + j], s[6 * g + j], s[7 * g + j],
+                s[8 * g + j], ox, oy, oz, dx, dy, dz, use_eps, t_eps, u, v);
+}
+
+// `mt_tri` against a v0|e1|e2 row in device memory.
+__device__ __forceinline__ float mt_row(const float* w, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, bool use_eps, float t_eps,
+                                        float& u, float& v) {
+  return mt_tri(w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], ox,
+                oy, oz, dx, dy, dz, use_eps, t_eps, u, v);
+}
+
 // Closest hit of one ray over its tile's listed clusters: ascending
 // (cluster, slot), strict `<`.  Every thread of the block must call it (it
-// holds the block's barriers); an inactive thread (`act` false) tests
-// nothing.  On a miss bt stays FLT_MAX, bs 0, bu = bv = 0.
+// holds the block's barriers).  On a miss bt stays FLT_MAX, bs 0, bu = bv
+// = 0.
 __device__ __forceinline__ void sweep_closest(
     float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
     const float* __restrict__ blocks, int cols, int g, int tile, float ox,
-    float oy, float oz, float dx, float dy, float dz, bool act, bool use_eps,
+    float oy, float oz, float dx, float dy, float dz, bool use_eps,
     float t_eps, float& bt, float& bu, float& bv, int& bs) {
   bt = kFltMax;
   bu = 0.0f;
@@ -120,7 +159,6 @@ __device__ __forceinline__ void sweep_closest(
     __syncthreads();  // every thread is done with the previous cluster
     load_cluster(s, blocks, c, g, cols);
     __syncthreads();
-    if (!act) continue;
     for (int j = 0; j < g; ++j) {
       float u, v;
       const float t = mt(s, g, j, ox, oy, oz, dx, dy, dz, use_eps, t_eps, u,
@@ -135,46 +173,15 @@ __device__ __forceinline__ void sweep_closest(
   }
 }
 
-// The body of A and F.  kPerRay picks the origin source: planar [T, 3, R]
-// origins and an activity mask [T, R] (F), or the common eye [3] (A, whose
-// rays are all active).  Grid: one block per tile; block: one thread per
-// ray (blockDim.x = R).  out_f planes [n_f, T, R]: t, u, v, nx, ny, nz, ar,
-// ag, ab[, tex, tu, tv][, refl]; out_slot [T, R].
-template <bool kPerRay>
-__device__ __forceinline__ void shade_body(
-    float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ origins, const float* __restrict__ dirs,
-    const int* __restrict__ active, const float* __restrict__ blocks, int g,
-    int has_uv, int with_refl, int use_eps, float t_eps,
-    float* __restrict__ out_f, int* __restrict__ out_slot) {
-  const int tile = blockIdx.x;
-  const int R = blockDim.x;
-  const int i = threadIdx.x;
-  const size_t o = static_cast<size_t>(tile) * R + i;
-  const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
-  float ox, oy, oz;
-  bool act = true;
-  if (kPerRay) {
-    const float* org = origins + static_cast<size_t>(tile) * 3 * R;
-    ox = org[i];
-    oy = org[R + i];
-    oz = org[2 * R + i];
-    act = active[o] != 0;
-  } else {
-    ox = origins[0];
-    oy = origins[1];
-    oz = origins[2];
-  }
-  float bt, bu, bv;
-  int bs;
-  sweep_closest(s, offsets, ids, blocks, kCols, g, tile, ox, oy, oz, d[i],
-                d[R + i], d[2 * R + i], act, use_eps != 0, t_eps, bt, bu, bv,
-                bs);
-
-  const size_t plane = static_cast<size_t>(gridDim.x) * R;
+// The winner's attribute planes 1.. of [n_f, T, R] at ray `o` (planes
+// `plane` floats apart): u, v, nx, ny, nz, ar, ag, ab[, tex, tu, tv][,
+// refl] from its shade row; zeros on a miss.  Plane 0 (t) and the slot
+// are the caller's.
+__device__ __forceinline__ void write_attributes(
+    float* __restrict__ out_f, size_t plane, size_t o, float bt, float bu,
+    float bv, int bs, const float* __restrict__ blocks, int has_uv,
+    int with_refl) {
   const int n_f = (has_uv ? 12 : 9) + (with_refl ? 1 : 0);
-  out_slot[o] = bs;
-  out_f[o] = bt;
   if (!(bt < kFltMax)) {
     for (int k = 1; k < n_f; ++k) out_f[k * plane + o] = 0.0f;
     return;
@@ -198,7 +205,10 @@ __device__ __forceinline__ void shade_body(
   if (with_refl) p[k * plane] = w[28];
 }
 
-// Kernel A: the common eye [3], planar directions [T, 3, R].
+// Kernel A: the common eye [3], planar directions [T, 3, R].  Grid: one
+// block per tile; block: one thread per ray (blockDim.x = R).  out_f
+// planes [n_f, T, R]: t, u, v, nx, ny, nz, ar, ag, ab[, tex, tu, tv][,
+// refl]; out_slot [T, R].
 __global__ void primary_shade_kernel(
     const int* __restrict__ offsets, const int* __restrict__ ids,
     const float* __restrict__ eye, const float* __restrict__ dirs,
@@ -206,47 +216,281 @@ __global__ void primary_shade_kernel(
     int use_eps, float t_eps, float* __restrict__ out_f,
     int* __restrict__ out_slot) {
   extern __shared__ float s[];  // [9][g]
-  shade_body<false>(s, offsets, ids, eye, dirs, nullptr, blocks, g, has_uv,
-                    with_refl, use_eps, t_eps, out_f, out_slot);
-}
-
-// Kernel F: planar origins and directions [T, 3, R], activity [T, R]; a
-// tile whose list is empty, like an inactive ray, writes the miss defaults.
-__global__ void general_shade_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ origins, const float* __restrict__ dirs,
-    const int* __restrict__ active, const float* __restrict__ blocks, int g,
-    int has_uv, int use_eps, float t_eps, float* __restrict__ out_f,
-    int* __restrict__ out_slot) {
-  extern __shared__ float s[];  // [9][g]
-  shade_body<true>(s, offsets, ids, origins, dirs, active, blocks, g, has_uv,
-                   1, use_eps, t_eps, out_f, out_slot);
-}
-
-// Kernel C.  Grid: one block per tile; block: one thread per ray.
-// dirs row-major [T, R, 3]; blocks [C, g, 9]; out_f planes [3, T, R]:
-// t, u, v; out_slot [T, R].
-__global__ void primary_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ eye, const float* __restrict__ dirs,
-    const float* __restrict__ blocks, int g, int use_eps, float t_eps,
-    float* __restrict__ out_f, int* __restrict__ out_slot) {
-  extern __shared__ float s[];  // [9][g]
   const int tile = blockIdx.x;
   const int R = blockDim.x;
-  const size_t o = static_cast<size_t>(tile) * R + threadIdx.x;
-  const float* d = dirs + o * 3;
+  const int i = threadIdx.x;
+  const size_t o = static_cast<size_t>(tile) * R + i;
+  const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
   float bt, bu, bv;
   int bs;
-  sweep_closest(s, offsets, ids, blocks, kGeomCols, g, tile, eye[0], eye[1],
-                eye[2], d[0], d[1], d[2], true, use_eps != 0, t_eps, bt, bu,
-                bv, bs);
-  const size_t plane = static_cast<size_t>(gridDim.x) * R;
-  out_f[o] = bt;
-  out_f[plane + o] = bu;
-  out_f[2 * plane + o] = bv;
+  sweep_closest(s, offsets, ids, blocks, kCols, g, tile, eye[0], eye[1],
+                eye[2], d[i], d[R + i], d[2 * R + i], use_eps != 0, t_eps,
+                bt, bu, bv, bs);
   out_slot[o] = bs;
+  out_f[o] = bt;
+  write_attributes(out_f, static_cast<size_t>(gridDim.x) * R, o, bt, bu, bv,
+                   bs, blocks, has_uv, with_refl);
 }
+
+// ---------------------------------------------------------------------------
+// C and F: the split sweep.
+// ---------------------------------------------------------------------------
+
+// A hit's 64-bit key: t's bits mapped to an unsigned order that is
+// monotone over every non-NaN float, above the slot.  -0.0 maps as +0.0.
+__device__ __forceinline__ unsigned long long hit_key(float t, int slot) {
+  unsigned int b = __float_as_uint(t);
+  if (b == 0x80000000u) b = 0u;  // -0.0
+  const unsigned int ordered = b ^ ((b & 0x80000000u) ? 0xFFFFFFFFu
+                                                      : 0x80000000u);
+  return (static_cast<unsigned long long>(ordered) << 32) |
+         static_cast<unsigned int>(slot);
+}
+
+// keys[0, n) = the miss key.
+__global__ void fill_keys_kernel(unsigned long long* __restrict__ keys,
+                                 long long n) {
+  for (long long i = rt::thread_index(); i < n; i += rt::thread_count())
+    keys[i] = kMissKey;
+}
+
+// Starts the copy of cluster `c`'s geometry rows [g, 9] into `s` as [g][12]
+// rows, 4-byte cp.async copies, and commits them as one group.
+__device__ __forceinline__ void stage_cluster(float* s,
+                                              const float* __restrict__ geom,
+                                              int c, int g) {
+  const float* src = geom + static_cast<size_t>(c) * g * kGeomCols;
+  for (int e = threadIdx.x; e < kGeomCols * g; e += blockDim.x) {
+    const int j = e / kGeomCols;
+    __pipeline_memcpy_async(s + j * kRowFloats + (e - j * kGeomCols),
+                            src + e, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// Pass 1 of C and F.  Grid: one block per work item, items [3, num_items]
+// int32 rows (tile, first, end: list positions [first, end) of the tile's
+// CSR list, empty past the real item count); block: R threads, the tile's
+// rays.  kPerRay: planar per-ray origins [T, 3, R] and activity [T, R]
+// (F; active rays packed into the leading lanes), or the common eye [3]
+// (C).  kPlanar: directions planar [T, 3, R] (F) or row-major [T, R, 3]
+// (C).  Merges each ray's closest hit over the item into keys [T * R].
+template <bool kPerRay, bool kPlanar>
+__global__ void sweep_items_kernel(
+    const int* __restrict__ items, int num_items, const int* __restrict__ ids,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const int* __restrict__ active, const float* __restrict__ geom, int g,
+    int use_eps, float t_eps, unsigned long long* __restrict__ keys) {
+  extern __shared__ float4 s_rows[];  // two buffers of [g][12] floats
+  const int first = items[num_items + blockIdx.x];
+  const int end = items[2 * num_items + blockIdx.x];
+  if (first >= end) return;
+  const int tile = items[blockIdx.x];
+  const int R = blockDim.x;
+  const int i = threadIdx.x;
+
+  int ray = i;
+  if constexpr (kPerRay) {
+    // The tile's active rays, in ray order, to lanes 0 .. n_act - 1.
+    __shared__ int s_ray[kMaxRays];
+    __shared__ int s_warp[kMaxRays / 32];
+    const int lane = i & 31;
+    const int warp = i >> 5;
+    const bool act = active[static_cast<size_t>(tile) * R + i] != 0;
+    const unsigned int ballot = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0;
+    int n_act = 0;
+    for (int w = 0; w < R / 32; ++w) {
+      const int c = s_warp[w];
+      before += w < warp ? c : 0;
+      n_act += c;
+    }
+    if (n_act == 0) return;  // the whole block: it stages nothing
+    if (act) s_ray[before + __popc(ballot & ((1u << lane) - 1u))] = i;
+    __syncthreads();
+    ray = i < n_act ? s_ray[i] : -1;
+  }
+  const bool has_ray = ray >= 0;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (has_ray) {
+    if constexpr (kPerRay) {
+      const float* org = origins + static_cast<size_t>(tile) * 3 * R;
+      ox = org[ray];
+      oy = org[R + ray];
+      oz = org[2 * R + ray];
+    } else {
+      ox = origins[0];
+      oy = origins[1];
+      oz = origins[2];
+    }
+    if constexpr (kPlanar) {
+      const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
+      dx = d[ray];
+      dy = d[R + ray];
+      dz = d[2 * R + ray];
+    } else {
+      const float* d = dirs + (static_cast<size_t>(tile) * R + ray) * 3;
+      dx = d[0];
+      dy = d[1];
+      dz = d[2];
+    }
+  }
+
+  float* s = reinterpret_cast<float*>(s_rows);
+  const int buf = g * kRowFloats;
+  const int n = end - first;
+  float bt = kFltMax;
+  int bs = 0;
+  stage_cluster(s, geom, ids[first], g);
+  for (int r = 0; r < n; ++r) {
+    // The other buffer was freed by the barrier that ended step r - 1.
+    if (r + 1 < n)
+      stage_cluster(s + ((r + 1) & 1) * buf, geom, ids[first + r + 1], g);
+    else
+      __pipeline_commit();  // an empty group keeps the count of groups
+    __pipeline_wait_prior(1);  // this thread's copies of cluster r landed
+    __syncthreads();           // and every other thread's
+    if (has_ray) {
+      const int c = ids[first + r];
+      const float4* rows = s_rows + (r & 1) * (buf / 4);
+#pragma unroll 4
+      for (int j = 0; j < g; ++j) {
+        const float4 a = rows[3 * j];
+        const float4 b = rows[3 * j + 1];
+        const float4 e = rows[3 * j + 2];
+        float u, v;
+        const float t = mt_tri(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x,
+                               ox, oy, oz, dx, dy, dz, use_eps != 0, t_eps,
+                               u, v);
+        if (t < bt) {
+          bt = t;
+          bs = c * g + j;
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with buffer r & 1
+  }
+  if (has_ray && bt < kFltMax)
+    atomicMin(keys + static_cast<size_t>(tile) * R + ray, hit_key(bt, bs));
+}
+
+// Pass 2's view of one ray: its key decoded, and on a hit t, u, v
+// recomputed on the winning geometry row with pass 1's `mt_tri`.  Returns
+// whether the ray hit; on a miss t = FLT_MAX, u = v = 0, slot 0.
+template <bool kPerRay, bool kPlanar>
+__device__ __forceinline__ bool decode_hit(
+    const unsigned long long* __restrict__ keys,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const float* __restrict__ geom, size_t o, int R, int use_eps,
+    float t_eps, float& t, float& u, float& v, int& slot) {
+  const unsigned long long key = keys[o];
+  t = kFltMax;
+  u = 0.0f;
+  v = 0.0f;
+  slot = 0;
+  if (key >= kMissKey) return false;
+  slot = static_cast<int>(static_cast<unsigned int>(key));
+  const size_t tile = o / R;
+  const size_t i = o - tile * R;
+  float ox, oy, oz, dx, dy, dz;
+  if constexpr (kPerRay) {
+    const float* org = origins + tile * 3 * R;
+    ox = org[i];
+    oy = org[R + i];
+    oz = org[2 * R + i];
+  } else {
+    ox = origins[0];
+    oy = origins[1];
+    oz = origins[2];
+  }
+  if constexpr (kPlanar) {
+    const float* d = dirs + tile * 3 * R;
+    dx = d[i];
+    dy = d[R + i];
+    dz = d[2 * R + i];
+  } else {
+    dx = dirs[o * 3];
+    dy = dirs[o * 3 + 1];
+    dz = dirs[o * 3 + 2];
+  }
+  t = mt_row(geom + static_cast<size_t>(slot) * kGeomCols, ox, oy, oz, dx,
+             dy, dz, use_eps != 0, t_eps, u, v);
+  return true;
+}
+
+// Pass 2 of C (and of the ray-bundle route): one thread per ray of
+// [T, R]; out_f planes [3, T, R]: t, u, v; out_slot [T, R].
+template <bool kPerRay, bool kPlanar>
+__global__ void closest_epilogue_kernel(
+    const unsigned long long* __restrict__ keys,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const float* __restrict__ geom, long long num_rays, int R, int use_eps,
+    float t_eps, float* __restrict__ out_f, int* __restrict__ out_slot) {
+  const long long o = rt::thread_index();
+  if (o >= num_rays) return;
+  float t, u, v;
+  int slot;
+  decode_hit<kPerRay, kPlanar>(keys, origins, dirs, geom, o, R, use_eps,
+                               t_eps, t, u, v, slot);
+  out_f[o] = t;
+  out_f[num_rays + o] = u;
+  out_f[2 * num_rays + o] = v;
+  out_slot[o] = slot;
+}
+
+// Pass 2 of F: one thread per ray of [T, R]; planar origins and
+// directions; out_f planes [n_f, T, R] as kernel A's with reflectivity,
+// the attributes from shade rows [C, g, 32].
+__global__ void general_epilogue_kernel(
+    const unsigned long long* __restrict__ keys,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const float* __restrict__ geom, const float* __restrict__ blocks,
+    long long num_rays, int R, int has_uv, int use_eps, float t_eps,
+    float* __restrict__ out_f, int* __restrict__ out_slot) {
+  const long long o = rt::thread_index();
+  if (o >= num_rays) return;
+  float t, u, v;
+  int slot;
+  decode_hit<true, true>(keys, origins, dirs, geom, o, R, use_eps, t_eps, t,
+                         u, v, slot);
+  out_slot[o] = slot;
+  out_f[o] = t;
+  write_attributes(out_f, num_rays, o, t, u, v, slot, blocks, has_uv, 1);
+}
+
+// Fills the keys, then runs pass 1 over the items.
+template <bool kPerRay, bool kPlanar>
+cudaError_t launch_sweep(const int* items, int num_items, const int* ids,
+                         const float* origins, const float* dirs,
+                         const int* active, const float* geom, long long n,
+                         int R, int g, int use_eps, float t_eps,
+                         unsigned long long* keys, cudaStream_t stream) {
+  fill_keys_kernel<<<rt::card_grid(n), rt::kThreads, 0, stream>>>(keys, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_items == 0) return err;
+  const size_t smem = sizeof(float) * 2 * g * kRowFloats;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(sweep_items_kernel<kPerRay, kPlanar>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  sweep_items_kernel<kPerRay, kPlanar><<<num_items, R, smem, stream>>>(
+      items, num_items, ids, origins, dirs, active, geom, g, use_eps, t_eps,
+      keys);
+  return cudaGetLastError();
+}
+
+// Pass 2's grid: one thread per ray.
+inline int ray_blocks(long long n) {
+  return static_cast<int>((n + rt::kThreads - 1) / rt::kThreads);
+}
+
+// ---------------------------------------------------------------------------
+// B and H.
+// ---------------------------------------------------------------------------
 
 // Any hit along `light` from one ray's origin over its tile's listed
 // clusters (B and H).  kRowMajor picks the origin layout: [T, R, 3] (H) or
@@ -324,7 +568,11 @@ __global__ void occlusion_rows_kernel(
 
 extern "C" {
 
-// Each returns cudaGetLastError() after its launch (0 on success).
+// Each returns the first launch error (0 on success).  The split sweeps
+// (C, F, the ray bundles) take work items [3, num_items] int32 from
+// `sweep.split_lists`, the lists' ids, geometry rows [C, g, 9] and
+// keys [T * R] of scratch; R is at most 1024 and, for F and the bundles,
+// a multiple of 32.
 
 int rt_primary_shade(const int* offsets, const int* ids, const float* eye,
                      const float* dirs, const float* blocks, int num_tiles,
@@ -340,17 +588,25 @@ int rt_primary_shade(const int* offsets, const int* ids, const float* eye,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_general_shade(const int* offsets, const int* ids,
+// Kernel F: planar origins and directions [T, 3, R], activity [T, R];
+// out_f [n_f, T, R] with shade rows `blocks` [C, g, 32].
+int rt_general_shade(const int* items, int num_items, const int* ids,
                      const float* origins, const float* dirs,
-                     const int* active, const float* blocks, int num_tiles,
-                     int rays_per_tile, int g, int has_uv, int use_eps,
-                     float t_eps, float* out_f, int* out_slot, void* stream) {
-  if (num_tiles == 0) return 0;
-  const size_t smem = sizeof(float) * 9 * g;
-  general_shade_kernel<<<num_tiles, rays_per_tile, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      offsets, ids, origins, dirs, active, blocks, g, has_uv, use_eps, t_eps,
-      out_f, out_slot);
+                     const int* active, const float* geom,
+                     const float* blocks, int num_tiles, int rays_per_tile,
+                     int g, int has_uv, int use_eps, float t_eps,
+                     unsigned long long* keys, float* out_f, int* out_slot,
+                     void* stream) {
+  const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_sweep<true, true>(
+      items, num_items, ids, origins, dirs, active, geom, n, rays_per_tile,
+      g, use_eps, t_eps, keys, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  general_epilogue_kernel<<<ray_blocks(n), rt::kThreads, 0, s>>>(
+      keys, origins, dirs, geom, blocks, n, rays_per_tile, has_uv, use_eps,
+      t_eps, out_f, out_slot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,15 +622,44 @@ int rt_occlusion(const int* offsets, const int* ids, const float* light,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_primary(const int* offsets, const int* ids, const float* eye,
-               const float* dirs, const float* blocks, int num_tiles,
-               int rays_per_tile, int g, int use_eps, float t_eps,
-               float* out_f, int* out_slot, void* stream) {
-  if (num_tiles == 0) return 0;
-  const size_t smem = sizeof(float) * 9 * g;
-  primary_kernel<<<num_tiles, rays_per_tile, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      offsets, ids, eye, dirs, blocks, g, use_eps, t_eps, out_f, out_slot);
+// Kernel C: the common eye [3], row-major directions [T, R, 3]; out_f
+// [3, T, R].
+int rt_primary(const int* items, int num_items, const int* ids,
+               const float* eye, const float* dirs, const float* geom,
+               int num_tiles, int rays_per_tile, int g, int use_eps,
+               float t_eps, unsigned long long* keys, float* out_f,
+               int* out_slot, void* stream) {
+  const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_sweep<false, false>(
+      items, num_items, ids, eye, dirs, nullptr, geom, n, rays_per_tile, g,
+      use_eps, t_eps, keys, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  closest_epilogue_kernel<false, false><<<ray_blocks(n), rt::kThreads, 0, s>>>(
+      keys, eye, dirs, geom, n, rays_per_tile, use_eps, t_eps, out_f,
+      out_slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C's epilogue over F's sweep: planar origins and directions [T, 3, R],
+// activity [T, R]; out_f [3, T, R].
+int rt_closest_rays(const int* items, int num_items, const int* ids,
+                    const float* origins, const float* dirs,
+                    const int* active, const float* geom, int num_tiles,
+                    int rays_per_tile, int g, int use_eps, float t_eps,
+                    unsigned long long* keys, float* out_f, int* out_slot,
+                    void* stream) {
+  const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_sweep<true, true>(
+      items, num_items, ids, origins, dirs, active, geom, n, rays_per_tile,
+      g, use_eps, t_eps, keys, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  closest_epilogue_kernel<true, true><<<ray_blocks(n), rt::kThreads, 0, s>>>(
+      keys, origins, dirs, geom, n, rays_per_tile, use_eps, t_eps, out_f,
+      out_slot);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -238,7 +238,8 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
     """Discrete directional-light occlusion mask from a traversal `Hit`,
     without gradients: kernel E on BRUTE, kernel H over the swept-beam
     lists on CLUSTER (a frame the tile does not divide is edge-padded and
-    cropped).
+    cropped; rays that are not a frame go in groups of one tile's count,
+    in their given order).
 
     The shadow rule is the gradient route's own, not `FrameRenderer`'s:
     origins ``hit point + l * (10 * t_epsilon)`` (no scene-extent
@@ -248,10 +249,6 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
     if not brute and config.accel != AccelKind.CLUSTER:
         raise NotImplementedError(
             f"shadows on {config.accel} wait for slice 6 of the port")
-    if not brute and frame_hw is None:
-        raise NotImplementedError(
-            "CLUSTER shadows for ray bundles that are not a pinhole frame "
-            "wait for slice 4 of the port (the silhouette term)")
     with torch.no_grad():
         origin, dirs, l = origin.detach(), dirs.detach(), l.detach()
         hit_mask = hit_nd.hit_mask
@@ -264,6 +261,16 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
             mask = any_hit_brute(scene.positions.detach(), scene.faces,
                                  shadow_origin, l.expand(dirs.shape),
                                  float(FLT_MAX), tc)
+        elif frame_hw is None:
+            from ..trace.bounce_sweep import group_rays
+            from ..trace.sweep import occlusion_tiles, segment_blocks
+
+            r = tc.dense_tile_px * tc.dense_tile_px
+            mask = occlusion_tiles(
+                accel, segment_blocks(accel),
+                group_rays(shadow_origin, r).contiguous(), l,
+                group_rays(hit_mask, r), tile_px=tc.dense_tile_px,
+                trace_cfg=tc)[:hit_mask.shape[0]]
         else:
             from ..trace.pipeline import crop_frame, pad_frame
             from ..trace.sweep import occlusion_dense, segment_blocks
@@ -329,8 +336,8 @@ def render_rgb(scene, accel, initial_rays: torch.Tensor, eye: torch.Tensor,
     Differentiable in ``scene.positions``, ``scene.attrs`` (normals,
     uvs), ``scene.albedo``, ``scene.textures``, ``initial_rays``, ``eye``
     and ``orient``: any of them that requires grad gets one from
-    ``backward()``.  ``frame_hw`` ``(H, W)`` must cover the rays, and the
-    16-pixel tile must divide it."""
+    ``backward()``.  ``frame_hw`` ``(H, W)``, when given, must cover the
+    rays; without it the rays trace as a bundle."""
     face_ids, shadow_mask = _discrete(scene, accel, initial_rays, eye,
                                       orient, config, shading, with_shadows,
                                       light_dir, frame_hw)

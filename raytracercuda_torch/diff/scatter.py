@@ -16,11 +16,19 @@ is exact for every id, so none of them has a counterpart here.  Float
 atomics sum in an order that changes from run to run: G agrees with its
 plain version to float32 rounding, not bit for bit.
 
+Under `torch.use_deterministic_algorithms(True)`, G takes a sorted route
+instead: a stable sort of the ids (`sorted_segments`, torch ops) and a
+segment sum (`csrc/scatter.cu:segment_sum_kernel`) that adds each row's
+terms in ascending (tile, ray) order, as ``index_add_`` on the CPU does,
+so that the result is bitwise repeatable and equal to the plain version
+on the CPU.
+
 `tile_scatter_add` runs G's plain version (``index_add_``) for tensors on
 the CPU and launches G for tensors on a GPU; there is no fallback from
 one to the other.  One launch of G is one call of its C entry, which
-writes the output's zeros and scatters into it (two kernels);
-``launch_counts`` counts those calls.
+writes the output's zeros and scatters into it (two kernels), or writes
+the sorted route's sums (one kernel); ``launch_counts`` counts those
+calls.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from ..ops.cuda_build import kernel_fn, raw_stream
 from ..trace import sweep
 
 #: Kernel launches, counted where the kernel is launched.
-launch_counts = {"scatter_add": 0}
+launch_counts = {"scatter_add": 0, "scatter_sorted": 0}
 
 
 def reset_launch_counts() -> None:
@@ -85,14 +93,58 @@ def _scatter_add_cuda(g: torch.Tensor, idx: torch.Tensor, num_rows: int,
     return out
 
 
+def sorted_segments(idx: torch.Tensor, num_rows: int):
+    """The sorted route's operands, from torch ops alone: ``order`` (int32)
+    the flat ray positions ``t * B + j`` sorted by row id, stably, so each
+    row's rays stay in ascending (tile, ray) order, the dropped ids last;
+    ``seg`` ``[num_rows + 1]`` (int32) the bounds of row ``r``'s run,
+    ``order[seg[r]:seg[r + 1]]``."""
+    flat = idx.reshape(-1).to(torch.int32)
+    keep = (flat >= 0) & (flat < num_rows)
+    key = torch.where(keep, flat, num_rows)
+    key, order = torch.sort(key, stable=True)
+    rows = torch.arange(num_rows + 1, dtype=torch.int32, device=idx.device)
+    seg = torch.searchsorted(key, rows, out_int32=True)
+    return order.to(torch.int32), seg
+
+
+def _scatter_add_sorted_cuda(g: torch.Tensor, idx: torch.Tensor,
+                             num_rows: int) -> torch.Tensor:
+    """Launch G's sorted route: `sorted_segments`, then one thread per
+    output float sums its row's terms in ascending (tile, ray) order.
+    Output as in `_scatter_add_plain`, and bitwise equal to it on the
+    CPU."""
+    t, d, b = g.shape
+    dev = g.device
+    sweep._check_cuda("g", g, dev, torch.float32, (t, d, b))
+    sweep._check_cuda("idx", idx, dev, torch.int32, (t, b))
+    if not 0 <= num_rows < 1 << 31 or t * b >= 1 << 31:
+        raise ValueError(f"the sorted route takes 0 to 2^31 - 1 rows and "
+                         f"rays, got {num_rows} rows, {t * b} rays")
+    order, seg = sorted_segments(idx, num_rows)
+    out = g.new_empty((num_rows, d))
+    err = kernel_fn("rt_segment_sum")(
+        g.data_ptr(), order.data_ptr(), seg.data_ptr(), d, b, num_rows,
+        out.data_ptr(), raw_stream(dev))
+    if err:
+        raise RuntimeError(f"kernel G (sorted) launch failed: CUDA error "
+                           f"{err}")
+    launch_counts["scatter_sorted"] += 1
+    return out
+
+
 def tile_scatter_add(g: torch.Tensor, idx: torch.Tensor,
                      num_rows: int) -> torch.Tensor:
     """``out[idx[t, j]] += g[t, :, j]`` -> ``[num_rows, D]`` float32.
 
     ``g`` ``[T, D, B]`` float32 cotangents, rays last (planar); ``idx``
     ``[T, B]`` int32 rows, ids below 0 (and from ``num_rows`` up)
-    dropped."""
-    run = sweep._pick(g, _scatter_add_plain, _scatter_add_cuda)
+    dropped.  On a GPU under `torch.use_deterministic_algorithms(True)`
+    it takes G's sorted route, bitwise repeatable."""
+    cuda = (_scatter_add_sorted_cuda
+            if torch.are_deterministic_algorithms_enabled()
+            else _scatter_add_cuda)
+    run = sweep._pick(g, _scatter_add_plain, cuda)
     return run(g.contiguous(), idx.to(torch.int32).contiguous(), num_rows)
 
 

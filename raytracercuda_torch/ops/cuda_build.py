@@ -6,10 +6,9 @@ plain C interface in ``raytracercuda_torch/_build/`` (git-ignored).  The
 library's name carries a hash of the sources, headers and flags, so an
 edited source is rebuilt.  Nothing here runs at import.
 
-`kernel_fn` and `raw_stream` are the lean launch path of the wrappers
-whose kernels are short enough for the host call to matter (D, G): the
-library's function looked up once, and the current stream's handle
-without building a `torch.cuda.Stream`.
+`kernel_fn` and `raw_stream` are the wrappers' lean launch path (A-D, F,
+G, H): the library's function looked up once, and the current stream's
+handle without building a `torch.cuda.Stream`.
 """
 
 from __future__ import annotations
@@ -101,17 +100,22 @@ def load_library() -> ctypes.CDLL:
     lib.rt_primary_shade.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p, p,
                                      p]
     lib.rt_primary_shade.restype = i
-    lib.rt_general_shade.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p, p,
-                                     p]
+    lib.rt_general_shade.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
+                                     f, p, p, p, p]
     lib.rt_general_shade.restype = i
     lib.rt_occlusion.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
     lib.rt_occlusion.restype = i
-    lib.rt_primary.argtypes = [p, p, p, p, p, i, i, i, i, f, p, p, p]
+    lib.rt_primary.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p, p, p, p]
     lib.rt_primary.restype = i
+    lib.rt_closest_rays.argtypes = [p, i, p, p, p, p, p, i, i, i, i, f, p, p,
+                                    p, p]
+    lib.rt_closest_rays.restype = i
     lib.rt_occlusion_rows.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
     lib.rt_occlusion_rows.restype = i
     lib.rt_scatter_add.argtypes = [p, p, i, i, i, i, i, i, p, p]
     lib.rt_scatter_add.restype = i
+    lib.rt_segment_sum.argtypes = [p, p, p, i, i, i, p, p]
+    lib.rt_segment_sum.restype = i
     lib.rt_brute.argtypes = [p, p, p, i, i, i, f, p, p, p, p, p]
     lib.rt_brute.restype = i
     lib.rt_clear.argtypes = [p, i64, u32, p]

@@ -9,6 +9,10 @@
     (`sweep._general_shade_cuda`, or its plain version on the CPU): kernel
     A's closest hit and attributes from per-ray origins, with an activity
     mask.
+  * `trace_rays` traces a ray bundle that is not a pinhole frame (JAX:
+    `dense.trace_clusters_rays`): groups of rays in their given order,
+    the general cull, and C's t/u/v/slot epilogue over F's sweep
+    (`sweep._closest_rays_cuda`).
   * `render_bounces_tiled` (JAX: `render_bounces_pallas`) renders the whole
     multi-bounce frame planar: the primary pass through kernel A, shadows
     through kernel B, then one launch of F per bounce, with the
@@ -24,15 +28,18 @@ import torch
 
 from ..config import TraceConfig
 from ..ops.math import normalize
-from ..types import FLT_MAX
+from ..types import FLT_MAX, Hit
 from .dense import tile_pixels_planar, untile_pixels
 from .shade import sample_texture
 from .sweep import (
+    _closest_rays_cuda,
+    _closest_rays_plain,
     _general_shade_cuda,
     _general_shade_plain,
     _pick,
     _tile_lists,
     occlusion_tiles_planar,
+    segment_blocks,
     t_eps_of,
     trace_shade_tiles_planar,
 )
@@ -109,7 +116,50 @@ def trace_shade_general_planar(
     run = _pick(d3_tiles, _general_shade_plain, _general_shade_cuda)
     return run(_tile_lists(survive), o3_tiles.contiguous(),
                d3_tiles.contiguous(), a_tiles.contiguous(), shade_blocks,
-               has_uv, t_eps_of(trace_cfg))
+               has_uv, t_eps_of(trace_cfg), segment_blocks(cs))
+
+
+def group_rays(x: torch.Tensor, rays_per_group: int) -> torch.Tensor:
+    """Row-major ``[N, ...]`` -> ``[ceil(N / r), r, ...]`` groups of ``r``
+    consecutive rays in their given order, the last one padded with
+    zeros (False for a mask)."""
+    n = x.shape[0]
+    groups = -(-n // rays_per_group)
+    pad = groups * rays_per_group - n
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x.reshape((groups, rays_per_group) + tuple(x.shape[1:]))
+
+
+def trace_rays(
+    cs,
+    tri_blocks: torch.Tensor,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    rays_per_group: int = 256,
+    trace_cfg: TraceConfig = TraceConfig(),
+) -> Hit:
+    """Closest hit of any row-major ray bundle, ``origins`` and ``dirs``
+    ``[N, 3]`` -> `Hit` with ``[N]`` fields; ``face`` is the winner's
+    original face id (int32), -1 on a miss.  The rays go in groups of
+    ``rays_per_group`` through `general_tile_cull` (on unit directions)
+    and C's epilogue over F's sweep; ``tri_blocks`` is
+    `segment_blocks(cs)`."""
+    n = origins.shape[0]
+    num = group_rays(torch.ones(n, dtype=torch.bool, device=dirs.device),
+                     rays_per_group)
+    o3 = group_rays(origins, rays_per_group).transpose(1, 2).contiguous()
+    d3 = group_rays(dirs, rays_per_group).transpose(1, 2).contiguous()
+    # The cone test of the cull reads unit directions.
+    dlen = torch.sqrt(torch.clamp((d3 * d3).sum(dim=1, keepdim=True),
+                                  min=1e-30))
+    survive = general_tile_cull(o3, d3 / dlen, num, cs.cmin, cs.cmax)
+    run = _pick(d3, _closest_rays_plain, _closest_rays_cuda)
+    bt, bu, bv, bs = (x.reshape(-1)[:n] for x in run(
+        _tile_lists(survive), o3, d3, num, tri_blocks, t_eps_of(trace_cfg)))
+    # A miss already carries FLT_MAX, u = v = 0 and slot 0.
+    face = torch.where(bt < FLT_MAX, cs.face_order[bs.long()], -1)
+    return Hit(t=bt, u=bu, v=bv, face=face.to(torch.int32))
 
 
 def _coherence_perm(ox, oy, oz, dx, dy, dz, active, lo, hi):

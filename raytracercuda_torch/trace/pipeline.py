@@ -7,11 +7,14 @@ framebuffer (counterpart of `raytracercuda_tpu/trace/pipeline.py`).
     kernel E (`bruteforce.trace_brute`);
   * CLUSTER traces pinhole frames (all rays leaving ``common_origin``)
     through kernel C (`sweep.trace_dense`); a frame that the tile does not
-    divide is edge-padded and cropped.
+    divide is edge-padded and cropped;
+  * CLUSTER traces any other ray bundle (JAX: `dense.trace_clusters_rays`)
+    in groups of one tile's count of rays, in their given order, through
+    the general cull and C's epilogue over F's sweep
+    (`bounce_sweep.trace_rays`).
 
-CLUSTER ray bundles that are not a pinhole frame, and the BVH, GRID and
-WAVEFRONT structures, raise `NotImplementedError` naming the slice of the
-port that brings them.
+The BVH, GRID and WAVEFRONT structures raise `NotImplementedError` naming
+the slice of the port that brings them.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ def trace_hit(
 ) -> Hit:
     """Closest hit of row-major rays over the configured structure.
     ``frame_hw`` + ``common_origin`` mark a pinhole frame, which the
-    CLUSTER route needs."""
+    CLUSTER route traces as pixel tiles."""
     kind = config.accel
     if kind == AccelKind.BRUTE or accel is None:
         from .bruteforce import trace_brute
@@ -75,15 +78,15 @@ def trace_hit(
     if kind != AccelKind.CLUSTER:
         raise NotImplementedError(
             f"{kind} waits for slice 6 of the port (the remaining backends)")
-    if frame_hw is None or common_origin is None:
-        raise NotImplementedError(
-            "CLUSTER ray bundles that are not a pinhole frame (no frame_hw "
-            "or no common origin) wait for slice 4 of the port (the "
-            "silhouette term, whose edge samples trace them)")
     from .sweep import segment_blocks, trace_dense
 
-    height, width = frame_hw
     tp = config.trace.dense_tile_px
+    if frame_hw is None or common_origin is None:
+        from .bounce_sweep import trace_rays
+
+        return trace_rays(accel, segment_blocks(accel), origin, direction,
+                          rays_per_group=tp * tp, trace_cfg=config.trace)
+    height, width = frame_hw
     # Edge-pad a frame the tile does not divide: the repeated edge rays are
     # valid directions, and their pixels are cropped.
     dirs, hp, wp = pad_frame(direction, height, width, tp)

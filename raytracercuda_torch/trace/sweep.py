@@ -11,7 +11,9 @@ ascending cluster id.  The kernels live in `csrc/sweep.cu`:
   * F (replacing `pallas_bounce._general_shade_kernel`) is A with planar
     per-ray origins and an activity mask, always with reflectivity; its
     entry point, with the cull that feeds it, is
-    `bounce_sweep.trace_shade_general_planar`;
+    `bounce_sweep.trace_shade_general_planar`; C's epilogue over F's sweep
+    (`_closest_rays_cuda`) traces ray bundles that are not a pinhole frame
+    (`bounce_sweep.trace_rays`);
   * B (replacing `pallas_sweep._occlusion_cols_kernel`) answers any-hit
     along one light direction from planar per-ray origins;
   * C (replacing `pallas_sweep._primary_kernel`) is A without the
@@ -28,6 +30,13 @@ The rules that decide a result are the JAX kernels':
     (cluster, slot) order;
   * a miss carries ``FLT_MAX``, slot 0 and zero attributes.
 
+C and F split each tile's list over many blocks: `split_lists` cuts the
+lists into work items of at most ``PRIMARY_CHUNK`` (C) or
+``GENERAL_CHUNK`` (F) clusters, one block each, and the blocks merge
+their closest hits per ray with a 64-bit ``atomicMin`` before a second
+pass writes the outputs (`csrc/sweep.cu`).  One launch of C or F is one
+call of its C entry (the key fill and both passes).
+
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its CUDA kernel for tensors on a GPU; there is no fallback from
 one to the other.  ``launch_counts`` counts kernel launches.
@@ -43,6 +52,7 @@ import torch
 from ..accel.clusters import ClusterSet, edge_rows
 from ..config import TraceConfig
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
+from ..ops.cuda_build import kernel_fn, raw_stream
 from ..types import FLT_MAX, Hit
 from .dense import (
     _cull_frustum,
@@ -71,7 +81,13 @@ GEOM_COLS = 9
 
 #: Kernel launches per wrapper, counted where the kernel is launched.
 launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
-                 "primary": 0, "occlusion_rows": 0}
+                 "primary": 0, "occlusion_rows": 0, "closest_rays": 0}
+
+#: Clusters per work item of kernels C and F, K: the fastest, within the
+#: run's spread, of `chip_smoke.py`'s sweep over K on config 4 (C) and
+#: both of config 5's bounces (F) on the H100 (PERF.md).
+PRIMARY_CHUNK = 2
+GENERAL_CHUNK = 8
 
 #: Tiles a plain version sweeps at once: its ``[n, G, R]`` temporaries then
 #: stay near 33 MB each at G = 128, R = 256, whatever the frame size.
@@ -165,6 +181,31 @@ def _tile_lists(survive: torch.Tensor) -> TileLists:
     offsets[1:] = torch.cumsum(counts, dim=0)
     ids = survive.nonzero()[:, 1].to(torch.int32)
     return TileLists(counts=counts, offsets=offsets, ids=ids)
+
+
+def split_lists(lists: TileLists, k: int) -> torch.Tensor:
+    """Cut each tile's list into work items of at most ``k`` consecutive
+    clusters: ``[3, M]`` int32 rows (tile, first, end), the item covering
+    list positions ``[first, end)`` of its tile.  A tile's items follow
+    each other in list order.  ``M = T + ceil(N / k)`` bounds the real
+    count from the host's shapes alone, so nothing waits for the device;
+    the items past the real count are empty (``first == end == 0``)."""
+    num_tiles = lists.counts.numel()
+    dev = lists.counts.device
+    m = num_tiles + -(-lists.ids.numel() // k)
+    if num_tiles == 0:
+        return torch.zeros((3, m), dtype=torch.int32, device=dev)
+    per_tile = (lists.counts + (k - 1)) // k
+    last = torch.cumsum(per_tile, dim=0, dtype=torch.int32)  # inclusive
+    item = torch.arange(m, dtype=torch.int32, device=dev)
+    tile = torch.searchsorted(last, item, right=True, out_int32=True)
+    real = tile < num_tiles
+    tile = tile.clamp(max=num_tiles - 1)
+    first = lists.offsets[tile] + (item - last[tile] + per_tile[tile]) * k
+    end = torch.minimum(first + k, lists.offsets[tile + 1])
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return torch.stack([tile, torch.where(real, first, zero),
+                        torch.where(real, end, zero)])
 
 
 # ---------------------------------------------------------------------------
@@ -286,18 +327,35 @@ def _primary_plain(lists, eye, d_tiles, blocks, t_eps):
     return bt, bu, bv, bs
 
 
-def _general_shade_plain(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
-                         t_eps):
-    """Plain version of kernel F: `_closest_plain` from per-ray origins,
-    inactive rays set to the miss defaults, then the winner's attributes
-    with reflectivity."""
+def _closest_active_plain(lists, o3_tiles, d3_tiles, active, blocks, t_eps):
+    """`_closest_plain` from planar per-ray origins, inactive rays set to
+    the miss defaults: ``(t, slot, u, v)`` ``[T, R]``."""
     bt, bs, bu, bv = _closest_plain(lists, o3_tiles, d3_tiles, blocks, t_eps)
-    bt = torch.where(active, bt, float(FLT_MAX))
-    bs = torch.where(active, bs, 0)
-    bu = torch.where(active, bu, 0.0)
-    bv = torch.where(active, bv, 0.0)
+    return (torch.where(active, bt, float(FLT_MAX)),
+            torch.where(active, bs, 0), torch.where(active, bu, 0.0),
+            torch.where(active, bv, 0.0))
+
+
+def _general_shade_plain(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
+                         t_eps, geom=None):
+    """Plain version of kernel F: `_closest_active_plain` on the shade
+    blocks, then the winner's attributes with reflectivity.  ``geom``
+    (the kernel's geometry rows, equal to the blocks' first nine columns)
+    is not needed here."""
+    del geom
+    bt, bs, bu, bv = _closest_active_plain(lists, o3_tiles, d3_tiles, active,
+                                           blocks, t_eps)
     attrs = _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, True)
     return (bt, bs, bu, bv, *attrs)
+
+
+def _closest_rays_plain(lists, o3_tiles, d3_tiles, active, blocks, t_eps):
+    """Plain version of C's epilogue over F's sweep: ``(t, u, v, slot)``
+    ``[T, R]`` from planar per-ray origins and directions over geometry
+    rows, inactive rays set to the miss defaults."""
+    bt, bs, bu, bv = _closest_active_plain(lists, o3_tiles, d3_tiles, active,
+                                           blocks, t_eps)
+    return bt, bu, bv, bs
 
 
 def _occlusion_plain(lists, light, o3_tiles, active, blocks, t_eps):
@@ -342,11 +400,22 @@ def _check_lists(lists: TileLists, device, num_tiles: int):
     _check_cuda("ids", lists.ids, device, torch.int32, (lists.ids.numel(),))
 
 
+def _check_split(num_rays: int, packs: bool):
+    """The split sweep's block is the tile's rays: at most 1024, and a
+    multiple of 32 where it packs active rays with warp ballots."""
+    if not 0 < num_rays <= 1024 or (packs and num_rays % 32):
+        raise ValueError(f"the split sweep takes 1 to 1024 rays per tile"
+                         f"{', a multiple of 32,' if packs else ''} got "
+                         f"{num_rays}")
+
+
+def _eps_args(t_eps):
+    return int(t_eps is not None), 0.0 if t_eps is None else float(t_eps)
+
+
 def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
                         t_eps):
     """Launch kernel A; outputs as in `_primary_shade_plain`."""
-    from ..ops.cuda_build import load_library
-
     num_tiles, _, R = d3_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = d3_tiles.device
@@ -357,14 +426,11 @@ def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
     n_f = (12 if has_uv else 9) + (1 if with_refl else 0)
     out_f = torch.empty((n_f, num_tiles, R), dtype=torch.float32, device=dev)
     out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
-    lib = load_library()
-    err = lib.rt_primary_shade(
+    err = kernel_fn("rt_primary_shade")(
         lists.offsets.data_ptr(), lists.ids.data_ptr(), eye.data_ptr(),
         d3_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R, g,
-        int(has_uv), int(with_refl), int(t_eps is not None),
-        0.0 if t_eps is None else float(t_eps),
-        out_f.data_ptr(), out_slot.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(has_uv), int(with_refl), *_eps_args(t_eps), out_f.data_ptr(),
+        out_slot.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel A launch failed: CUDA error {err}")
     launch_counts["primary_shade"] += 1
@@ -373,8 +439,6 @@ def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
 
 def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
     """Launch kernel B; output as in `_occlusion_plain`."""
-    from ..ops.cuda_build import load_library
-
     num_tiles, _, R = o3_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = o3_tiles.device
@@ -385,12 +449,10 @@ def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
     _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
     act = active.to(torch.int32)
     occ = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
-    lib = load_library()
-    err = lib.rt_occlusion(
+    err = kernel_fn("rt_occlusion")(
         lists.offsets.data_ptr(), lists.ids.data_ptr(), light.data_ptr(),
         o3_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles,
-        R, g, float(t_eps), occ.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        R, g, float(t_eps), occ.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel B launch failed: CUDA error {err}")
     launch_counts["occlusion"] += 1
@@ -398,10 +460,11 @@ def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
 
 
 def _general_shade_cuda(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
-                        t_eps):
-    """Launch kernel F; outputs as in `_general_shade_plain`."""
-    from ..ops.cuda_build import load_library
-
+                        t_eps, geom=None):
+    """Launch kernel F; outputs as in `_general_shade_plain`.  Pass 1
+    sweeps ``geom``, the geometry rows `segment_blocks` gives (default:
+    a copy of the blocks' first nine columns); pass 2 reads the shade
+    rows."""
     num_tiles, _, R = d3_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = d3_tiles.device
@@ -410,16 +473,22 @@ def _general_shade_cuda(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
     _check_cuda("d3_tiles", d3_tiles, dev, torch.float32, (num_tiles, 3, R))
     _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
     _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
+    if geom is None:
+        geom = blocks[:, :, :GEOM_COLS].contiguous()
+    _check_cuda("geom", geom, dev, torch.float32, (c, g, GEOM_COLS))
+    _check_split(R, packs=True)
+    items = split_lists(lists, GENERAL_CHUNK)
     act = active.to(torch.int32)
     n_f = (12 if has_uv else 9) + 1
+    keys = torch.empty(num_tiles * R, dtype=torch.int64, device=dev)
     out_f = torch.empty((n_f, num_tiles, R), dtype=torch.float32, device=dev)
     out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
-    err = load_library().rt_general_shade(
-        lists.offsets.data_ptr(), lists.ids.data_ptr(), o3_tiles.data_ptr(),
-        d3_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles, R,
-        g, int(has_uv), int(t_eps is not None),
-        0.0 if t_eps is None else float(t_eps), out_f.data_ptr(),
-        out_slot.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    err = kernel_fn("rt_general_shade")(
+        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
+        o3_tiles.data_ptr(), d3_tiles.data_ptr(), act.data_ptr(),
+        geom.data_ptr(), blocks.data_ptr(), num_tiles, R, g, int(has_uv),
+        *_eps_args(t_eps), keys.data_ptr(), out_f.data_ptr(),
+        out_slot.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel F launch failed: CUDA error {err}")
     launch_counts["general_shade"] += 1
@@ -428,8 +497,6 @@ def _general_shade_cuda(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
 
 def _primary_cuda(lists, eye, d_tiles, blocks, t_eps):
     """Launch kernel C; outputs as in `_primary_plain`."""
-    from ..ops.cuda_build import load_library
-
     num_tiles, R, _ = d_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = d_tiles.device
@@ -437,24 +504,53 @@ def _primary_cuda(lists, eye, d_tiles, blocks, t_eps):
     _check_cuda("eye", eye, dev, torch.float32, (3,))
     _check_cuda("d_tiles", d_tiles, dev, torch.float32, (num_tiles, R, 3))
     _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
+    _check_split(R, packs=False)
+    items = split_lists(lists, PRIMARY_CHUNK)
+    keys = torch.empty(num_tiles * R, dtype=torch.int64, device=dev)
     out_f = torch.empty((3, num_tiles, R), dtype=torch.float32, device=dev)
     out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
-    err = load_library().rt_primary(
-        lists.offsets.data_ptr(), lists.ids.data_ptr(), eye.data_ptr(),
-        d_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R, g,
-        int(t_eps is not None), 0.0 if t_eps is None else float(t_eps),
-        out_f.data_ptr(), out_slot.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = kernel_fn("rt_primary")(
+        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
+        eye.data_ptr(), d_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R,
+        g, *_eps_args(t_eps), keys.data_ptr(), out_f.data_ptr(),
+        out_slot.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel C launch failed: CUDA error {err}")
     launch_counts["primary"] += 1
     return out_f[0], out_f[1], out_f[2], out_slot
 
 
+def _closest_rays_cuda(lists, o3_tiles, d3_tiles, active, blocks, t_eps):
+    """Launch C's epilogue over F's sweep; outputs as in
+    `_closest_rays_plain`.  ``blocks`` are geometry rows."""
+    num_tiles, _, R = d3_tiles.shape
+    c, g = blocks.shape[0], blocks.shape[1]
+    dev = d3_tiles.device
+    _check_lists(lists, dev, num_tiles)
+    _check_cuda("o3_tiles", o3_tiles, dev, torch.float32, (num_tiles, 3, R))
+    _check_cuda("d3_tiles", d3_tiles, dev, torch.float32, (num_tiles, 3, R))
+    _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
+    _check_split(R, packs=True)
+    items = split_lists(lists, GENERAL_CHUNK)
+    act = active.to(torch.int32)
+    keys = torch.empty(num_tiles * R, dtype=torch.int64, device=dev)
+    out_f = torch.empty((3, num_tiles, R), dtype=torch.float32, device=dev)
+    out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    err = kernel_fn("rt_closest_rays")(
+        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
+        o3_tiles.data_ptr(), d3_tiles.data_ptr(), act.data_ptr(),
+        blocks.data_ptr(), num_tiles, R, g, *_eps_args(t_eps),
+        keys.data_ptr(), out_f.data_ptr(), out_slot.data_ptr(),
+        raw_stream(dev))
+    if err:
+        raise RuntimeError(f"ray-bundle sweep launch failed: CUDA error {err}")
+    launch_counts["closest_rays"] += 1
+    return out_f[0], out_f[1], out_f[2], out_slot
+
+
 def _occlusion_rows_cuda(lists, light, o_tiles, active, blocks, t_eps):
     """Launch kernel H; output as in `_occlusion_rows_plain`."""
-    from ..ops.cuda_build import load_library
-
     num_tiles, R, _ = o_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = o_tiles.device
@@ -465,11 +561,10 @@ def _occlusion_rows_cuda(lists, light, o_tiles, active, blocks, t_eps):
     _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
     act = active.to(torch.int32)
     occ = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
-    err = load_library().rt_occlusion_rows(
+    err = kernel_fn("rt_occlusion_rows")(
         lists.offsets.data_ptr(), lists.ids.data_ptr(), light.data_ptr(),
         o_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles,
-        R, g, float(t_eps), occ.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        R, g, float(t_eps), occ.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel H launch failed: CUDA error {err}")
     launch_counts["occlusion_rows"] += 1

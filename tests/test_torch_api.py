@@ -282,11 +282,22 @@ def test_trace_scene_matches_jax(case):
 
 
 def test_bundle_without_common_origin_raises():
+    """A CLUSTER bundle without a common origin or a frame, which the port
+    refused until it traced such bundles in groups of rays
+    (`bounce_sweep.trace_rays`): faces equal to JAX's
+    (`dense.trace_clusters_rays`) except near-ties."""
+    jcfg = jax_config()
+    js = api_scene(jrt, jproc, jcfg)
     ts = api_scene(trt, tproc, trt.RenderConfig(accel=trt.AccelKind.CLUSTER))
     dirs = trt.camera_ray_grid(16, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpipe.trace_hit(ts.data(), ts.accel, torch.zeros_like(dirs), dirs,
-                        ts.config)
+    origins = torch.from_numpy(np.random.default_rng(4).normal(
+        0.0, 0.05, tuple(dirs.shape)).astype(np.float32) + EYE)
+    jhit = jpipe.trace_hit(js.data(), js.accel, jnp.asarray(origins.numpy()),
+                           jnp.asarray(dirs.numpy()), jcfg)
+    thit = tpipe.trace_hit(ts.data(), ts.accel, origins, dirs, ts.config)
+    assert (np.asarray(jhit.face) >= 0).mean() > 0.1
+    assert_slots_match(thit.face.numpy(), np.asarray(jhit.face),
+                       thit.t.numpy(), np.asarray(jhit.t), max_share=0.01)
 
 
 # ---------------------------------------------------------------------------

@@ -326,8 +326,9 @@ def test_unported_routes_raise():
         trg.render_rgb(s["ts"], s["tc"], *torch_args(s),
                        TorchRenderConfig(accel=TorchAccelKind.BVH),
                        frame_hw=(side, side))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        trg.render_rgb(s["ts"], s["tc"], *torch_args(s), s["tcfg"])
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        trg.render_rgb(s["ts"], s["tc"], *torch_args(s),
+                       TorchRenderConfig(accel=TorchAccelKind.BVH))
 
 
 @pytest.mark.parametrize("shadows", [False, True])

@@ -157,3 +157,54 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     before = tscatter.launch_counts["scatter_add"]
     tscatter.tile_scatter_add(g, idx, 8)  # CPU tensors: the plain version
     assert tscatter.launch_counts["scatter_add"] == before
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_sorted_segments_sum_equals_index_add(case):
+    """G's sorted route on the CPU: the stable sort and the row bounds
+    from `sorted_segments`, summed run by run in their order from 0.0 as
+    `segment_sum_kernel` sums, are bitwise equal to ``index_add_``."""
+    t, b, d, rows, make, *_ = SCATTER_CASES[case]
+    rng = np.random.default_rng(sorted(SCATTER_CASES).index(case) + 40)
+    ids = make(rng, t, b, rows)
+    ids[0, :5] = rows + 3  # past the last row: dropped too
+    idx = torch.from_numpy(ids.astype(np.int32))
+    g = torch.from_numpy((rng.normal(size=(t, d, b))
+                          * 10.0 ** rng.integers(-4, 4, (t, 1, b)))
+                         .astype(np.float32))
+    order, seg = tscatter.sorted_segments(idx, rows)
+    assert order.dtype == torch.int32 and seg.dtype == torch.int32
+    assert seg.shape == (rows + 1,) and int(seg[0]) == 0
+    flat = idx.reshape(-1)
+    kept = int(((flat >= 0) & (flat < rows)).sum())
+    assert int(seg[-1]) == kept
+    runs = torch.repeat_interleave(torch.arange(rows), seg.diff().long())
+    assert torch.equal(flat[order[:kept].long()].long(), runs)
+    for r in range(0, rows, max(1, rows // 97)):  # each run ascends
+        run = order[seg[r]:seg[r + 1]]
+        assert bool((run.diff() > 0).all())
+    terms = g.transpose(1, 2).reshape(-1, d)[order[:kept].long()]
+    got = torch.zeros((rows, d))
+    for q in range(int(seg.diff().max())):  # the q-th term of every run
+        has = seg.diff() > q
+        got[has] += terms[seg[:-1][has].long() + q]
+    want = tscatter._scatter_add_plain(g, idx, rows)
+    assert torch.equal(got, want)
+
+
+def test_sorted_route_only_under_deterministic_mode():
+    """The sorted route's wrapper refuses CPU tensors; `tile_scatter_add`
+    on CPU tensors runs the plain version in either mode."""
+    g = torch.zeros((1, 4, 256))
+    idx = torch.zeros((1, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tscatter._scatter_add_sorted_cuda(g, idx, 8)
+    before = dict(tscatter.launch_counts)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = tscatter.tile_scatter_add(g + 1.0, idx, 8)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert tscatter.launch_counts == before
+    assert torch.equal(out[0], torch.full((4,), 256.0))

@@ -281,6 +281,8 @@ def test_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tsweep._occlusion_rows_cuda(lists, torch.ones(3), rows,
                                     rows[..., 0] > 0, geom, np.float32(1e-4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep._closest_rays_cuda(lists, d3, d3, d3[:, 0] > 0, geom, None)
 
 
 def test_pick_plain_only_on_cpu():
@@ -293,3 +295,53 @@ def test_pick_plain_only_on_cpu():
     assert tsweep._pick(torch.zeros(1), plain, cuda) is plain
     with pytest.raises(ValueError, match="meta"):
         tsweep._pick(torch.zeros(1, device="meta"), plain, cuda)
+
+
+def _random_lists(counts, num_clusters, seed):
+    """CSR lists with the given per-tile counts: ascending distinct ids."""
+    rng = np.random.default_rng(seed)
+    survive = np.zeros((len(counts), num_clusters), bool)
+    for t, c in enumerate(counts):
+        survive[t, rng.choice(num_clusters, c, replace=False)] = True
+    return tsweep._tile_lists(torch.from_numpy(survive))
+
+
+# name: per-tile list counts (clusters in the scene: 40).
+SPLIT_CASES = {
+    "empty_tiles": [0, 7, 0, 0, 13, 1, 0],
+    "one_tile_lists_all": [0, 40, 2, 0],
+    "ragged": [5, 9, 17, 3, 40, 11, 1, 6],
+    "all_empty": [0, 0, 0],
+    "one_tile": [40],
+}
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 16])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_lists_covers_each_list_once(case, k):
+    """Kernels C and F's work items: each tile's list is covered exactly
+    once, in order, by consecutive items of at most ``k`` clusters; the
+    item array is ``T + ceil(N / k)`` long, sized on the host, and the
+    items past the real count are empty."""
+    counts = SPLIT_CASES[case]
+    lists = _random_lists(counts, 40, seed=len(case) + k)
+    items = tsweep.split_lists(lists, k)
+    n = int(lists.ids.numel())
+    assert items.dtype == torch.int32
+    assert items.shape == (3, len(counts) + -(-n // k))
+    tile, first, end = (x.numpy() for x in items)
+    real = end > first
+    assert not (end < first).any()
+    assert (first[~real] == 0).all() and (end[~real] == 0).all()
+    assert (end - first <= k).all()
+    want = sum(-(-c // k) for c in counts)
+    assert int(real.sum()) == want
+    assert real[:want].all()  # the real items come first
+    offsets = lists.offsets.numpy()
+    for t, c in enumerate(counts):
+        mine = np.flatnonzero(real & (tile == t))
+        covered = np.concatenate(
+            [np.arange(first[i], end[i]) for i in mine] or [np.zeros(0)])
+        np.testing.assert_array_equal(
+            covered, np.arange(offsets[t], offsets[t] + c))
+        assert (np.diff(mine) == 1).all()  # consecutive, in list order
