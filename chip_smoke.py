@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
   1. requires a CUDA device and prints its name and power limit;
   2. builds the CUDA kernels from `raytracercuda_torch/csrc/` (one nvcc
-     per source, in parallel) and prints the build time;
+     per source, in parallel) and prints the build time and each kernel's
+     registers per thread (from ptxas);
   3. renders the bench frame once through `FrameRenderer` (512x512, a
      69,451-triangle bumpy sphere with uvs and a texture, shadows on) and
      requires that kernels A and B both launched in that run;
@@ -27,7 +28,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
  10. holds C, H and G against their plain versions on the inputs of
      phases 8-9 (C, on the progressive and the grad step's inputs: slots
      equal, t/u/v bit-equal, and its work items, K and active lanes per
-     warp printed; H: equal masks; G: rows no ray names exactly 0.0, the
+     warp printed; H: equal masks, its work items and active lanes per
+     warp, and the tests a serial early-exit sweep would run; G: rows no
+     ray names exactly 0.0, the
      rest within |k - p| <= 1e-5 max|p| + 1e-6, and whether two runs of G
      are bitwise equal), and G on three synthetic cases (`G_CASES`: 22
      columns with ragged rows and ids out of range on both sides, 7
@@ -41,16 +44,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      epilogue over F's sweep, then H) and `trace_hit` on 2,048 rays with
      scattered origins, each held against the same call on the plain
      versions (equal ids, masks and faces; images and t/u/v bit-equal);
+ 10d. holds H against its plain version on synthetic inputs over config
+     4's clusters at K = 1, the default and 32: a tile that lists every
+     cluster with one free ray beside a tile with no active ray, rays that
+     only their list's last work item occludes, 9x9 tiles (R = 81);
  11. takes the grad step with the plain versions on the card: equal ids,
      shadow masks and images, gradients within G's summation-order bar;
  12. takes five Adam steps (lr 1e-2) on positions and textures from a
      perturbed texture toward the image of the true one, and requires the
      loss after them to be below the loss before them;
- 13. times the progressive and grad steps on both paths and C, H and G
-     beside their plain versions, C also by profiler device time (its
-     C entry's three kernels, apart from the work-item split's PyTorch
-     kernels), with the host's cost hidden, and at K = 1 to 16 clusters
-     per work item; for each of G's calls (shapes, kept
+ 13. times the progressive and grad steps on both paths (the kernel path
+     also by the profiler's device time summed over every activity) and
+     C, H and G beside their plain versions, C and H also by profiler device time
+     (their C entries' kernels, apart from the work-item split's PyTorch
+     kernels), with the host's cost hidden, and at K = 1 to 16 (C) and 2
+     to 32 (H) clusters per work item; for each of G's calls (shapes, kept
      rays and atomic width printed) also G in plain stream order (no
      programmatic dependent launch), `index_add_` alone and `torch.zeros`
      + `index_add_` on the same kept rows, each by events, by profiler
@@ -67,8 +75,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      pixels), renders the frame with the plain versions (equal packed
      frames), prints the hit share and the status codes of the API's
      misuse cases, and times the frame, E and D beside their plain
-     versions (D and `torch.full` also by profiler device time and with
-     the host's cost hidden);
+     versions (E, D and `torch.full` also by profiler device time and
+     with the host's cost hidden; E at 1, 2, 4 and 8 rays per thread and
+     512-, 1,024- and 2,048-face chunks, each run bit-equal to plain);
+ 16b. holds E against its plain version on synthetic inputs (faces equal,
+     t/u/v bit-equal, misses FLT_MAX, 0, 0, -1): a face copied across a
+     face-chunk and a run boundary (the earlier face wins), origins
+     inside a mesh with ``clip_backward_hits=False``, origins on mesh
+     vertices (t = +-0.0 ties), degenerate faces, ray and face counts off
+     the kernel's block shapes, a single ray;
  17. builds config 5's scene (three bumpy spheres of 69,451, 345,944 and
      100,002 triangles, reflectivity 0.3) and renders its 1920x1080 frame
      with two mirror bounces and shadows through `render_bounces`,
@@ -87,7 +102,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      later (the earlier slot must win), ``clip_backward_hits=False`` from
      inside a mesh (hits at negative t), and for F one active ray;
  20. at 256x144, holds the cluster-route frame against the brute-force
-     route's (kernel E): at least 99% of pixels within 1e-4;
+     route's (kernel E): at least 99% of pixels within 1e-4; E on the
+     brute route's primary rays equal to plain (t/u/v bit-equal); times
+     E there and both routes' frames;
  21. times the frame, A, B and F per launch and one `sort_bounces=True`
      frame, F also by profiler device time and with the host's cost
      hidden (as C), and on both bounces at K = 4 to 64;
@@ -106,11 +123,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
  26. runs the render CLI on it at 512x512 (three frames, 15 degrees of
      orbit each): lambert-shadow through `FrameRenderer` (A, B; with the
      per-phase profiler), parity on CLUSTER (C), and parity on BRUTE at
-     256x256 (E), requiring each route's kernels launched;
+     256x256 (E), requiring each route's kernels launched, and holds each
+     launch of E against its plain version (t/u/v bit-equal);
  27. runs the same three CLI calls on the plain versions and holds the
      PNGs: parity routes equal, lambert-shadow within 1 per u8 channel;
  28. runs the fly loop for four frames on BRUTE at 256x256 with a
-     scripted event list, requiring the render targets 1, 2, 0, 1;
+     scripted event list, requiring the render targets 1, 2, 0, 1, and
+     holds each launch of E against its plain version;
  29. prints each kernel's time beside its bound: the larger of its FP32
      operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
      this run's inputs (ray-triangle tests from the tile lists, 46
@@ -120,13 +139,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
 Any failure exits non-zero.  The last two lines of standard output are a
 JSON object of the ten kernels' counts, errors, times and bounds (C's, D's,
-F's and G's with ``device_ms``, D's and G's with ``library_device_ms``,
-G's with ``library_zeroed_ms``; null elsewhere), and ``{"ok": true,
-"device": {...}}``.
+E's, F's, G's and H's with ``device_ms``, D's and G's with
+``library_device_ms``, G's with ``library_zeroed_ms``; null elsewhere),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -463,14 +484,17 @@ def split_stats(lists, k: int, rays_per_tile: int, active=None):
     return int(per_tile.sum()), lane_sum / warps if warps else 0.0
 
 
-#: The kernels of the split sweeps' C entries (`csrc/sweep.cu`), by the
-#: profiler's names: the key fill and the two passes.
+#: The kernels of the split C entries, by the profiler's names: C's and
+#: F's key fill and two passes, H's flag clear and pass (`csrc/sweep.cu`),
+#: E's key fill and two passes (`csrc/brute.cu`).
 SPLIT_KERNELS = ("fill_keys_kernel", "sweep_items_kernel",
-                 "closest_epilogue_kernel", "general_epilogue_kernel")
+                 "closest_epilogue_kernel", "general_epilogue_kernel",
+                 "clear_flags_kernel", "occlusion_items_kernel",
+                 "brute_items_kernel", "brute_epilogue_kernel")
 
 
 def split_device_ms(fn, iters: int):
-    """A split sweep's device time per call: its C entry's kernels summed
+    """A split kernel's device time per call: its C entry's kernels summed
     (`SPLIT_KERNELS`), and the rest (the work-item split and the
     allocations' PyTorch kernels); (None, None) when the profiler records
     nothing."""
@@ -812,9 +836,17 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     ph = sweep._occlusion_rows_plain(*h_args)
     sync()
     h_err = occlusion_err(kh, ph, "kernel H")
+    h_items, h_lanes = split_stats(h_args[0], sweep.OCCLUSION_CHUNK,
+                                   h_args[2].shape[1], h_args[3])
     print(f"kernel H matches plain: {int(ph.sum())} occluded of "
-          f"{int(h_args[3].sum())} active shadow rays")
+          f"{int(h_args[3].sum())} active shadow rays in "
+          f"{int(h_args[3].any(dim=1).sum())} tiles; {h_items} work items "
+          f"at K = {sweep.OCCLUSION_CHUNK}, {h_lanes:.2f} active lanes per "
+          f"warp")
     check(int(ph.sum()) > 0, "no shadow ray is occluded")
+    h_serial, h_occluded = serial_anyhit_tests(*h_args)
+    check(h_occluded == int(ph.sum()), "serial any-hit count: "
+          f"{h_occluded} occluded rays, plain {int(ph.sum())}")
     g_err = 0.0
     for args in g_calls:
         kg = scatter._scatter_add_cuda(*args)
@@ -833,6 +865,8 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     clock.done("10b (G's sorted route)")
     bundle_checks(dev, data, accel, eye, orient, config)
     clock.done("10c (ray bundles)")
+    occlusion_cases(dev, accel, config)
+    clock.done("10d (H synthetic cases)")
 
     # 11. The grad step (and a shadowed render) with the plain versions.
     plain = PlainOnCard({
@@ -917,10 +951,13 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     def kernel_c():
         return sweep._primary_cuda(*c_args)
 
+    def kernel_h():
+        return sweep._occlusion_rows_cuda(*h_args)
+
     times = {
         "C": (time_cuda(kernel_c, 20),
               time_cuda(lambda: sweep._primary_plain(*c_args), 3)),
-        "H": (time_cuda(lambda: sweep._occlusion_rows_cuda(*h_args), 20),
+        "H": (time_cuda(kernel_h, 20),
               time_cuda(lambda: sweep._occlusion_rows_plain(*h_args), 3)),
     }
     c_device_ms, c_glue_ms = split_device_ms(kernel_c, 20)
@@ -932,6 +969,15 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     c_k = k_sweep(sweep, "PRIMARY_CHUNK", (1, 2, 4, 8, 16), kernel_c, 20,
                   c_args[0], c_args[2].shape[1])
     print(f"kernel C by K (events, ms per launch): {c_k}")
+    h_device_ms, h_glue_ms = split_device_ms(kernel_h, 20)
+    h_queued_ms = time_queued(kernel_h, 10)
+    print(f"kernel H: {times['H'][0]:.4f} ms per launch, device (the flag "
+          f"clear and the pass) {ms_text(h_device_ms)}, the split's PyTorch "
+          f"kernels {ms_text(h_glue_ms)}, host hidden {ms_text(h_queued_ms)}")
+    h_k = k_sweep(sweep, "OCCLUSION_CHUNK", (2, 4, 8, 16, 32), kernel_h, 20,
+                  h_args[0], h_args[2].shape[1], h_args[3])
+    print(f"kernel H by K (events, ms per launch, work items, active lanes "
+          f"per warp): {h_k}")
     # G and its yardsticks on each of the backward's calls: event time and
     # profiler device time.  `index_add_` alone (the one PyTorch call, on
     # an output zeroed once, which accumulates over the calls) and
@@ -1000,10 +1046,14 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
 
     # G's record: the mean of the backward's launches.
     times["G"] = (g_mean("ms"), g_mean("plain_ms"))
+    with torch.no_grad():
+        prog_device_ms = device_time(lambda: prog(state), 5)
+    grad_device_ms = device_time(grad_step, 5)
     print(f"progressive step ({size}x{size}, shadows): kernel path "
-          f"{prog_ms:.4f} ms, plain path {prog_plain_ms:.4f} ms")
-    print(f"grad step ({size}x{size}): kernel path {grad_ms:.4f} ms, plain "
-          f"path {grad_plain_ms:.4f} ms")
+          f"{prog_ms:.4f} ms (device {ms_text(prog_device_ms)}), plain path "
+          f"{prog_plain_ms:.4f} ms")
+    print(f"grad step ({size}x{size}): kernel path {grad_ms:.4f} ms (device "
+          f"{ms_text(grad_device_ms)}), plain path {grad_plain_ms:.4f} ms")
     for name, (ms, pms) in times.items():
         print(f"kernel {name}: {ms:.4f} ms per launch (plain {pms:.4f} ms)")
     clock.done("13 (timing)")
@@ -1015,7 +1065,9 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
                           active=h_args[3], occluded=ph)
     h_bound = bound(h_tests * MT_OPS, nbytes(h_args) + 4 * ph.numel())
     print(f"kernel C: {c_tests} ray-triangle tests; kernel H: {h_tests} "
-          f"(rays that find no hit test their whole list)")
+          f"(rays that find no hit test their whole list, an occluded ray "
+          f"one test), {h_serial} in a serial early-exit sweep (an occluded "
+          f"ray to its first hit)")
     g_bound = (sum(r["bound"][0] for r in g_rows) / len(g_rows),
                g_rows[0]["bound"][1])
     src = "raytracercuda_torch/csrc/sweep.cu"
@@ -1028,7 +1080,8 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
                       "raytracercuda_tpu/trace/pallas_sweep.py:201",
                       prog_launches["occlusion_rows"]
                       + grad_launches["occlusion_rows"],
-                      h_err, *times["H"], h_bound),
+                      h_err, *times["H"], h_bound,
+                      device_ms=h_device_ms),
         kernel_record("scatter_add", "raytracercuda_torch/csrc/scatter.cu",
                       "raytracercuda_tpu/diff/scatter.py:52",
                       grad_launches["scatter_add"], g_err, *times["G"],
@@ -1037,6 +1090,64 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
                       library_device_ms=g_mean("library_device_ms"),
                       library_zeroed_ms=g_mean("library_zeroed_ms")),
     ]
+
+
+def serial_anyhit_tests(lists, light, o_tiles, active, blocks, t_eps):
+    """Ray-triangle tests a serial early-exit any-hit sweep (the old kernel
+    H's) runs on kernel H's inputs: each active ray that finds no hit its
+    whole list, each occluded one the list position of its first hit plus
+    one, from the plain version's tests rank by rank.  Returns (tests,
+    occluded rays)."""
+    import torch
+
+    from raytracercuda_torch.trace import sweep
+    from raytracercuda_torch.types import FLT_MAX
+
+    g = blocks.shape[1]
+    counts = lists.counts
+    first = torch.full(active.shape, -1, dtype=torch.long,
+                       device=active.device)
+    o = o_tiles.transpose(1, 2)[:, :, None, :]  # [T,3,1,R]
+    for r in range(int(counts.max()) if counts.numel() else 0):
+        for tiles in (counts > r).nonzero()[:, 0].split(256):
+            blk = blocks[lists.ids[lists.offsets[tiles].long() + r].long()]
+            ot = o[tiles]
+            t, _, _ = sweep._mt_cols(tuple(blk[:, :, k:k + 1]
+                                           for k in range(9)),
+                                     ot[:, 0], ot[:, 1], ot[:, 2], light[0],
+                                     light[1], light[2], t_eps)
+            hit = t < FLT_MAX  # [n, G, R]
+            j = hit.int().argmax(dim=1)  # the first slot with a hit
+            new = hit.any(dim=1) & (first[tiles] < 0)
+            first[tiles] = torch.where(new, r * g + j, first[tiles])
+    occluded = active & (first >= 0)
+    free = active & (first < 0)
+    tests = int((counts.long() * free.sum(dim=1)).sum()) * g \
+        + int((first[occluded] + 1).sum())
+    return tests, int(occluded.sum())
+
+
+def kernel_registers(log: str) -> dict:
+    """Registers per thread of each kernel, from the build's ``ptxas -v``
+    output: ``{name<template args>: registers}``."""
+    import re
+
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)((?:I(?:L[bi]\w+?E)+E)?)",
+                          m.group(1))
+            args = re.findall(r"L([bi])(\w+?)E", k.group(2)) if k else []
+            name = (k.group(1) + (
+                "<" + ", ".join(("true" if v == "1" else "false")
+                                if t == "b" else v for t, v in args) + ">"
+                if args else "")) if k else m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
 
 
 def k_sweep(sweep, name: str, ks, fn, iters: int, lists, rays_per_tile,
@@ -1188,6 +1299,105 @@ def bundle_checks(dev, data, accel, eye, orient, config,
           f"launches {launches}")
 
 
+def occlusion_cases(dev, accel, config) -> None:
+    """Phase 10d: kernel H on synthetic inputs over config 4's clusters,
+    held against its plain version (masks equal) at K = 1, the default
+    and 32: a tile that lists every cluster with 255 rays inside the
+    armadillo stand-in and one free ray, beside a tile with no active
+    ray; rays that only a triangle of their list's last cluster (the last
+    work item) occludes; 9x9 tiles (R = 81, not a multiple of 32) over
+    random lists."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.trace import sweep
+
+    rng = np.random.default_rng(12)
+    geom = sweep.segment_blocks(accel)
+    c, g = geom.shape[0], geom.shape[1]
+    t_eps = np.float32(config.trace.t_epsilon)
+    light = torch.nn.functional.normalize(
+        torch.tensor([0.4, 0.8, -0.45], device=dev), dim=0)
+    centre = np.array([0.0, -1.0, 14.0], np.float32)  # the armadillo's
+
+    def tensor(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    def lists_of(survive):
+        return sweep._tile_lists(tensor(survive, torch.bool))
+
+    every = np.ones((1, c), bool)
+    cases = {}
+    # 255 origins within 2 of the centre (the shell lies 3.4-4.6 out), and
+    # one far out along the light; the second tile's rays are inactive.
+    inside = centre + rng.normal(size=(2, 256, 3)) * 0.6
+    inside[0, 100] = centre + 1000.0 * light.cpu().numpy()
+    act = np.zeros((2, 256), bool)
+    act[0] = True
+    cases["every_cluster_one_free"] = (lists_of(np.concatenate([every,
+                                                                every])),
+                                       tensor(inside), tensor(act, torch.bool))
+    # Points on real triangles of the last cluster, backed off along the
+    # light by 1e-2: each ray crosses its triangle at t = 1e-2.  Kept: the
+    # rays that the list without the last cluster leaves free.
+    slots = ((accel.face_order >= 0).nonzero()[:, 0]).cpu().numpy()
+    last = slots[slots >= (c - 1) * g]
+    tris = accel.tris.reshape(-1, 3, 3)[tensor(rng.choice(last, 256),
+                                               torch.long)]
+    w = tensor(rng.dirichlet((1.0, 1.0, 1.0), 256))
+    on = (tris * w[:, :, None]).sum(dim=1)
+    best = None
+    for sign in (1.0, -1.0):
+        ray_dir = light * sign
+        o = (on - 1e-2 * ray_dir)[None].contiguous()
+        all_act = torch.ones((1, 256), dtype=torch.bool, device=dev)
+        full = sweep._occlusion_rows_plain(lists_of(every), ray_dir, o,
+                                           all_act, geom, t_eps)
+        cut = every.copy()
+        cut[0, -1] = False
+        rest = sweep._occlusion_rows_plain(lists_of(cut), ray_dir, o,
+                                           all_act, geom, t_eps)
+        only = full & ~rest
+        if best is None or int(only.sum()) > int(best[2].sum()):
+            best = (ray_dir, o, only)
+    check(int(best[2].sum()) >= 32, f"last_item_only: {int(best[2].sum())} "
+          "rays occluded by the last cluster alone")
+    cases["last_item_only"] = (lists_of(every), best[1], best[2],
+                               best[0].contiguous())
+    # Six 9x9 tiles over random ascending lists, origins in the scene's
+    # box, 70% active.
+    lo = accel.tris.reshape(-1, 3).amin(dim=0).cpu().numpy()
+    hi = accel.tris.reshape(-1, 3).amax(dim=0).cpu().numpy()
+    cases["ragged_9x9"] = (lists_of(rng.random((6, c)) < 0.3),
+                           tensor(lo + rng.random((6, 81, 3)) * (hi - lo)),
+                           tensor(rng.random((6, 81)) < 0.7, torch.bool))
+    keep = sweep.OCCLUSION_CHUNK
+    try:
+        for name, (lst, o, act, *l_dir) in cases.items():
+            ld = l_dir[0] if l_dir else light
+            args = (lst, ld, o, act, geom, t_eps)
+            p = sweep._occlusion_rows_plain(*args)
+            for k in sorted({1, keep, 32}):
+                sweep.OCCLUSION_CHUNK = k
+                occlusion_err(sweep._occlusion_rows_cuda(*args), p,
+                              f"kernel H ({name}, K = {k})")
+            sweep.OCCLUSION_CHUNK = keep
+            if name == "every_cluster_one_free":
+                check(not bool(p[0, 100]) and int(p[0].sum()) >= 250
+                      and not bool(p[1].any()),
+                      f"{name}: {int(p[0].sum())} occluded in tile 0")
+            if name == "last_item_only":
+                check(bool(p[act].all()), f"{name}: a kept ray is free")
+            items, lanes = split_stats(lst, keep, o.shape[1], act)
+            print(f"kernel H case {name}: {int(p.sum())} occluded of "
+                  f"{int(act.sum())} active rays, R = {o.shape[1]}, "
+                  f"{int(lst.counts.max())} clusters in the longest list, "
+                  f"{items} work items at K = {keep}; equal to plain at K = "
+                  f"{sorted({1, keep, 32})}")
+    finally:
+        sweep.OCCLUSION_CHUNK = keep
+
+
 def config2_scene(dev, size, suzanne_faces):
     """Config 2's scene through the public API (scripts/bench_configs.py:
     79-102): BRUTE, the suzanne stand-in ``bumpy_sphere_mesh`` at the
@@ -1270,10 +1480,12 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     check(torch.equal(ke[3], pe[3]), "kernel E: faces differ from plain: "
           f"{int((ke[3] != pe[3]).sum())} rays")
     for k, name in enumerate("tuv"):
-        check(torch.equal(ke[k], pe[k]), f"kernel E: {name} not bit-equal")
+        check(bits_equal(ke[k], pe[k]), f"kernel E: {name} not bit-equal")
     e_err = 0.0  # bit-equal, checked above
     print(f"kernel E matches plain bit for bit: {int((pe[3] >= 0).sum())} "
-          f"hit rays of {pe[3].numel()}")
+          f"hit rays of {pe[3].numel()}; {e_args[2].shape[1]} faces, P = "
+          f"{bruteforce.BRUTE_RAYS_PER_THREAD}, face chunk "
+          f"{bruteforce.BRUTE_FACE_CHUNK}")
     kd = clear._clear_cuda(n, CLEAR_VALUE, dev)
     pd = clear._clear_plain(n, CLEAR_VALUE, dev)
     check(torch.equal(kd, pd), "kernel D differs from its plain version")
@@ -1316,11 +1528,26 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
             "unlock": 0, "unlock_twice": 7}
     check(codes == want, f"misuse codes {codes}, want {want}")
 
+    brute_cases(dev)
+    clock.done("16b (E synthetic cases)")
+
     print(f"timing on {card}")
     frame_ms = time_cuda(lambda: cam.trace_scene(eye, orient, scene, target),
                          20)
-    e_ms = time_cuda(lambda: bruteforce._brute_cuda(*e_args), 20)
+
+    def kernel_e():
+        return bruteforce._brute_cuda(*e_args)
+
+    e_ms = time_cuda(kernel_e, 20)
     e_plain_ms = time_cuda(lambda: bruteforce._brute_plain(*e_args), 3)
+    e_device_ms, e_glue_ms = split_device_ms(kernel_e, 20)
+    e_queued_ms = time_queued(kernel_e, 10)
+    print(f"kernel E: {e_ms:.4f} ms per launch, device (the key fill and "
+          f"both passes) {ms_text(e_device_ms)}, the wrapper's PyTorch "
+          f"kernels {ms_text(e_glue_ms)}, host hidden {ms_text(e_queued_ms)}")
+    e_sweep = brute_sweep(kernel_e, e_args, pe, 20)
+    print(f"kernel E by (rays per thread P, face chunk) (events, ms per "
+          f"launch; each bit-equal to plain): {e_sweep}")
     def kernel_d():
         return clear._clear_cuda(n, CLEAR_VALUE, dev)
 
@@ -1352,8 +1579,165 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
                       library_device_ms=d_plain_device_ms),
         "brute": dict(launches=launches["brute"], err=e_err, ms=e_ms,
                       plain_ms=e_plain_ms,
-                      bound_ms_by=bound(e_tests * MT_OPS, nbytes(e_args, ke))),
+                      bound_ms_by=bound(e_tests * MT_OPS, nbytes(e_args, ke)),
+                      device_ms=e_device_ms),
     }
+
+
+def brute_err(k, p, name: str) -> tuple[int, int]:
+    """Hold kernel E's (t, u, v, face) ``k`` against its plain version's
+    ``p``: faces equal, t/u/v bit-equal, misses t = FLT_MAX, u = v = 0.
+    Returns the hit rays and the hits at a negative t."""
+    check(bool((k[3] == p[3]).all()), f"{name}: faces differ from plain: "
+          f"{int((k[3] != p[3]).sum())} rays")
+    for i, plane in enumerate("tuv"):
+        check(bits_equal(k[i], p[i]), f"{name}: {plane} not bit-equal to "
+              "plain")
+    miss = k[3] < 0
+    check(bool((k[0][miss] == float(3.4028234663852886e38)).all()
+               and (k[1][miss] == 0).all() and (k[2][miss] == 0).all()),
+          f"{name}: a miss without FLT_MAX, 0, 0")
+    return int((~miss).sum()), int((~miss & (k[0] < 0)).sum())
+
+
+def brute_calls_err(calls, name: str) -> None:
+    """Hold each recorded call of kernel E (``calls``, its arguments) again
+    against its plain version (`brute_err`)."""
+    from raytracercuda_torch.trace import bruteforce
+
+    hits = 0
+    for args in calls:
+        hits += brute_err(bruteforce._brute_cuda(*args),
+                          bruteforce._brute_plain(*args),
+                          f"kernel E ({name})")[0]
+    check(len(calls) > 0, f"{name}: kernel E never launched")
+    print(f"kernel E ({name}): {len(calls)} launches equal to plain, t/u/v "
+          f"bit-equal, {hits} hits")
+
+
+def brute_sweep(fn, e_args, want, iters: int) -> dict:
+    """Kernel E's event time (ms per launch) at each rays per thread P and
+    face chunk, each run held bit-equal to ``want`` (the plain version's
+    output); the wrapper's constants are put back."""
+    from raytracercuda_torch.trace import bruteforce
+
+    keep = (bruteforce.BRUTE_RAYS_PER_THREAD, bruteforce.BRUTE_FACE_CHUNK)
+    out = {}
+    try:
+        for p in (1, 2, 4, 8):
+            for chunk in (512, 1024, 2048):
+                bruteforce.BRUTE_RAYS_PER_THREAD = p
+                bruteforce.BRUTE_FACE_CHUNK = chunk
+                brute_err(fn(), want, f"kernel E (P = {p}, chunk {chunk})")
+                out[(p, chunk)] = round(time_cuda(fn, iters), 4)
+    finally:
+        bruteforce.BRUTE_RAYS_PER_THREAD, bruteforce.BRUTE_FACE_CHUNK = keep
+    return out
+
+
+def brute_case_inputs(chunk: int, seed: int = 13) -> dict:
+    """Kernel E's synthetic cases, ``{name: (positions [V, 3], faces
+    [F, 3], origins [N, 3], directions [N, 3], clip_backward_hits)}`` in
+    numpy float32 and int64, over a bumpy sphere of 3 face chunks of
+    ``chunk`` faces and 357 more (neither ray nor face counts a multiple
+    of the kernel's blocks): "duplicate_across_chunk", one face copied
+    onto the next across the face-chunk boundary (chunk - 1 -> chunk) and
+    across the first staged run's (127 -> 128), rays aimed at both (the
+    earlier face must win); "inside_no_clip", origins inside the sphere
+    with clipping off (negative t wins); "vertex_ties", origins on mesh
+    vertices with clipping off (t = +-0.0 ties); "degenerate", faces (a,
+    a, b), (a, b, a) and (a, a, a) ahead of the mesh for an edge a-b of 40
+    faces (det = 0: a NaN or infinite u, a miss), rays aimed at those 40
+    faces; "single_ray"."""
+    import numpy as np
+
+    from raytracercuda_torch.models.procedural import bumpy_sphere_mesh
+
+    rng = np.random.default_rng(seed)
+    mesh = bumpy_sphere_mesh(3 * chunk + 357, center=(0.0, 0.0, 0.0),
+                             seed=5)
+    pos = np.asarray(mesh.positions, np.float32)
+    tri = mesh.indices.reshape(-1, 3).astype(np.int64)
+
+    def toward(faces, ids, n):
+        """``n`` rays from outside toward points on the faces ``ids``."""
+        pick = rng.choice(ids, n)
+        w = rng.dirichlet((1.0, 1.0, 1.0), n).astype(np.float32)
+        on = (pos[faces[pick]] * w[:, :, None]).sum(axis=1)
+        return on * np.float32(1.6), on - on * np.float32(1.6)
+
+    def normal(n, scale=1.0):
+        return (rng.normal(size=(n, 3)) * scale).astype(np.float32)
+
+    cases = {}
+    dup = tri.copy()
+    for a in (chunk - 1, 127):
+        dup[a + 1] = dup[a]
+    cases["duplicate_across_chunk"] = (pos, dup,
+                                       *toward(dup, [chunk - 1, 127], 999),
+                                       True)
+    cases["inside_no_clip"] = (pos, tri, normal(700, 0.2), normal(700), False)
+    cases["vertex_ties"] = (pos, tri, pos[rng.choice(len(pos), 600)],
+                            normal(600), False)
+    picked = rng.choice(len(tri), 40)
+    a, b = tri[picked, 0], tri[picked, 1]
+    deg = np.concatenate([np.stack(v, 1) for v in ((a, a, b), (a, b, a),
+                                                   (a, a, a))] + [tri])
+    cases["degenerate"] = (pos, deg, *toward(deg, 120 + picked, 500), True)
+    cases["single_ray"] = (pos, tri, *toward(tri, np.arange(len(tri)), 1),
+                           True)
+    return cases
+
+
+def check_brute_case(name: str, chunk: int, face, t) -> str:
+    """The property each of `brute_case_inputs`' cases exists for, on the
+    winners ``face`` and their ``t`` (torch tensors); returns a note."""
+    import torch
+
+    if name == "duplicate_across_chunk":
+        won = [int((face == a).sum()) for a in (chunk - 1, 127)]
+        copies = [int((face == a).sum()) for a in (chunk, 128)]
+        check(min(won) > 0 and max(copies) == 0, f"{name}: faces "
+              f"{chunk - 1} and 127 won {won} rays, their copies {copies}")
+        return f"; faces {chunk - 1} and 127 won {won} rays over their copies"
+    if name == "inside_no_clip":
+        check(int(((face >= 0) & (t < 0)).sum()) > 0,
+              f"{name}: no hit at a negative t")
+    if name == "vertex_ties":
+        zero = (face >= 0) & (t == 0)
+        check(int(zero.sum()) > 0, f"{name}: no hit at t = 0")
+        return (f"; {int(zero.sum())} hits at t = 0 "
+                f"({int((zero & torch.signbit(t)).sum())} at -0.0)")
+    if name == "degenerate":
+        check(not bool(((face >= 0) & (face < 120)).any()),
+              f"{name}: a degenerate face won")
+    if name == "single_ray":
+        check(int((face >= 0).sum()) == 1, f"{name}: the ray missed")
+    return ""
+
+
+def brute_cases(dev) -> None:
+    """Phase 16b: kernel E on `brute_case_inputs` at its face chunk, each
+    held against its plain version (`brute_err`) and checked for the
+    property it exists for (`check_brute_case`)."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.trace import bruteforce
+
+    chunk = bruteforce.BRUTE_FACE_CHUNK
+    for name, (pos, faces, o, d, clip) in brute_case_inputs(chunk).items():
+        args = (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                bruteforce.face_columns(torch.from_numpy(pos).to(dev),
+                                        torch.from_numpy(faces).to(dev)),
+                np.float32(1e-4) if clip else None)
+        k = bruteforce._brute_cuda(*args)
+        p = bruteforce._brute_plain(*args)
+        hits, negative = brute_err(k, p, f"kernel E ({name})")
+        note = check_brute_case(name, chunk, p[3], p[0])
+        print(f"kernel E case {name}: {len(o)} rays, {len(faces)} faces, "
+              f"{hits} hits, {negative} at t < 0{note}; equal to plain "
+              f"(t/u/v bit-equal)")
 
 
 def config5_scene(dev, meshes):
@@ -1500,11 +1884,19 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
     # size (the JAX package's bar for its kernel route, test_bounce.py:192).
     sw, sh = small
     small_dirs = rays(sw, sh)
+
+    def small_frame(use_brute):
+        return render_bounces(accel, data, eye, small_dirs, sh, sw, config,
+                              use_brute=use_brute)
+
     bruteforce.reset_launch_counts()
-    rgb_c = render_bounces(accel, data, eye, small_dirs, sh, sw, config)
-    rgb_b = render_bounces(accel, data, eye, small_dirs, sh, sw, config,
-                           use_brute=True)
-    sync()
+    rgb_c = small_frame(False)
+    rec_e = Recorder(bruteforce, ["_brute_cuda"])
+    try:
+        rgb_b = small_frame(True)
+        sync()
+    finally:
+        rec_e.restore()
     brute_launches = bruteforce.launch_counts["brute"]
     share = float(torch.isclose(rgb_c, rgb_b, rtol=1e-4, atol=1e-4)
                   .all(dim=-1).float().mean())
@@ -1512,6 +1904,19 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
           f"{brute_launches} launches): {share:.6f} of pixels within 1e-4")
     check(brute_launches > 0, "kernel E never launched")
     check(share >= 0.99, f"cluster vs brute route: share {share} < 0.99")
+    # E against its plain version on the primary rays' launch.
+    e_args = rec_e.calls["_brute_cuda"][0]
+    pe, e_plain_ms = time_once(lambda: bruteforce._brute_plain(*e_args))
+    hits, _ = brute_err(bruteforce._brute_cuda(*e_args), pe,
+                        "kernel E (config 5 brute route)")
+    e_ms = time_cuda(lambda: bruteforce._brute_cuda(*e_args), 3)
+    brute_frame_ms = time_cuda(lambda: small_frame(True), 2)
+    cluster_frame_ms = time_cuda(lambda: small_frame(False), 5)
+    print(f"kernel E on the brute route's primary rays ({e_args[1].shape[0]} "
+          f"rays, {e_args[2].shape[1]} faces): equal to plain, t/u/v "
+          f"bit-equal, {hits} hits; {e_ms:.4f} ms per launch (plain "
+          f"{e_plain_ms:.4f} ms, one run); the {sw}x{sh} frame: brute route "
+          f"{brute_frame_ms:.4f} ms, cluster route {cluster_frame_ms:.4f} ms")
     clock.done("20 (cluster vs brute route)")
 
     # 21. Timing: the frame, F, one frame with the bounces re-binned.
@@ -1869,20 +2274,26 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
         common = ["--frames", str(frames), "--orbit", "15"]
         launches = {"primary_shade": 0, "occlusion": 0, "primary": 0,
                     "brute": 0}
-        for name, (flags, kernels) in routes.items():
-            argv = [path, *flags, *common, "-o", os.path.join(tmp, name)]
-            if name == "lambert-shadow":
-                argv.append("--profile")
-            sweep.reset_launch_counts()
-            bruteforce.reset_launch_counts()
-            check(render_cli.main(argv) == 0, f"render CLI ({name}) failed")
-            sync()
-            counts = {**sweep.launch_counts, **bruteforce.launch_counts}
-            print(f"render CLI {name}: launches {counts}")
-            for k in kernels:
-                check(counts[k] > 0, f"render CLI {name}: kernel {k} never "
-                      "launched")
-                launches[k] += counts[k]
+        rec_e = Recorder(bruteforce, ["_brute_cuda"])
+        try:
+            for name, (flags, kernels) in routes.items():
+                argv = [path, *flags, *common, "-o", os.path.join(tmp, name)]
+                if name == "lambert-shadow":
+                    argv.append("--profile")
+                sweep.reset_launch_counts()
+                bruteforce.reset_launch_counts()
+                check(render_cli.main(argv) == 0,
+                      f"render CLI ({name}) failed")
+                sync()
+                counts = {**sweep.launch_counts, **bruteforce.launch_counts}
+                print(f"render CLI {name}: launches {counts}")
+                for k in kernels:
+                    check(counts[k] > 0, f"render CLI {name}: kernel {k} "
+                          "never launched")
+                    launches[k] += counts[k]
+        finally:
+            rec_e.restore()
+        brute_calls_err(rec_e.calls["_brute_cuda"], "render CLI brute")
         clock.done("26 (render CLI)")
 
         # 27. The same runs on the plain versions: parity routes equal,
@@ -1928,11 +2339,17 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
                       {"event": "keydown", "key": "q"}]}
         seen = []
         bruteforce.reset_launch_counts()
-        done = fly.run_loop(scene, cam, rts, state, events, FLY_FRAMES, None,
-                            on_frame=lambda f, s, i, buf: seen.append(
-                                (i, float((buf != 255 << 8).mean()))))
-        sync()
+        rec_e = Recorder(bruteforce, ["_brute_cuda"])
+        try:
+            done = fly.run_loop(
+                scene, cam, rts, state, events, FLY_FRAMES, None,
+                on_frame=lambda f, s, i, buf: seen.append(
+                    (i, float((buf != 255 << 8).mean()))))
+            sync()
+        finally:
+            rec_e.restore()
         fly_launches = bruteforce.launch_counts["brute"]
+        brute_calls_err(rec_e.calls["_brute_cuda"], "fly loop")
         print(f"fly loop: {done} frames, render targets "
               f"{[i for i, _ in seen]}, hit shares "
               f"{[round(s, 4) for _, s in seen]}, {fly_launches} launches "
@@ -1981,9 +2398,14 @@ def main() -> None:
 
     clock.done("1 (device)")
 
-    # 2. Build.
-    path, secs = cuda_build.build(verbose=True)
+    # 2. Build, with each kernel's registers from ptxas.
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        path, secs = cuda_build.build(verbose=True)
+    print(log.getvalue(), end="")
     print(f"build: {secs:.2f} s -> {os.path.relpath(path, REPO)}")
+    print("registers per thread: "
+          f"{kernel_registers(log.getvalue()) or 'not printed (built before)'}")
     cuda_build.load_library()
 
     # The bench frame's scene and camera (bench.py's framing).

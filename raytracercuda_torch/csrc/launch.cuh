@@ -1,6 +1,7 @@
 // Grid sizes for the port's grid-stride kernels (G's fill and scatter in
-// scatter.cu, D in frame.cu): enough blocks to fill every SM a few times
-// over, and no more than the work needs.
+// scatter.cu, D in frame.cu, the key fill of hit_key.cuh and H's flag
+// clear in sweep.cu): enough blocks to fill every SM a few times over, and
+// no more than the work needs.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -20,10 +20,8 @@
 //   v and the winning slot for the differentiable route.  Its epilogue over
 //   F's sweep (`rt_closest_rays`) traces ray bundles that are not a pinhole
 //   frame.
-// H, `occlusion_rows_kernel`, replaces `_occlusion_kernel` in the same
-//   file: B on row-major [T, R, 3] origins and geometry-only rows.  B and H
-//   share one body (a template over the origin layout), each its own
-//   kernel and launch.
+// H, `occlusion_items_kernel<true>`, replaces `_occlusion_kernel` in the
+//   same file: B on row-major [T, R, 3] origins and geometry-only rows.
 //
 // What bounds them on the H100: the Moller-Trumbore loop, about 40 FP32
 // operations and one IEEE division per ray-triangle pair, with each
@@ -32,41 +30,54 @@
 // pipes and by how evenly the work fills the 132 SMs, not by bytes from
 // device memory.
 //
-// A, B and H keep the TPU's grid shape: one block per tile, one thread per
+// A and B keep the TPU's grid shape: one block per tile, one thread per
 // ray, a loop over the tile's whole list.  The block copies each listed
 // cluster's v0|e1|e2 columns into shared memory (structure of arrays, so a
 // warp reads one broadcast word per operand) and every thread scans the
 // cluster's triangles in slot order.  A strict `<` over ascending
 // (cluster, slot) picks exactly the JAX kernel's winner: there, the first
 // minimum wins inside a cluster and clusters combine with a strict `<`.
-// B and H let a thread stop at its first hit and the block leave the list
-// when every thread is done.
+// B lets a thread stop at its first hit and the block leave the list when
+// every thread is done.
 //
-// C and F split each tile's list over many blocks, because one long list
-// set the kernel's time (a reflected tile of config 5 lists all 4,027
-// clusters) and a few dozen listing tiles cannot fill the card (config 4).
-// `sweep.split_lists` cuts the lists into work items of at most K
-// consecutive clusters; pass 1, `sweep_items_kernel`, runs one block per
-// item.  The block stages one cluster at a time, double-buffered with
-// cp.async, as [g][12] rows (v0|e1|e2 and three pad floats, three 16-byte
-// loads a triangle) from the 36-byte geometry rows [C, g, 9], and tests its
-// tile's rays against it with the strict `<`.  F first packs the tile's
-// active rays into the leading lanes (a ballot and a prefix), so that a
-// warp with no active ray tests nothing, and an item whose tile has no
-// active ray leaves before it stages anything.  A ray with a hit in the
-// item then merges it with one 64-bit atomicMin on (ordered t, slot): the
-// smallest t wins and, among equal t, the smallest slot, which is the
-// first in ascending (cluster, slot) order since lists ascend and slot =
-// cluster * g + j.  -0.0 takes +0.0's key (the two tie under `<`).  Pass 2,
-// one thread per ray, decodes the key and re-runs the same `mt_tri` on the
-// winning triangle, so t, u and v are bit-equal to the sweep's; F then
-// interpolates the winner's attributes as A does.  The library is built
-// with -fmad=false and IEEE division, so each expression rounds as in the
-// plain PyTorch version.
+// C, F and H split each tile's list over many blocks, because one long
+// list set the kernel's time (a reflected tile of config 5 lists all 4,027
+// clusters) and the hundred or so tiles that list clusters cannot fill the
+// card (config 4).  `sweep.split_lists` cuts the lists into work items of
+// at most K consecutive clusters; pass 1 runs one block per item.  The
+// block stages one cluster at a time, double-buffered with cp.async, as
+// [g][12] rows (v0|e1|e2 and three pad floats, three 16-byte loads a
+// triangle) from the 36-byte geometry rows [C, g, 9], and tests its tile's
+// rays against it.  F and H first pack the tile's active rays into the
+// leading lanes (a ballot and a prefix), so that a warp with no active ray
+// tests nothing, and an item whose tile has no active ray leaves before it
+// stages anything.
+//
+// C and F (`sweep_items_kernel`) keep each ray's closest hit over the item
+// with the strict `<` and merge it with one 64-bit atomicMin on (ordered
+// t, slot) (`hit_key.cuh`): the smallest t wins and, among equal t, the
+// smallest slot, which is the first in ascending (cluster, slot) order
+// since lists ascend and slot = cluster * g + j.  Pass 2, one thread per
+// ray, decodes the key and re-runs the same `mt_tri` on the winning
+// triangle, so t, u and v are bit-equal to the sweep's; F then
+// interpolates the winner's attributes as A does.
+//
+// H (`occlusion_items_kernel`) needs no second pass: its result is an OR
+// over the items.  The C entry clears the flags, then a lane stops at its
+// ray's first hit and stores the flag (a plain store: every writer writes
+// the same 1).  A ray that another item has already flagged is not packed,
+// and a lane re-reads its flag at each cluster, so a ray stops testing
+// once any item finds its hit; the block leaves its item when every lane
+// is done.  The body is a template over the origin layout, so that B's
+// planar origins can take it by instantiation.
+//
+// The library is built with -fmad=false and IEEE division, so each
+// expression rounds as in the plain PyTorch version.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "hit_key.cuh"
 #include "launch.cuh"
 
 namespace {
@@ -75,21 +86,17 @@ constexpr int kCols = 32;     // floats per shade-block row (A, B, F)
 constexpr int kGeomCols = 9;  // floats per geometry row (C, F, H)
 constexpr int kRowFloats = 12;  // floats per staged triangle (C, F)
 constexpr int kMaxRays = 1024;  // rays per tile a sweep block can take
-constexpr float kFltMax = 3.40282346638528859812e+38f;
 constexpr float kDetTiny = 1.1754944e-38f;
-// The key of a miss: FLT_MAX's ordered bits, slot 0.  Every hit's key is
-// smaller.
-constexpr unsigned long long kMissKey = 0xFF7FFFFF00000000ull;
 
-// Copy cluster `c`'s v0|e1|e2 columns into shared memory as [9][g]; the
-// block's rows are `cols` floats apart, the first 9 being v0|e1|e2.
+// Copy cluster `c`'s v0|e1|e2 columns of the shade rows [C, g, 32] into
+// shared memory as [9][g] (A and B).
 __device__ __forceinline__ void load_cluster(float* s, const float* blocks,
-                                             int c, int g, int cols) {
-  const float* blk = blocks + static_cast<size_t>(c) * g * cols;
+                                             int c, int g) {
+  const float* blk = blocks + static_cast<size_t>(c) * g * kCols;
   for (int e = threadIdx.x; e < 9 * g; e += blockDim.x) {
     const int j = e / 9;
     const int k = e - j * 9;
-    s[k * g + j] = blk[j * cols + k];
+    s[k * g + j] = blk[j * kCols + k];
   }
 }
 
@@ -146,7 +153,7 @@ __device__ __forceinline__ float mt_row(const float* w, float ox, float oy,
 // = 0.
 __device__ __forceinline__ void sweep_closest(
     float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ blocks, int cols, int g, int tile, float ox,
+    const float* __restrict__ blocks, int g, int tile, float ox,
     float oy, float oz, float dx, float dy, float dz, bool use_eps,
     float t_eps, float& bt, float& bu, float& bv, int& bs) {
   bt = kFltMax;
@@ -157,7 +164,7 @@ __device__ __forceinline__ void sweep_closest(
   for (int r = offsets[tile]; r < end; ++r) {
     const int c = ids[r];
     __syncthreads();  // every thread is done with the previous cluster
-    load_cluster(s, blocks, c, g, cols);
+    load_cluster(s, blocks, c, g);
     __syncthreads();
     for (int j = 0; j < g; ++j) {
       float u, v;
@@ -223,9 +230,9 @@ __global__ void primary_shade_kernel(
   const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
   float bt, bu, bv;
   int bs;
-  sweep_closest(s, offsets, ids, blocks, kCols, g, tile, eye[0], eye[1],
-                eye[2], d[i], d[R + i], d[2 * R + i], use_eps != 0, t_eps,
-                bt, bu, bv, bs);
+  sweep_closest(s, offsets, ids, blocks, g, tile, eye[0], eye[1], eye[2],
+                d[i], d[R + i], d[2 * R + i], use_eps != 0, t_eps, bt, bu,
+                bv, bs);
   out_slot[o] = bs;
   out_f[o] = bt;
   write_attributes(out_f, static_cast<size_t>(gridDim.x) * R, o, bt, bu, bv,
@@ -233,26 +240,8 @@ __global__ void primary_shade_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// C and F: the split sweep.
+// C, F and H: the split sweeps.
 // ---------------------------------------------------------------------------
-
-// A hit's 64-bit key: t's bits mapped to an unsigned order that is
-// monotone over every non-NaN float, above the slot.  -0.0 maps as +0.0.
-__device__ __forceinline__ unsigned long long hit_key(float t, int slot) {
-  unsigned int b = __float_as_uint(t);
-  if (b == 0x80000000u) b = 0u;  // -0.0
-  const unsigned int ordered = b ^ ((b & 0x80000000u) ? 0xFFFFFFFFu
-                                                      : 0x80000000u);
-  return (static_cast<unsigned long long>(ordered) << 32) |
-         static_cast<unsigned int>(slot);
-}
-
-// keys[0, n) = the miss key.
-__global__ void fill_keys_kernel(unsigned long long* __restrict__ keys,
-                                 long long n) {
-  for (long long i = rt::thread_index(); i < n; i += rt::thread_count())
-    keys[i] = kMissKey;
-}
 
 // Starts the copy of cluster `c`'s geometry rows [g, 9] into `s` as [g][12]
 // rows, 4-byte cp.async copies, and commits them as one group.
@@ -266,6 +255,31 @@ __device__ __forceinline__ void stage_cluster(float* s,
                             src + e, sizeof(float));
   }
   __pipeline_commit();
+}
+
+// The block's rays whose `act` is set, in ray order, packed into lanes
+// 0 .. n_act - 1: a ballot per warp and a prefix over the warps.
+// blockDim.x is a multiple of 32 and every thread calls it.  Returns this
+// lane's ray, -1 from lane n_act on; n_act is the same in every thread.
+__device__ __forceinline__ int pack_rays(bool act, int* s_ray, int* s_warp,
+                                         int& n_act) {
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const unsigned int ballot = __ballot_sync(0xffffffffu, act);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0;
+  n_act = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) {
+    const int c = s_warp[w];
+    before += w < warp ? c : 0;
+    n_act += c;
+  }
+  if (n_act == 0) return -1;
+  if (act) s_ray[before + __popc(ballot & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  return i < n_act ? s_ray[i] : -1;
 }
 
 // Pass 1 of C and F.  Grid: one block per work item, items [3, num_items]
@@ -291,26 +305,12 @@ __global__ void sweep_items_kernel(
 
   int ray = i;
   if constexpr (kPerRay) {
-    // The tile's active rays, in ray order, to lanes 0 .. n_act - 1.
     __shared__ int s_ray[kMaxRays];
     __shared__ int s_warp[kMaxRays / 32];
-    const int lane = i & 31;
-    const int warp = i >> 5;
-    const bool act = active[static_cast<size_t>(tile) * R + i] != 0;
-    const unsigned int ballot = __ballot_sync(0xffffffffu, act);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0;
-    int n_act = 0;
-    for (int w = 0; w < R / 32; ++w) {
-      const int c = s_warp[w];
-      before += w < warp ? c : 0;
-      n_act += c;
-    }
+    int n_act;
+    ray = pack_rays(active[static_cast<size_t>(tile) * R + i] != 0, s_ray,
+                    s_warp, n_act);
     if (n_act == 0) return;  // the whole block: it stages nothing
-    if (act) s_ray[before + __popc(ballot & ((1u << lane) - 1u))] = i;
-    __syncthreads();
-    ray = i < n_act ? s_ray[i] : -1;
   }
   const bool has_ray = ray >= 0;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
@@ -489,36 +489,25 @@ inline int ray_blocks(long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// B and H.
+// B: one block per tile.
 // ---------------------------------------------------------------------------
 
-// Any hit along `light` from one ray's origin over its tile's listed
-// clusters (B and H).  kRowMajor picks the origin layout: [T, R, 3] (H) or
-// planar [T, 3, R] (B).  Grid: one block per tile; block: one thread per
-// ray.  occ [T, R] int32.
-template <bool kRowMajor>
-__device__ __forceinline__ void occlusion_body(
-    float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
+// Kernel B: any hit along `light` from each active ray's planar origin
+// [T, 3, R] over its tile's listed shade blocks [C, g, 32].  Grid: one
+// block per tile; block: one thread per ray.  occ [T, R] int32.
+__global__ void occlusion_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ ids,
     const float* __restrict__ light, const float* __restrict__ origins,
-    const int* __restrict__ active, const float* __restrict__ blocks,
-    int cols, int g, float t_eps, int* __restrict__ occ) {
+    const int* __restrict__ active, const float* __restrict__ blocks, int g,
+    float t_eps, int* __restrict__ occ) {
+  extern __shared__ float s[];  // [9][g]
   const int tile = blockIdx.x;
   const int R = blockDim.x;
   const int i = threadIdx.x;
   const float dx = light[0], dy = light[1], dz = light[2];
   const size_t o = static_cast<size_t>(tile) * R + i;
-  float ox, oy, oz;
-  if (kRowMajor) {
-    const float* org = origins + o * 3;
-    ox = org[0];
-    oy = org[1];
-    oz = org[2];
-  } else {
-    const float* org = origins + static_cast<size_t>(tile) * 3 * R;
-    ox = org[i];
-    oy = org[R + i];
-    oz = org[2 * R + i];
-  }
+  const float* org = origins + static_cast<size_t>(tile) * 3 * R;
+  const float ox = org[i], oy = org[R + i], oz = org[2 * R + i];
   const bool act = active[o] != 0;
 
   bool hit = false;
@@ -526,7 +515,7 @@ __device__ __forceinline__ void occlusion_body(
   for (int r = offsets[tile]; r < end; ++r) {
     // Also the barrier before the shared cluster is overwritten.
     if (__syncthreads_and(hit || !act)) break;
-    load_cluster(s, blocks, ids[r], g, cols);
+    load_cluster(s, blocks, ids[r], g);
     __syncthreads();
     if (act && !hit) {
       for (int j = 0; j < g; ++j) {
@@ -542,26 +531,100 @@ __device__ __forceinline__ void occlusion_body(
   occ[o] = hit ? 1 : 0;
 }
 
-// Kernel B: planar origins [T, 3, R], shade blocks [C, g, 32].
-__global__ void occlusion_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ light, const float* __restrict__ origins,
-    const int* __restrict__ active, const float* __restrict__ blocks, int g,
-    float t_eps, int* __restrict__ occ) {
-  extern __shared__ float s[];  // [9][g]
-  occlusion_body<false>(s, offsets, ids, light, origins, active, blocks,
-                        kCols, g, t_eps, occ);
+// ---------------------------------------------------------------------------
+// H: the split any-hit.
+// ---------------------------------------------------------------------------
+
+// flags[0, n) = 0.
+__global__ void clear_flags_kernel(bool* __restrict__ flags, long long n) {
+  for (long long i = rt::thread_index(); i < n; i += rt::thread_count())
+    flags[i] = false;
 }
 
-// Kernel H: row-major origins [T, R, 3], geometry rows [C, g, 9].
-__global__ void occlusion_rows_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
+// Any hit along `light` over one work item (kernel H; B's planar origins
+// by instantiation).  Grid: one block per item, items [3, num_items] as in
+// `sweep_items_kernel`; block: the tile's R rays rounded up to a multiple
+// of 32 (lanes from R on hold no ray).  kRowMajor: origins [T, R, 3] (H)
+// or planar [T, 3, R].  active [T, R] bool; occ [T, R] bool, cleared
+// before the launch, set where an item finds a hit.  A ray takes part when
+// it is active and not yet flagged; its lane stops at its first hit, or
+// when another item has flagged it, and the block leaves the item once
+// every lane has stopped.  Each test is `mt_tri` with t_eps, as in B.
+template <bool kRowMajor>
+__global__ void occlusion_items_kernel(
+    const int* __restrict__ items, int num_items, const int* __restrict__ ids,
     const float* __restrict__ light, const float* __restrict__ origins,
-    const int* __restrict__ active, const float* __restrict__ blocks, int g,
-    float t_eps, int* __restrict__ occ) {
-  extern __shared__ float s[];  // [9][g]
-  occlusion_body<true>(s, offsets, ids, light, origins, active, blocks,
-                       kGeomCols, g, t_eps, occ);
+    const bool* __restrict__ active, const float* __restrict__ geom, int R,
+    int g, float t_eps, bool* occ) {
+  extern __shared__ float4 s_rows[];  // two buffers of [g][12] floats
+  __shared__ int s_ray[kMaxRays];
+  __shared__ int s_warp[kMaxRays / 32];
+  const int first = items[num_items + blockIdx.x];
+  const int end = items[2 * num_items + blockIdx.x];
+  if (first >= end) return;
+  const int tile = items[blockIdx.x];
+  const int i = threadIdx.x;
+  const size_t row = static_cast<size_t>(tile) * R;
+  // Flags that other blocks store are read past the L1 (ld.global.cg).
+  const bool act = i < R && active[row + i] &&
+                   !__ldcg(reinterpret_cast<const unsigned char*>(occ) +
+                           row + i);
+  int n_act;
+  const int ray = pack_rays(act, s_ray, s_warp, n_act);
+  if (n_act == 0) return;  // the whole block: it stages nothing
+
+  const unsigned char* flag =
+      reinterpret_cast<const unsigned char*>(occ) + row + (ray < 0 ? 0 : ray);
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f;
+  if (ray >= 0) {
+    if constexpr (kRowMajor) {
+      const float* org = origins + (row + ray) * 3;
+      ox = org[0];
+      oy = org[1];
+      oz = org[2];
+    } else {
+      const float* org = origins + row * 3;
+      ox = org[ray];
+      oy = org[R + ray];
+      oz = org[2 * R + ray];
+    }
+  }
+  const float dx = light[0], dy = light[1], dz = light[2];
+
+  float* s = reinterpret_cast<float*>(s_rows);
+  const int buf = g * kRowFloats;
+  const int n = end - first;
+  bool done = ray < 0;
+  stage_cluster(s, geom, ids[first], g);
+  for (int r = 0; r < n; ++r) {
+    // The other buffer was freed by the barrier that ended step r - 1.
+    if (r + 1 < n)
+      stage_cluster(s + ((r + 1) & 1) * buf, geom, ids[first + r + 1], g);
+    else
+      __pipeline_commit();  // an empty group keeps the count of groups
+    if (!done && r > 0) done = __ldcg(flag) != 0;  // another item's hit
+    __pipeline_wait_prior(1);  // this thread's copies of cluster r landed
+    __syncthreads();           // and every other thread's
+    if (!done) {
+      const float4* rows = s_rows + (r & 1) * (buf / 4);
+#pragma unroll 4
+      for (int j = 0; j < g; ++j) {
+        const float4 a = rows[3 * j];
+        const float4 b = rows[3 * j + 1];
+        const float4 e = rows[3 * j + 2];
+        float u, v;
+        if (mt_tri(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x, ox, oy, oz,
+                   dx, dy, dz, true, t_eps, u, v) < kFltMax) {
+          occ[row + ray] = true;
+          done = true;
+          break;
+        }
+      }
+    }
+    // Also the barrier after which buffer r & 1 may be overwritten.
+    if (__syncthreads_and(done)) break;
+  }
+  __pipeline_wait_prior(0);  // no copy outlives the block
 }
 
 }  // namespace
@@ -569,10 +632,10 @@ __global__ void occlusion_rows_kernel(
 extern "C" {
 
 // Each returns the first launch error (0 on success).  The split sweeps
-// (C, F, the ray bundles) take work items [3, num_items] int32 from
-// `sweep.split_lists`, the lists' ids, geometry rows [C, g, 9] and
-// keys [T * R] of scratch; R is at most 1024 and, for F and the bundles,
-// a multiple of 32.
+// (C, F, H, the ray bundles) take work items [3, num_items] int32 from
+// `sweep.split_lists`, the lists' ids and geometry rows [C, g, 9]; C, F
+// and the bundles also keys [T * R] of scratch.  R is at most 1024 and,
+// for F and the bundles, a multiple of 32.
 
 int rt_primary_shade(const int* offsets, const int* ids, const float* eye,
                      const float* dirs, const float* blocks, int num_tiles,
@@ -663,15 +726,32 @@ int rt_closest_rays(const int* items, int num_items, const int* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_occlusion_rows(const int* offsets, const int* ids, const float* light,
-                      const float* origins, const int* active,
-                      const float* blocks, int num_tiles, int rays_per_tile,
-                      int g, float t_eps, int* occ, void* stream) {
-  if (num_tiles == 0) return 0;
-  const size_t smem = sizeof(float) * 9 * g;
-  occlusion_rows_kernel<<<num_tiles, rays_per_tile, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      offsets, ids, light, origins, active, blocks, g, t_eps, occ);
+// Kernel H: work items [3, num_items] as for the split sweeps, row-major
+// origins [T, R, 3], activity [T, R] bool, geometry rows [C, g, 9]; occ
+// [T, R] bool.  R may be any count from 1 to 1024.
+int rt_occlusion_rows(const int* items, int num_items, const int* ids,
+                      const float* light, const float* origins,
+                      const bool* active, const float* geom, int num_tiles,
+                      int rays_per_tile, int g, float t_eps, bool* occ,
+                      void* stream) {
+  const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
+  if (n == 0) return 0;
+  if (rays_per_tile > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  clear_flags_kernel<<<rt::card_grid(n), rt::kThreads, 0, s>>>(occ, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_items == 0) return static_cast<int>(err);
+  const size_t smem = sizeof(float) * 2 * g * kRowFloats;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(occlusion_items_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = (rays_per_tile + 31) / 32 * 32;
+  occlusion_items_kernel<true><<<num_items, threads, smem, s>>>(
+      items, num_items, ids, light, origins, active, geom, rays_per_tile, g,
+      t_eps, occ);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from .cuda_build import kernel_fn, raw_stream
 from .math import pack_rgb
 
 #: Kernel launches, counted where the kernel is launched.
@@ -75,14 +76,12 @@ def _blob_plain(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
 def _blob_cuda(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
     """Launch kernel J; output as in `_blob_plain`."""
     from ..trace.sweep import _check_cuda
-    from .cuda_build import load_library
 
     dev = time.device
     _check_cuda("time", time, dev, torch.float32, (1,))
     out = torch.empty(width * height, dtype=torch.int64, device=dev)
-    err = load_library().rt_blob(
-        out.data_ptr(), width, height, time.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = kernel_fn("rt_blob")(out.data_ptr(), width, height,
+                               time.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel J launch failed: CUDA error {err}")
     launch_counts["blob"] += 1

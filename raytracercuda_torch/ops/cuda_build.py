@@ -6,9 +6,9 @@ plain C interface in ``raytracercuda_torch/_build/`` (git-ignored).  The
 library's name carries a hash of the sources, headers and flags, so an
 edited source is rebuilt.  Nothing here runs at import.
 
-`kernel_fn` and `raw_stream` are the wrappers' lean launch path (A-D, F,
-G, H): the library's function looked up once, and the current stream's
-handle without building a `torch.cuda.Stream`.
+`kernel_fn` and `raw_stream` are every wrapper's launch path (A-J): the
+library's function looked up once, and the current stream's handle
+without building a `torch.cuda.Stream`.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("sweep.cu", "scatter.cu", "brute.cu", "frame.cu"))
-HEADERS = (_PKG / "csrc" / "launch.cuh",)
+HEADERS = tuple(_PKG / "csrc" / name for name in
+                ("launch.cuh", "hit_key.cuh"))
 BUILD_DIR = _PKG / "_build"
 # -fmad=false and IEEE division (no --use_fast_math): every expression
 # rounds as the plain PyTorch versions' separate operations do.
@@ -110,13 +111,14 @@ def load_library() -> ctypes.CDLL:
     lib.rt_closest_rays.argtypes = [p, i, p, p, p, p, p, i, i, i, i, f, p, p,
                                     p, p]
     lib.rt_closest_rays.restype = i
-    lib.rt_occlusion_rows.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
+    lib.rt_occlusion_rows.argtypes = [p, i, p, p, p, p, p, i, i, i, f, p,
+                                      p]
     lib.rt_occlusion_rows.restype = i
     lib.rt_scatter_add.argtypes = [p, p, i, i, i, i, i, i, p, p]
     lib.rt_scatter_add.restype = i
     lib.rt_segment_sum.argtypes = [p, p, p, i, i, i, p, p]
     lib.rt_segment_sum.restype = i
-    lib.rt_brute.argtypes = [p, p, p, i, i, i, f, p, p, p, p, p]
+    lib.rt_brute.argtypes = [p, p, p, i, i, i, f, i, i, p, p, p, p, p, p]
     lib.rt_brute.restype = i
     lib.rt_clear.argtypes = [p, i64, u32, p]
     lib.rt_clear.restype = i

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from .cuda_build import kernel_fn, raw_stream
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"gradient": 0}
@@ -53,13 +54,10 @@ def _gradient_plain(size: int, device) -> torch.Tensor:
 
 def _gradient_cuda(size: int, device) -> torch.Tensor:
     """Launch kernel I; output as in `_gradient_plain`."""
-    from .cuda_build import load_library
-
     if device.type != "cuda":
         raise ValueError(f"kernel I writes a CUDA tensor, not one on {device}")
     out = torch.empty(size, dtype=torch.int64, device=device)
-    err = load_library().rt_gradient(
-        out.data_ptr(), size, torch.cuda.current_stream(device).cuda_stream)
+    err = kernel_fn("rt_gradient")(out.data_ptr(), size, raw_stream(device))
     if err:
         raise RuntimeError(f"kernel I launch failed: CUDA error {err}")
     launch_counts["gradient"] += 1

@@ -12,11 +12,15 @@ Every ray is tested against every triangle.  The rules are the oracle's
   * the winner is the first minimum in face order;
   * a miss carries ``face = -1``, ``u = v = 0`` and ``t = FLT_MAX``.
 
-Kernel E (`csrc/brute.cu:brute_kernel`, replacing
-`pallas_brute._mt_kernel`) evaluates that formula itself, so it needs no
-second pass over the winner.  `trace_brute` runs the plain PyTorch version
-for tensors on the CPU and launches kernel E for tensors on a GPU; there
-is no fallback from one to the other.
+Kernel E (`csrc/brute.cu`, replacing `pallas_brute._mt_kernel`) splits
+the work over a grid of ray groups by face chunks: each thread of
+`brute_items_kernel` holds ``BRUTE_RAYS_PER_THREAD`` rays and tests them
+against the ``BRUTE_FACE_CHUNK`` faces of its block, each block merges its
+rays' closest hits with a 64-bit ``atomicMin`` on (ordered t, face), and
+`brute_epilogue_kernel` re-runs the oracle formula on each winner.
+`trace_brute` runs the plain PyTorch version for tensors on the CPU and
+launches kernel E for tensors on a GPU; there is no fallback from one to
+the other.
 """
 
 from __future__ import annotations
@@ -25,10 +29,17 @@ import torch
 
 from ..config import TraceConfig
 from ..types import FLT_MAX, Hit
-from .sweep import _check_cuda, _pick, t_eps_of
+from ..ops.cuda_build import kernel_fn, raw_stream
+from .sweep import _check_cuda, _eps_args, _pick, t_eps_of
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"brute": 0}
+
+#: Kernel E's rays per thread (P: 1, 2, 4 or 8) and faces per block (its
+#: face chunk): the fastest, within the run's spread, of `chip_smoke.py`'s
+#: sweep over both on config 2 on the H100 (PERF.md).
+BRUTE_RAYS_PER_THREAD = 4
+BRUTE_FACE_CHUNK = 512
 
 #: Rays and faces the plain version tests at once: its ``[rays, faces]``
 #: temporaries stay at 16 MB each.
@@ -106,21 +117,20 @@ def _brute_plain(origin, direction, tris, t_eps):
 
 def _brute_cuda(origin, direction, tris, t_eps):
     """Launch kernel E; outputs as in `_brute_plain`."""
-    from ..ops.cuda_build import load_library
-
     num_rays, num_faces = direction.shape[0], tris.shape[1]
     dev = direction.device
     _check_cuda("origin", origin, dev, torch.float32, (num_rays, 3))
     _check_cuda("direction", direction, dev, torch.float32, (num_rays, 3))
     _check_cuda("tris", tris, dev, torch.float32, (9, num_faces))
+    keys = torch.empty(num_rays, dtype=torch.int64, device=dev)
     out = torch.empty((3, num_rays), dtype=torch.float32, device=dev)
     face = torch.empty(num_rays, dtype=torch.int32, device=dev)
-    err = load_library().rt_brute(
+    err = kernel_fn("rt_brute")(
         origin.data_ptr(), direction.data_ptr(), tris.data_ptr(), num_rays,
-        num_faces, int(t_eps is not None),
-        0.0 if t_eps is None else float(t_eps), out[0].data_ptr(),
+        num_faces, *_eps_args(t_eps), BRUTE_RAYS_PER_THREAD,
+        BRUTE_FACE_CHUNK, keys.data_ptr(), out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), face.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel E launch failed: CUDA error {err}")
     launch_counts["brute"] += 1

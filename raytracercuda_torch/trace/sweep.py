@@ -30,12 +30,14 @@ The rules that decide a result are the JAX kernels':
     (cluster, slot) order;
   * a miss carries ``FLT_MAX``, slot 0 and zero attributes.
 
-C and F split each tile's list over many blocks: `split_lists` cuts the
-lists into work items of at most ``PRIMARY_CHUNK`` (C) or
-``GENERAL_CHUNK`` (F) clusters, one block each, and the blocks merge
-their closest hits per ray with a 64-bit ``atomicMin`` before a second
-pass writes the outputs (`csrc/sweep.cu`).  One launch of C or F is one
-call of its C entry (the key fill and both passes).
+C, F and H split each tile's list over many blocks: `split_lists` cuts
+the lists into work items of at most ``PRIMARY_CHUNK`` (C),
+``GENERAL_CHUNK`` (F) or ``OCCLUSION_CHUNK`` (H) clusters, one block
+each.  C's and F's blocks merge their closest hits per ray with a 64-bit
+``atomicMin`` before a second pass writes the outputs; H's blocks set a
+ray's flag at its first hit, and a ray flagged by one item is skipped by
+the others (`csrc/sweep.cu`).  One launch of C, F or H is one call of its
+C entry (the key fill or flag clear, and its passes).
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its CUDA kernel for tensors on a GPU; there is no fallback from
@@ -83,11 +85,12 @@ GEOM_COLS = 9
 launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
                  "primary": 0, "occlusion_rows": 0, "closest_rays": 0}
 
-#: Clusters per work item of kernels C and F, K: the fastest, within the
-#: run's spread, of `chip_smoke.py`'s sweep over K on config 4 (C) and
-#: both of config 5's bounces (F) on the H100 (PERF.md).
+#: Clusters per work item of kernels C, F and H, K: the fastest, within
+#: the run's spread, of `chip_smoke.py`'s sweep over K on config 4 (C, H)
+#: and both of config 5's bounces (F) on the H100 (PERF.md).
 PRIMARY_CHUNK = 2
 GENERAL_CHUNK = 8
+OCCLUSION_CHUNK = 4
 
 #: Tiles a plain version sweeps at once: its ``[n, G, R]`` temporaries then
 #: stay near 33 MB each at G = 128, R = 256, whatever the frame size.
@@ -402,7 +405,9 @@ def _check_lists(lists: TileLists, device, num_tiles: int):
 
 def _check_split(num_rays: int, packs: bool):
     """The split sweep's block is the tile's rays: at most 1024, and a
-    multiple of 32 where it packs active rays with warp ballots."""
+    multiple of 32 where it packs active rays with warp ballots over
+    exactly the tile's rays (F, the ray bundles; H rounds its block up
+    instead)."""
     if not 0 < num_rays <= 1024 or (packs and num_rays % 32):
         raise ValueError(f"the split sweep takes 1 to 1024 rays per tile"
                          f"{', a multiple of 32,' if packs else ''} got "
@@ -559,16 +564,19 @@ def _occlusion_rows_cuda(lists, light, o_tiles, active, blocks, t_eps):
     _check_cuda("o_tiles", o_tiles, dev, torch.float32, (num_tiles, R, 3))
     _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
     _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
-    act = active.to(torch.int32)
-    occ = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    _check_split(R, packs=False)
+    items = split_lists(lists, OCCLUSION_CHUNK)
+    # The kernel reads the bool mask as bytes and writes the bool result.
+    occ = torch.empty((num_tiles, R), dtype=torch.bool, device=dev)
     err = kernel_fn("rt_occlusion_rows")(
-        lists.offsets.data_ptr(), lists.ids.data_ptr(), light.data_ptr(),
-        o_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles,
-        R, g, float(t_eps), occ.data_ptr(), raw_stream(dev))
+        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
+        light.data_ptr(), o_tiles.data_ptr(), active.data_ptr(),
+        blocks.data_ptr(), num_tiles, R, g, float(t_eps), occ.data_ptr(),
+        raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel H launch failed: CUDA error {err}")
     launch_counts["occlusion_rows"] += 1
-    return occ > 0
+    return occ
 
 
 def _pick(x: torch.Tensor, plain, cuda):

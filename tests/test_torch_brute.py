@@ -68,12 +68,15 @@ def run_port(positions, faces, origin, direction, clip=True):
 # (faces, rays, seed, JAX Pallas block sizes, clip_backward_hits, origin
 # shift).  The second case straddles the Pallas blocks, as
 # test_pallas_brute's does; the third moves the origins into the cloud, so
-# hits lie on both sides and clipping decides which side wins.
+# hits lie on both sides and clipping decides which side wins; the last
+# puts face and ray counts one past kernel E's shapes (runs of 128 faces;
+# 128 threads of 4 rays).
 CASES = {
     "basic": (100, 333, 5, {}, True, 0.0),
     "padding_edges": (130, 70, 7, {"block_r": 64, "block_f": 128}, True,
                       0.0),
     "no_backward_clip": (60, 50, 11, {}, False, 4.0),
+    "ragged_rays": (129, 513, 17, {}, True, 0.0),
 }
 
 

@@ -345,3 +345,137 @@ def test_split_lists_covers_each_list_once(case, k):
         np.testing.assert_array_equal(
             covered, np.arange(offsets[t], offsets[t] + c))
         assert (np.diff(mine) == 1).all()  # consecutive, in list order
+
+
+def _occlusion_inputs(s, num_tiles, rays, seed):
+    """Row-major origins ``[T, R, 3]`` in the scene's box, a random light,
+    and ~60% of the rays active, none in tile 1."""
+    rng = np.random.default_rng(seed)
+    tris = s["tc"].tris.reshape(-1, 3).numpy()
+    lo, hi = tris.min(axis=0), tris.max(axis=0)
+    o = (lo + rng.random((num_tiles, rays, 3)) * (hi - lo)).astype(np.float32)
+    light = rng.normal(size=3).astype(np.float32)
+    light /= np.linalg.norm(light)
+    active = rng.random((num_tiles, rays)) < 0.6
+    if num_tiles > 1:
+        active[1] = False
+    return (torch.from_numpy(light), torch.from_numpy(o),
+            torch.from_numpy(active))
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_occlusion_items_or_equals_plain(case):
+    """Kernel H's decomposition on the CPU: each tile's list cut into work
+    items of ``OCCLUSION_CHUNK`` clusters (`split_lists`), each item's
+    any-hit over its own clusters for the rays no earlier item flagged,
+    OR-ed, is the plain version's mask over whole lists; tiles with no
+    active ray stay unflagged.  9x9 tiles (R = 81, not a multiple of
+    32)."""
+    s = setup("plain", num_faces=5200, seed=3)
+    geom = tsweep.segment_blocks(s["tc"])
+    assert geom.shape[0] >= 40
+    counts = SPLIT_CASES[case]
+    lists = _random_lists(counts, 40, seed=len(case))
+    light, o, active = _occlusion_inputs(s, len(counts), 81, len(case))
+    t_eps = np.float32(1e-4)
+    want = tsweep._occlusion_rows_plain(lists, light, o, active, geom, t_eps)
+    items = tsweep.split_lists(lists, tsweep.OCCLUSION_CHUNK)
+    got = torch.zeros_like(want)
+    for tile, first, end in items.T.tolist():
+        if first == end:
+            continue
+        survive = torch.zeros((len(counts), geom.shape[0]), dtype=torch.bool)
+        survive[tile, lists.ids[first:end].long()] = True
+        got |= tsweep._occlusion_rows_plain(
+            tsweep._tile_lists(survive), light, o, active & ~got, geom,
+            t_eps)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert not want[~active].any()
+    if max(counts) >= 7:
+        assert want.any() and not want[active].all()
+
+
+def _first_hit_ranks(lists, light, o_tiles, active, blocks, t_eps):
+    """The list rank of each active ray's first occluding cluster, -1 where
+    none (the plain version's tests, rank by rank)."""
+    rank = torch.full(active.shape, -1, dtype=torch.long)
+    o = o_tiles.transpose(1, 2)[:, :, None, :]
+    for r in range(int(lists.counts.max()) if lists.counts.numel() else 0):
+        tiles = (lists.counts > r).nonzero()[:, 0]
+        blk = blocks[lists.ids[lists.offsets[tiles].long() + r].long()]
+        ot = o[tiles]
+        t, _, _ = tsweep._mt_cols(tuple(blk[:, :, k:k + 1] for k in range(9)),
+                                  ot[:, 0], ot[:, 1], ot[:, 2], light[0],
+                                  light[1], light[2], t_eps)
+        new = (t < FLT_MAX).any(dim=1) & (rank[tiles] < 0) & active[tiles]
+        rank[tiles] = torch.where(new, r, rank[tiles])
+    return rank
+
+
+@pytest.mark.parametrize("list_width", [32, 4])
+def test_occlusion_rows_late_hits_match_jax(list_width, monkeypatch):
+    """Kernel H's route (`occlusion_dense`) against `occlusion_dense_pallas`
+    on the light, of eight diagonals, whose occluded rays find their first
+    hit latest in their ascending lists (past the middle on average), where
+    a split sweep's later work items decide: masks exactly equal."""
+    s = setup("plain", num_faces=1200, seed=5)
+    d, jblocks, tblocks = rows_setup(s)
+    hit_t = np.asarray(jsweep.trace_dense_pallas(
+        s["jc"], jblocks, jnp.asarray(s["eye"]), jnp.asarray(d), SIDE,
+        SIDE).t)
+    hit = hit_t < FLT_MAX
+    calls = []
+    real = tsweep._occlusion_rows_plain
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(tsweep, "_occlusion_rows_plain", spy)
+
+    def inputs(light):
+        p = s["eye"] + d * np.minimum(hit_t, 1e6)[:, None]
+        return (np.where(hit[:, None], p, s["eye"]) + light * np.float32(1e-3)
+                ).astype(np.float32)
+
+    best = None
+    for signs in np.array(np.meshgrid([-1, 1], [-1, 1], [-1, 1])).T.reshape(
+            -1, 3):
+        light = (signs / np.sqrt(3.0)).astype(np.float32)
+        calls.clear()
+        occ = tsweep.occlusion_dense(s["tc"], tblocks,
+                                     torch.from_numpy(inputs(light)),
+                                     torch.from_numpy(light),
+                                     torch.from_numpy(hit), SIDE, SIDE)
+        args = calls[-1]
+        rank = _first_hit_ranks(*args)
+        found = rank >= 0
+        if not found.any():
+            continue
+        # The share of the list swept up to the first hit: 1 is the last.
+        late = float(((rank[found] + 1).double()
+                      / args[0].counts[:, None].expand_as(rank)[found]).mean())
+        if best is None or late > best[0]:
+            best = (late, light, occ)
+    late, light, got = best
+    assert late > 0.5, late
+    want = np.asarray(jsweep.occlusion_dense_pallas(
+        s["jc"], jblocks, jnp.asarray(inputs(light)), jnp.asarray(light),
+        jnp.asarray(hit), SIDE, SIDE,
+        trace_cfg=JaxTraceConfig(sweep_list_width=list_width)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("rays,packs,ok", [
+    (81, False, True), (1024, False, True), (81, True, False),
+    (256, True, True), (1025, False, False), (0, False, False)])
+def test_check_split_rays_per_tile(rays, packs, ok):
+    """H takes any count of rays per tile up to 1024 (its block rounds up
+    to whole warps); F and the ray bundles, which pack with ballots over
+    exactly the tile's rays, take multiples of 32."""
+    if ok:
+        tsweep._check_split(rays, packs)
+    else:
+        with pytest.raises(ValueError, match="1 to 1024"):
+            tsweep._check_split(rays, packs)
