@@ -12,7 +12,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      requires that kernels A and B both launched in that run;
   4. holds kernel A and kernel B against their plain PyTorch versions on
      the card, on the inputs that frame gave them (A: slots equal, t/u/v
-     within 1e-6 relative on hits, attributes within 1e-5; B: equal masks);
+     bit-equal, attributes within 1e-5; B: equal masks), with their work
+     items;
   5. renders the same frame with the plain versions on the card and
      requires every u8 channel within 1, hit pixels and shadowed pixels;
   6. times 50 frames on each path and each kernel beside its plain
@@ -44,10 +45,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      epilogue over F's sweep, then H) and `trace_hit` on 2,048 rays with
      scattered origins, each held against the same call on the plain
      versions (equal ids, masks and faces; images and t/u/v bit-equal);
- 10d. holds H against its plain version on synthetic inputs over config
-     4's clusters at K = 1, the default and 32: a tile that lists every
-     cluster with one free ray beside a tile with no active ray, rays that
-     only their list's last work item occludes, 9x9 tiles (R = 81);
+ 10d. holds H, and B on the same origins laid out planar, against their
+     plain version on synthetic inputs over config 4's clusters at K = 1,
+     the default and 32: a tile that lists every cluster with one free ray
+     beside a tile with no active ray, rays that only their list's last
+     work item occludes, 9x9 tiles (R = 81);
  11. takes the grad step with the plain versions on the card: equal ids,
      shadow masks and images, gradients within G's summation-order bar;
  12. takes five Adam steps (lr 1e-2) on positions and textures from a
@@ -93,21 +95,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      lanes per warp on each bounce, and the share of pixels the bounces
      change;
  19. holds A (with reflectivity) and B against their plain versions on
-     that frame's inputs (A: slots equal, t/u/v within 1e-6 relative on
-     hits, attributes within 1e-5; B: equal masks), and F on each
-     bounce's (slots equal, t/u/v bit-equal, attributes within 1e-5);
- 19b. holds C and F, the same way, against their plain versions on
-     synthetic inputs over config 5's clusters: a tile that lists every
-     cluster, an exact tie between a triangle and its copy a work item
-     later (the earlier slot must win), ``clip_backward_hits=False`` from
-     inside a mesh (hits at negative t), and for F one active ray;
+     that frame's inputs (A: slots equal, t/u/v bit-equal, attributes
+     within 1e-5; B: equal masks), and F on each bounce's (the same as
+     A);
+ 19b. holds C, A (with and without reflectivity) and F, the same way,
+     against their plain versions on synthetic inputs over config 5's
+     clusters: a tile that lists every cluster, an exact tie between a
+     triangle and its copy a work item later (the earlier slot must win),
+     ``clip_backward_hits=False`` from inside a mesh (hits at negative
+     t), and for F one active ray;
  20. at 256x144, holds the cluster-route frame against the brute-force
      route's (kernel E): at least 99% of pixels within 1e-4; E on the
      brute route's primary rays equal to plain (t/u/v bit-equal); times
      E there and both routes' frames;
  21. times the frame, A, B and F per launch and one `sort_bounces=True`
      frame, F also by profiler device time and with the host's cost
-     hidden (as C), and on both bounces at K = 4 to 64;
+     hidden (as C), and on both bounces at K = 4 to 64, A and B as in
+     phase 29;
  22. runs config 1 at 256x256: `clear_buffer` (kernel D), `color_gradient`
      (kernel I) and `blob` at three times (kernel J), requiring each
      kernel launched;
@@ -130,7 +134,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
  28. runs the fly loop for four frames on BRUTE at 256x256 with a
      scripted event list, requiring the render targets 1, 2, 0, 1, and
      holds each launch of E against its plain version;
- 29. prints each kernel's time beside its bound: the larger of its FP32
+ 29. times the bench frame (kernel path) by the profiler's device time,
+     and A and B by profiler device time (their C entries' kernels) and
+     at K = 1 to 16 (A) and 2 to 16 (B) clusters per work item, after
+     every other phase;
+ 30. prints each kernel's time beside its bound: the larger of its FP32
      operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
      this run's inputs (ray-triangle tests from the tile lists, 46
      operations each), and, for D and G, the time of the one PyTorch call
@@ -138,8 +146,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      device times and G's `torch.zeros` + `index_add_`.
 
 Any failure exits non-zero.  The last two lines of standard output are a
-JSON object of the ten kernels' counts, errors, times and bounds (C's, D's,
-E's, F's, G's and H's with ``device_ms``, D's and G's with
+JSON object of the ten kernels' counts, errors, times and bounds (every
+sweep's, D's, E's and G's with ``device_ms``, D's and G's with
 ``library_device_ms``, G's with ``library_zeroed_ms``; null elsewhere),
 and ``{"ok": true, "device": {...}}``.
 """
@@ -384,34 +392,6 @@ def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
             "library_zeroed_ms": library_zeroed_ms}
 
 
-def rel_err_on_hits(x, y, hit, name: str) -> float:
-    """Require ``x`` within 1e-6 relative of ``y`` where ``hit``; returns
-    the largest absolute difference there."""
-    d = (x[hit] - y[hit]).abs()
-    check(bool((d <= 1e-6 * y[hit].abs()).all()),
-          f"{name}: beyond 1e-6 relative")
-    return float(d.max()) if d.numel() else 0.0
-
-
-def shade_err(k, p, name: str) -> tuple[float, int]:
-    """Hold a shading kernel's planes ``k`` (t, slot, u, v, attributes)
-    against its plain version's ``p``: slots equal, t/u/v within 1e-6
-    relative on hits, attributes within 1e-5.  Returns the largest
-    absolute error and the number of hit rays."""
-    import torch
-
-    check(torch.equal(k[1], p[1]), f"{name}: slots differ from plain: "
-          f"{int((k[1] != p[1]).sum())} rays")
-    hit = p[0] < float(3.4028234663852886e38)
-    err = max(rel_err_on_hits(k[i], p[i], hit, f"{name} plane {i}")
-              for i in (0, 2, 3))  # t, u, v
-    for i in range(4, len(p)):
-        d = float((k[i] - p[i]).abs().max())
-        check(d <= 1e-5, f"{name} plane {i}: max abs err {d}")
-        err = max(err, d)
-    return err, int(hit.sum())
-
-
 def occlusion_err(k, p, name: str) -> float:
     """Require an any-hit kernel's mask ``k`` equal to its plain version's
     ``p``; returns the largest difference (0)."""
@@ -440,9 +420,9 @@ def bits_equal(x, y) -> bool:
 
 def closest_err(k, p, name: str) -> tuple[int, int]:
     """Hold a split sweep's (t, u, v, slot) ``k`` against its plain
-    version's ``p`` (kernel C, and C's epilogue over F's sweep): slots
-    equal, t/u/v bit-equal.  Returns the number of hit rays and of hits
-    at a negative t."""
+    version's ``p`` (kernel C, C's epilogue over F's sweep, and A's and
+    F's first planes): slots equal, t/u/v bit-equal.  Returns the number
+    of hit rays and of hits at a negative t."""
     import torch
 
     check(torch.equal(k[3], p[3]), f"{name}: slots differ from plain: "
@@ -454,11 +434,11 @@ def closest_err(k, p, name: str) -> tuple[int, int]:
     return int(hit.sum()), int((hit & (p[0] < 0)).sum())
 
 
-def general_err(k, p, name: str) -> tuple[float, int, int]:
-    """Hold kernel F's planes ``k`` (t, slot, u, v, attributes) against
-    its plain version's ``p``: `closest_err` on t, u, v and slot, the
-    attributes within 1e-5.  Returns the largest attribute error, the
-    hit rays and the hits at a negative t."""
+def shade_err(k, p, name: str) -> tuple[float, int, int]:
+    """Hold a shading kernel's planes ``k`` (t, slot, u, v, attributes;
+    kernels A and F) against its plain version's ``p``: `closest_err` on
+    t, u, v and slot, the attributes within 1e-5.  Returns the largest
+    attribute error, the hit rays and the hits at a negative t."""
     hits, negative = closest_err((k[0], k[2], k[3], k[1]),
                                  (p[0], p[2], p[3], p[1]), name)
     err = 0.0
@@ -470,9 +450,9 @@ def general_err(k, p, name: str) -> tuple[float, int, int]:
 
 
 def split_stats(lists, k: int, rays_per_tile: int, active=None):
-    """A split sweep's work on these lists at K = ``k`` (kernels C and F):
-    the real work items, and the mean active lanes of the warps that
-    test (every ray of C's tiles; F's active rays, packed into the
+    """A split sweep's work on these lists at K = ``k``: the real work
+    items, and the mean active lanes of the warps that test (every ray of
+    A's and C's tiles; B's, F's and H's active rays, packed into the
     leading lanes)."""
     import torch
 
@@ -484,11 +464,11 @@ def split_stats(lists, k: int, rays_per_tile: int, active=None):
     return int(per_tile.sum()), lane_sum / warps if warps else 0.0
 
 
-#: The kernels of the split C entries, by the profiler's names: C's and
-#: F's key fill and two passes, H's flag clear and pass (`csrc/sweep.cu`),
-#: E's key fill and two passes (`csrc/brute.cu`).
+#: The kernels of the split C entries, by the profiler's names: A's, C's
+#: and F's key fill and two passes, B's and H's flag clear and pass
+#: (`csrc/sweep.cu`), E's key fill and two passes (`csrc/brute.cu`).
 SPLIT_KERNELS = ("fill_keys_kernel", "sweep_items_kernel",
-                 "closest_epilogue_kernel", "general_epilogue_kernel",
+                 "closest_epilogue_kernel", "shade_epilogue_kernel",
                  "clear_flags_kernel", "occlusion_items_kernel",
                  "brute_items_kernel", "brute_epilogue_kernel")
 
@@ -836,13 +816,13 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     ph = sweep._occlusion_rows_plain(*h_args)
     sync()
     h_err = occlusion_err(kh, ph, "kernel H")
-    h_items, h_lanes = split_stats(h_args[0], sweep.OCCLUSION_CHUNK,
+    h_items, h_lanes = split_stats(h_args[0], sweep.OCCLUSION_ROWS_CHUNK,
                                    h_args[2].shape[1], h_args[3])
     print(f"kernel H matches plain: {int(ph.sum())} occluded of "
           f"{int(h_args[3].sum())} active shadow rays in "
           f"{int(h_args[3].any(dim=1).sum())} tiles; {h_items} work items "
-          f"at K = {sweep.OCCLUSION_CHUNK}, {h_lanes:.2f} active lanes per "
-          f"warp")
+          f"at K = {sweep.OCCLUSION_ROWS_CHUNK}, {h_lanes:.2f} active lanes "
+          f"per warp")
     check(int(ph.sum()) > 0, "no shadow ray is occluded")
     h_serial, h_occluded = serial_anyhit_tests(*h_args)
     check(h_occluded == int(ph.sum()), "serial any-hit count: "
@@ -866,7 +846,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     bundle_checks(dev, data, accel, eye, orient, config)
     clock.done("10c (ray bundles)")
     occlusion_cases(dev, accel, config)
-    clock.done("10d (H synthetic cases)")
+    clock.done("10d (H and B synthetic cases)")
 
     # 11. The grad step (and a shadowed render) with the plain versions.
     plain = PlainOnCard({
@@ -968,16 +948,15 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
           f"{ms_text(c_queued_ms)}")
     c_k = k_sweep(sweep, "PRIMARY_CHUNK", (1, 2, 4, 8, 16), kernel_c, 20,
                   c_args[0], c_args[2].shape[1])
-    print(f"kernel C by K (events, ms per launch): {c_k}")
+    print(f"kernel C by K ({K_SWEEP_FIELDS}): {c_k}")
     h_device_ms, h_glue_ms = split_device_ms(kernel_h, 20)
     h_queued_ms = time_queued(kernel_h, 10)
     print(f"kernel H: {times['H'][0]:.4f} ms per launch, device (the flag "
           f"clear and the pass) {ms_text(h_device_ms)}, the split's PyTorch "
           f"kernels {ms_text(h_glue_ms)}, host hidden {ms_text(h_queued_ms)}")
-    h_k = k_sweep(sweep, "OCCLUSION_CHUNK", (2, 4, 8, 16, 32), kernel_h, 20,
-                  h_args[0], h_args[2].shape[1], h_args[3])
-    print(f"kernel H by K (events, ms per launch, work items, active lanes "
-          f"per warp): {h_k}")
+    h_k = k_sweep(sweep, "OCCLUSION_ROWS_CHUNK", (1, 2, 4, 8, 16, 32),
+                  kernel_h, 20, h_args[0], h_args[2].shape[1], h_args[3])
+    print(f"kernel H by K ({K_SWEEP_FIELDS}): {h_k}")
     # G and its yardsticks on each of the backward's calls: event time and
     # profiler device time.  `index_add_` alone (the one PyTorch call, on
     # an output zeroed once, which accumulates over the calls) and
@@ -1150,21 +1129,52 @@ def kernel_registers(log: str) -> dict:
     return regs
 
 
+#: What each entry of a `k_sweep` holds.
+K_SWEEP_FIELDS = ("events ms per launch, device ms (the C entry's kernels), "
+                  "work items, active lanes per warp")
+
+
 def k_sweep(sweep, name: str, ks, fn, iters: int, lists, rays_per_tile,
             active=None) -> dict:
-    """``fn``'s event time (ms per call) with `sweep`'s chunk constant
-    ``name`` (K) at each of ``ks``, with the work items and active lanes
-    per warp at each; the constant is put back."""
+    """``fn`` with `sweep`'s chunk constant ``name`` (K) at each of ``ks``:
+    its event time and its device time (`split_device_ms`; None when the
+    profiler records nothing), both ms per call, with the work items and
+    active lanes per warp; the constant is put back.  K changes what the
+    card does, so the device time is the one that chooses it."""
     keep = getattr(sweep, name)
     out = {}
     try:
         for k in ks:
             setattr(sweep, name, k)
             items, lanes = split_stats(lists, k, rays_per_tile, active)
-            out[k] = (round(time_cuda(fn, iters), 4), items, round(lanes, 2))
+            device_ms, _ = split_device_ms(fn, iters)
+            out[k] = (round(time_cuda(fn, iters), 4),
+                      None if device_ms is None else round(device_ms, 4),
+                      items, round(lanes, 2))
     finally:
         setattr(sweep, name, keep)
     return out
+
+
+def split_chunk_report(sweep, where: str, kernel_a, kernel_b, a_args,
+                       b_args, iters: int) -> tuple:
+    """Kernels A and B on one frame's inputs: their device times (the C
+    entries' kernels, and the work-item split's PyTorch kernels apart),
+    and their event and device times at K = 1 to 16 clusters per work
+    item.  Returns A's and B's device times."""
+    out = []
+    for name, fn, const, ks, args, active in (
+            ("A", kernel_a, "SHADE_CHUNK", (1, 2, 4, 8, 16), a_args, None),
+            ("B", kernel_b, "OCCLUSION_CHUNK", (1, 2, 4, 8, 16), b_args,
+             b_args[3])):
+        device_ms, glue_ms = split_device_ms(fn, iters)
+        by_k = k_sweep(sweep, const, ks, fn, iters, args[0],
+                       args[2].shape[2], active)
+        print(f"kernel {name} ({where}): device (its C entry's kernels) "
+              f"{ms_text(device_ms)}, the split's PyTorch kernels "
+              f"{ms_text(glue_ms)}; by K ({K_SWEEP_FIELDS}): {by_k}")
+        out.append(device_ms)
+    return tuple(out)
 
 
 def sorted_g_checks(dev, g_calls) -> None:
@@ -1300,13 +1310,13 @@ def bundle_checks(dev, data, accel, eye, orient, config,
 
 
 def occlusion_cases(dev, accel, config) -> None:
-    """Phase 10d: kernel H on synthetic inputs over config 4's clusters,
-    held against its plain version (masks equal) at K = 1, the default
-    and 32: a tile that lists every cluster with 255 rays inside the
-    armadillo stand-in and one free ray, beside a tile with no active
-    ray; rays that only a triangle of their list's last cluster (the last
-    work item) occludes; 9x9 tiles (R = 81, not a multiple of 32) over
-    random lists."""
+    """Phase 10d: kernels H and B (B on the same origins, planar) on
+    synthetic inputs over config 4's clusters, held against their plain
+    version (masks equal) at K = 1, the default and 32: a tile that
+    lists every cluster with 255 rays inside the armadillo stand-in and
+    one free ray, beside a tile with no active ray; rays that only a
+    triangle of their list's last cluster (the last work item) occludes;
+    9x9 tiles (R = 81, not a multiple of 32) over random lists."""
     import numpy as np
     import torch
 
@@ -1371,31 +1381,36 @@ def occlusion_cases(dev, accel, config) -> None:
     cases["ragged_9x9"] = (lists_of(rng.random((6, c)) < 0.3),
                            tensor(lo + rng.random((6, 81, 3)) * (hi - lo)),
                            tensor(rng.random((6, 81)) < 0.7, torch.bool))
-    keep = sweep.OCCLUSION_CHUNK
+    keep = (sweep.OCCLUSION_CHUNK, sweep.OCCLUSION_ROWS_CHUNK)
+    ks = sorted({1, *keep, 32})
     try:
         for name, (lst, o, act, *l_dir) in cases.items():
             ld = l_dir[0] if l_dir else light
             args = (lst, ld, o, act, geom, t_eps)
+            planar = (lst, ld, o.transpose(1, 2).contiguous(), act, geom,
+                      t_eps)
             p = sweep._occlusion_rows_plain(*args)
-            for k in sorted({1, keep, 32}):
-                sweep.OCCLUSION_CHUNK = k
+            for k in ks:
+                sweep.OCCLUSION_CHUNK = sweep.OCCLUSION_ROWS_CHUNK = k
                 occlusion_err(sweep._occlusion_rows_cuda(*args), p,
                               f"kernel H ({name}, K = {k})")
-            sweep.OCCLUSION_CHUNK = keep
+                occlusion_err(sweep._occlusion_cuda(*planar), p,
+                              f"kernel B ({name}, K = {k})")
+            sweep.OCCLUSION_CHUNK, sweep.OCCLUSION_ROWS_CHUNK = keep
             if name == "every_cluster_one_free":
                 check(not bool(p[0, 100]) and int(p[0].sum()) >= 250
                       and not bool(p[1].any()),
                       f"{name}: {int(p[0].sum())} occluded in tile 0")
             if name == "last_item_only":
                 check(bool(p[act].all()), f"{name}: a kept ray is free")
-            items, lanes = split_stats(lst, keep, o.shape[1], act)
+            items, lanes = split_stats(lst, keep[1], o.shape[1], act)
             print(f"kernel H case {name}: {int(p.sum())} occluded of "
                   f"{int(act.sum())} active rays, R = {o.shape[1]}, "
                   f"{int(lst.counts.max())} clusters in the longest list, "
-                  f"{items} work items at K = {keep}; equal to plain at K = "
-                  f"{sorted({1, keep, 32})}")
+                  f"{items} work items at H's K = {keep[1]}; H and B "
+                  f"(planar origins) equal to plain at K = {ks}")
     finally:
-        sweep.OCCLUSION_CHUNK = keep
+        sweep.OCCLUSION_CHUNK, sweep.OCCLUSION_ROWS_CHUNK = keep
 
 
 def config2_scene(dev, size, suzanne_faces):
@@ -1857,19 +1872,20 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
     check(a_args[5], "config 5: kernel A ran without reflectivity")
     ka = sweep._primary_shade_cuda(*a_args)
     pa, a_plain_ms = time_once(lambda: sweep._primary_shade_plain(*a_args))
-    a_err, a_hits = shade_err(ka, pa, "kernel A (config 5)")
+    a_err, a_hits, _ = shade_err(ka, pa, "kernel A (config 5)")
     kb = sweep._occlusion_cuda(*b_args)
     pb, b_plain_ms = time_once(lambda: sweep._occlusion_plain(*b_args))
     b_err = occlusion_err(kb, pb, "kernel B (config 5)")
     print(f"kernel A (with reflectivity) matches plain on config 5: {a_hits} "
-          f"hit rays, max abs err {a_err:.3g}; kernel B matches plain: "
-          f"{int(pb.sum())} shadowed of {int(b_args[3].sum())} active rays")
+          f"hit rays, t/u/v bit-equal, attributes max abs err {a_err:.3g}; "
+          f"kernel B matches plain: {int(pb.sum())} shadowed of "
+          f"{int(b_args[3].sum())} active rays")
     f_err = 0.0
     for b, args in enumerate(rec_f.calls["_general_shade_cuda"]):
         kf = bounce_sweep._general_shade_cuda(*args)
         pf, plain_ms = time_once(
             lambda a=args: bounce_sweep._general_shade_plain(*a))
-        err, f_hits, _ = general_err(kf, pf, f"kernel F (bounce {b + 1})")
+        err, f_hits, _ = shade_err(kf, pf, f"kernel F (bounce {b + 1})")
         f_err = max(f_err, err)
         if b == 0:
             f_plain_ms = plain_ms
@@ -1877,8 +1893,9 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
               f"rays, t/u/v bit-equal, attributes max abs err {err:.3g}")
     f_args = rec_f.calls["_general_shade_cuda"][0]
     clock.done("19 (A, B, F vs plain)")
-    f_err = max(f_err, split_sweep_cases(dev, accel, data, eye, config))
-    clock.done("19b (C and F synthetic cases)")
+    case_a_err, case_f_err = split_sweep_cases(dev, accel, data, eye, config)
+    a_err, f_err = max(a_err, case_a_err), max(f_err, case_f_err)
+    clock.done("19b (C, A and F synthetic cases)")
 
     # 20. The cluster route against the brute-force route at a reduced
     # size (the JAX package's bar for its kernel route, test_bounce.py:192).
@@ -1937,10 +1954,18 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
         f_k = k_sweep(sweep, "GENERAL_CHUNK", (4, 8, 16, 32, 64),
                       lambda a=args: bounce_sweep._general_shade_cuda(*a), 5,
                       args[0], args[3].shape[1], args[3])
-        print(f"kernel F (bounce {b + 1}) by K (events, ms per launch, work "
-              f"items, active lanes per warp): {f_k}")
-    a_ms = time_cuda(lambda: sweep._primary_shade_cuda(*a_args), 20)
-    b_ms = time_cuda(lambda: sweep._occlusion_cuda(*b_args), 20)
+        print(f"kernel F (bounce {b + 1}) by K ({K_SWEEP_FIELDS}): {f_k}")
+
+    def kernel_a():
+        return sweep._primary_shade_cuda(*a_args)
+
+    def kernel_b():
+        return sweep._occlusion_cuda(*b_args)
+
+    a_ms = time_cuda(kernel_a, 20)
+    b_ms = time_cuda(kernel_b, 20)
+    split_chunk_report(sweep, "config 5", kernel_a, kernel_b, a_args, b_args,
+                       20)
     tp = config.trace.dense_tile_px
     pdirs, hp, wp = pad_frame(dirs, height, width, tp)
     blocks, has_uv = sweep.shade_segment_blocks(accel, data)
@@ -1976,15 +2001,16 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
                         "occlusion": (launches["occlusion"], b_err)}
 
 
-def split_sweep_cases(dev, accel, data, eye, config) -> float:
-    """Phase 19b: kernels C and F on synthetic inputs over config 5's
+def split_sweep_cases(dev, accel, data, eye, config) -> tuple:
+    """Phase 19b: kernels C, A and F on synthetic inputs over config 5's
     clusters, each held against its plain version (slots equal, t/u/v
-    bit-equal, F's attributes within 1e-5): one tile that lists every
-    cluster (and one that lists none); an exact tie, one triangle copied
-    into the last cluster, a work item away, where the earlier slot must
-    win; ``clip_backward_hits=False`` with the origin inside a mesh, where
-    hits at a negative t win; for F, a bounce with one active ray.
-    Returns F's largest attribute error."""
+    bit-equal, A's and F's attributes within 1e-5; A with and without
+    reflectivity on every case with a common origin): one tile that lists
+    every cluster (and one that lists none); an exact tie, one triangle
+    copied into the last cluster, a work item away, where the earlier
+    slot must win; ``clip_backward_hits=False`` with the origin inside a
+    mesh, where hits at a negative t win; for F, a bounce with one active
+    ray.  Returns A's and F's largest attribute errors."""
     import numpy as np
     import torch
 
@@ -2048,7 +2074,7 @@ def split_sweep_cases(dev, accel, data, eye, config) -> float:
     cases["one_active_ray"] = (one, jitter(eye.expand(r, 3), r, 0.01),
                                on_triangles(r) - eye, geom, shade, t_eps,
                                single)
-    worst = 0.0
+    worst_a = worst_f = 0.0
     for name, (lst, o, d, gm, sh, te, act) in cases.items():
         num_tiles = lst.counts.numel()
         d_tiles = d.reshape(num_tiles, r, 3).contiguous()
@@ -2059,7 +2085,20 @@ def split_sweep_cases(dev, accel, data, eye, config) -> float:
             pc = sweep._primary_plain(*args)
             hits, negative = closest_err(kc, pc, f"kernel C ({name})")
             checked.append(f"C {hits} hits, {negative} at t < 0")
-            won = pc[3]
+            # A with reflectivity against plain, and without it against
+            # the same planes but the last.
+            d3 = d_tiles.transpose(1, 2).contiguous()
+            aargs = (lst, o[0].contiguous(), d3, sh, has_uv)
+            pa = sweep._primary_shade_plain(*aargs, True, te)
+            for refl in (True, False):
+                ka = sweep._primary_shade_cuda(*aargs, refl, te, gm)
+                err, hits, negative = shade_err(
+                    ka, pa if refl else pa[:-1],
+                    f"kernel A ({name}, with_refl={refl})")
+                worst_a = max(worst_a, err)
+            checked.append(f"A {hits} hits, {negative} at t < 0, with and "
+                           "without reflectivity")
+            won = torch.cat([pc[3].reshape(-1), pa[1].reshape(-1)])
         active = act if act is not None else torch.rand(
             (num_tiles, r), generator=torch.Generator(dev).manual_seed(3),
             device=dev) < 0.9
@@ -2068,8 +2107,8 @@ def split_sweep_cases(dev, accel, data, eye, config) -> float:
                  te, gm)
         kf = sweep._general_shade_cuda(*fargs)
         pf = sweep._general_shade_plain(*fargs)
-        err, hits, negative = general_err(kf, pf, f"kernel F ({name})")
-        worst = max(worst, err)
+        err, hits, negative = shade_err(kf, pf, f"kernel F ({name})")
+        worst_f = max(worst_f, err)
         checked.append(f"F {hits} hits of {int(active.sum())} active rays, "
                        f"{negative} at t < 0")
         if act is None:
@@ -2087,7 +2126,7 @@ def split_sweep_cases(dev, accel, data, eye, config) -> float:
                   "one_active_ray: inactive rays hit")
         print(f"split sweep case {name}: {'; '.join(checked)}; equal to "
               f"plain (t/u/v bit-equal)")
-    return worst
+    return worst_a, worst_f
 
 
 def gradient_reference(size: int):
@@ -2453,15 +2492,22 @@ def main() -> None:
     ka = sweep._primary_shade_cuda(*a_args)
     pa = sweep._primary_shade_plain(*a_args)
     torch.cuda.synchronize()
-    a_err, hits = shade_err(ka, pa, "kernel A")
+    a_err, hits, _ = shade_err(ka, pa, "kernel A")
     kb = sweep._occlusion_cuda(*b_args)
     pb = sweep._occlusion_plain(*b_args)
     torch.cuda.synchronize()
     b_err = occlusion_err(kb, pb, "kernel B")
     shadowed = int(pb.sum())
-    print(f"kernel A matches plain: {hits} hit rays, max abs err {a_err:.3g}")
+    a_items, _ = split_stats(lists, sweep.SHADE_CHUNK, a_args[2].shape[2])
+    b_items, b_lanes = split_stats(b_args[0], sweep.OCCLUSION_CHUNK,
+                                   b_args[2].shape[2], b_args[3])
+    print(f"kernel A matches plain: {hits} hit rays, t/u/v bit-equal, "
+          f"attributes max abs err {a_err:.3g}; {a_items} work items at K = "
+          f"{sweep.SHADE_CHUNK}")
     print(f"kernel B matches plain: {shadowed} shadowed of "
-          f"{int(b_args[3].sum())} active shadow rays")
+          f"{int(b_args[3].sum())} active shadow rays in "
+          f"{int(b_args[3].any(dim=1).sum())} tiles; {b_items} work items at "
+          f"K = {sweep.OCCLUSION_CHUNK}, {b_lanes:.2f} active lanes per warp")
     check(hits > 0, "no primary ray hit the scene")
     check(shadowed > 0, "no pixel is in shadow")
 
@@ -2488,10 +2534,19 @@ def main() -> None:
     clock.done("5 (plain frame)")
 
     # 6. Timing.
-    frame_ms = time_cuda(lambda: renderer.render(eye, orient, rays), FRAMES)
-    a_ms = time_cuda(lambda: sweep._primary_shade_cuda(*a_args), 20)
+    def render():
+        return renderer.render(eye, orient, rays)
+
+    def kernel_a():
+        return sweep._primary_shade_cuda(*a_args)
+
+    def kernel_b():
+        return sweep._occlusion_cuda(*b_args)
+
+    frame_ms = time_cuda(render, FRAMES)
+    a_ms = time_cuda(kernel_a, 20)
     a_plain_ms = time_cuda(lambda: sweep._primary_shade_plain(*a_args), 5)
-    b_ms = time_cuda(lambda: sweep._occlusion_cuda(*b_args), 20)
+    b_ms = time_cuda(kernel_b, 20)
     b_plain_ms = time_cuda(lambda: sweep._occlusion_plain(*b_args), 5)
     px = SIZE * SIZE
     cast = px + int(b_args[3].sum())  # primary rays + cast shadow rays
@@ -2511,6 +2566,16 @@ def main() -> None:
     c1_kernels, c1_clear = fill_path(dev, clock, card)
     app = app_path(dev, clock, card)
 
+    # 29. The bench frame's device times, and A's and B's with their K
+    # sweeps: last, so that no profiler session runs before the config-4
+    # steps that phase 13 times by events.
+    frame_device_ms = device_time(render, 10)
+    print(f"bench frame (kernel path) on the card: "
+          f"{ms_text(frame_device_ms)} (every activity summed)")
+    a_device_ms, b_device_ms = split_chunk_report(
+        sweep, "bench frame", kernel_a, kernel_b, a_args, b_args, 20)
+    clock.done("29 (bench frame device times)")
+
     # Bounds of A and B on the bench frame's inputs, where their times are
     # taken (config 5's are printed above).
     a_tests = sweep_tests(lists, a_args[2].shape[2], a_args[3].shape[1])
@@ -2527,13 +2592,15 @@ def main() -> None:
                       launches["primary_shade"] + c5_ab["primary_shade"][0]
                       + app["primary_shade"],
                       max(a_err, c5_ab["primary_shade"][1]), a_ms, a_plain_ms,
-                      bound(a_tests * MT_OPS, nbytes(a_args, ka))),
+                      bound(a_tests * MT_OPS, nbytes(a_args, ka)),
+                      device_ms=a_device_ms),
         kernel_record("occlusion", src,
                       "raytracercuda_tpu/trace/pallas_sweep.py:870",
                       launches["occlusion"] + c5_ab["occlusion"][0]
                       + app["occlusion"], max(b_err, c5_ab["occlusion"][1]),
                       b_ms, b_plain_ms,
-                      bound(b_tests * MT_OPS, nbytes(b_args) + 4 * pb.numel())),
+                      bound(b_tests * MT_OPS, nbytes(b_args, kb)),
+                      device_ms=b_device_ms),
         *c4_kernels,
         kernel_record("clear", "raytracercuda_torch/csrc/frame.cu",
                       "raytracercuda_tpu/ops/clear.py:21",

@@ -30,7 +30,7 @@ class ClusterSet(NamedTuple):
     #: [C*L] int64 — original face id per sorted slot (-1 for padding).
     face_order: torch.Tensor
     #: [C, L, 9] float32 or None — v0 | e1 | e2 rows (e = v - v0), the
-    #: geometry-only operand of kernels C and H (`sweep.segment_blocks`),
+    #: geometry operand of every tile sweep (`sweep.segment_blocks`),
     #: cached at build time so frames never rebuild it.
     tri_blocks: Optional[torch.Tensor] = None
     #: [F] int64 or None — inverse of ``face_order``: original face id ->

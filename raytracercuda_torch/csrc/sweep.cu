@@ -1,27 +1,28 @@
 // Kernels A, B, C, F and H of the tile sweep, for Hopper (sm_90a), with a
 // plain C interface loaded through ctypes (`ops/cuda_build.py`).
 //
-// A, `primary_shade_kernel`, replaces `_primary_shade_kernel` in
-//   raytracercuda_tpu/trace/pallas_sweep.py: per 16x16 pixel tile, the
-//   closest hit of each ray from the common eye over the tile's listed
+// A, `sweep_items_kernel<false, true>` + `shade_epilogue_kernel<false>`,
+//   replaces `_primary_shade_kernel` in raytracercuda_tpu/trace/
+//   pallas_sweep.py: per 16x16 pixel tile, the closest hit of each ray from
+//   the common eye (planar [T, 3, R] directions) over the tile's listed
 //   128-triangle clusters, and the winner's interpolated normal, albedo,
-//   texture id, uv and reflectivity.
-// F, `sweep_items_kernel<true, true>` + `general_epilogue_kernel`,
+//   texture id, uv and, when asked, reflectivity.
+// F, `sweep_items_kernel<true, true>` + `shade_epilogue_kernel<true>`,
 //   replaces `_general_shade_kernel` in raytracercuda_tpu/trace/
 //   pallas_bounce.py: A with per-ray origins (planar [T, 3, R]) and an
 //   activity mask [T, R], always with reflectivity; inactive rays write
 //   the miss defaults.
-// B, `occlusion_kernel`, replaces `_occlusion_cols_kernel` in
+// C, `sweep_items_kernel<false, false>` + `closest_epilogue_kernel<false,
+//   false>`, replaces `_primary_kernel` in pallas_sweep.py: A's sweep
+//   without the attributes, on row-major [T, R, 3] directions; writes t,
+//   u, v and the winning slot for the differentiable route.  Its epilogue
+//   over F's sweep (`rt_closest_rays`) traces ray bundles that are not a
+//   pinhole frame.
+// B, `occlusion_items_kernel<false>`, replaces `_occlusion_cols_kernel` in
 //   pallas_sweep.py: any hit along one light direction from each active
 //   ray's origin (planar [T, 3, R] origins).
-// C, `sweep_items_kernel<false, false>` + `closest_epilogue_kernel<false,
-//   false>`, replaces `_primary_kernel` in the same file: A's sweep without
-//   the attribute epilogue, on row-major [T, R, 3] directions; writes t, u,
-//   v and the winning slot for the differentiable route.  Its epilogue over
-//   F's sweep (`rt_closest_rays`) traces ray bundles that are not a pinhole
-//   frame.
 // H, `occlusion_items_kernel<true>`, replaces `_occlusion_kernel` in the
-//   same file: B on row-major [T, R, 3] origins and geometry-only rows.
+//   same file: B on row-major [T, R, 3] origins.
 //
 // What bounds them on the H100: the Moller-Trumbore loop, about 40 FP32
 // operations and one IEEE division per ray-triangle pair, with each
@@ -30,46 +31,37 @@
 // pipes and by how evenly the work fills the 132 SMs, not by bytes from
 // device memory.
 //
-// A and B keep the TPU's grid shape: one block per tile, one thread per
-// ray, a loop over the tile's whole list.  The block copies each listed
-// cluster's v0|e1|e2 columns into shared memory (structure of arrays, so a
-// warp reads one broadcast word per operand) and every thread scans the
-// cluster's triangles in slot order.  A strict `<` over ascending
-// (cluster, slot) picks exactly the JAX kernel's winner: there, the first
-// minimum wins inside a cluster and clusters combine with a strict `<`.
-// B lets a thread stop at its first hit and the block leave the list when
-// every thread is done.
-//
-// C, F and H split each tile's list over many blocks, because one long
-// list set the kernel's time (a reflected tile of config 5 lists all 4,027
+// Each splits every tile's list over many blocks, because one long list
+// set the kernel's time (a reflected tile of config 5 lists all 4,027
 // clusters) and the hundred or so tiles that list clusters cannot fill the
-// card (config 4).  `sweep.split_lists` cuts the lists into work items of
-// at most K consecutive clusters; pass 1 runs one block per item.  The
-// block stages one cluster at a time, double-buffered with cp.async, as
-// [g][12] rows (v0|e1|e2 and three pad floats, three 16-byte loads a
-// triangle) from the 36-byte geometry rows [C, g, 9], and tests its tile's
-// rays against it.  F and H first pack the tile's active rays into the
-// leading lanes (a ballot and a prefix), so that a warp with no active ray
-// tests nothing, and an item whose tile has no active ray leaves before it
-// stages anything.
+// card (the bench frame, config 4).  `sweep.split_lists` cuts the lists
+// into work items of at most K consecutive clusters; pass 1 runs one block
+// per item.  The block stages one cluster at a time, double-buffered with
+// cp.async, as [g][12] rows (v0|e1|e2 and three pad floats, three 16-byte
+// loads a triangle) from the 36-byte geometry rows [C, g, 9], and tests
+// its tile's rays against it.  B, F and H first pack the tile's active
+// rays into the leading lanes (a ballot and a prefix), so that a warp with
+// no active ray tests nothing, and an item whose tile has no active ray
+// leaves before it stages anything.
 //
-// C and F (`sweep_items_kernel`) keep each ray's closest hit over the item
-// with the strict `<` and merge it with one 64-bit atomicMin on (ordered
-// t, slot) (`hit_key.cuh`): the smallest t wins and, among equal t, the
-// smallest slot, which is the first in ascending (cluster, slot) order
-// since lists ascend and slot = cluster * g + j.  Pass 2, one thread per
-// ray, decodes the key and re-runs the same `mt_tri` on the winning
-// triangle, so t, u and v are bit-equal to the sweep's; F then
-// interpolates the winner's attributes as A does.
+// A, C and F (`sweep_items_kernel`) keep each ray's closest hit over the
+// item with a strict `<` and merge it with one 64-bit atomicMin on
+// (ordered t, slot) (`hit_key.cuh`): the smallest t wins and, among equal
+// t, the smallest slot, which is the first in ascending (cluster, slot)
+// order since lists ascend and slot = cluster * g + j.  That is the JAX
+// kernels' winner: there, the first minimum wins inside a cluster and
+// clusters combine with a strict `<`.  Pass 2, one thread per ray, decodes
+// the key and re-runs the same `mt_tri` on the winning triangle, so t, u
+// and v are bit-equal to the sweep's; A and F then interpolate the
+// winner's attributes from its shade row [C, g, 32].
 //
-// H (`occlusion_items_kernel`) needs no second pass: its result is an OR
-// over the items.  The C entry clears the flags, then a lane stops at its
-// ray's first hit and stores the flag (a plain store: every writer writes
-// the same 1).  A ray that another item has already flagged is not packed,
-// and a lane re-reads its flag at each cluster, so a ray stops testing
-// once any item finds its hit; the block leaves its item when every lane
-// is done.  The body is a template over the origin layout, so that B's
-// planar origins can take it by instantiation.
+// B and H (`occlusion_items_kernel`) need no second pass: the result is an
+// OR over the items.  The C entry clears the flags, then a lane stops at
+// its ray's first hit and stores the flag (a plain store: every writer
+// writes the same 1).  A ray that another item has already flagged is not
+// packed, and a lane re-reads its flag at each cluster, so a ray stops
+// testing once any item finds its hit; the block leaves its item when
+// every lane is done.  The two differ only in the origins' layout.
 //
 // The library is built with -fmad=false and IEEE division, so each
 // expression rounds as in the plain PyTorch version.
@@ -82,23 +74,11 @@
 
 namespace {
 
-constexpr int kCols = 32;     // floats per shade-block row (A, B, F)
-constexpr int kGeomCols = 9;  // floats per geometry row (C, F, H)
-constexpr int kRowFloats = 12;  // floats per staged triangle (C, F)
+constexpr int kCols = 32;     // floats per shade-block row (A, F)
+constexpr int kGeomCols = 9;  // floats per geometry row (every sweep)
+constexpr int kRowFloats = 12;  // floats per staged triangle
 constexpr int kMaxRays = 1024;  // rays per tile a sweep block can take
 constexpr float kDetTiny = 1.1754944e-38f;
-
-// Copy cluster `c`'s v0|e1|e2 columns of the shade rows [C, g, 32] into
-// shared memory as [9][g] (A and B).
-__device__ __forceinline__ void load_cluster(float* s, const float* blocks,
-                                             int c, int g) {
-  const float* blk = blocks + static_cast<size_t>(c) * g * kCols;
-  for (int e = threadIdx.x; e < 9 * g; e += blockDim.x) {
-    const int j = e / 9;
-    const int k = e - j * 9;
-    s[k * g + j] = blk[j * kCols + k];
-  }
-}
 
 // Moller-Trumbore of one ray against the triangle v0|e1|e2, in the
 // operation order of `_mt_cols` (pallas_sweep.py:707-732).  Returns t,
@@ -128,16 +108,6 @@ __device__ __forceinline__ float mt_tri(float v0x, float v0y, float v0z,
   return miss ? kFltMax : t;
 }
 
-// `mt_tri` against slot j of the shared [9][g] cluster.
-__device__ __forceinline__ float mt(const float* s, int g, int j, float ox,
-                                    float oy, float oz, float dx, float dy,
-                                    float dz, bool use_eps, float t_eps,
-                                    float& u, float& v) {
-  return mt_tri(s[0 * g + j], s[1 * g + j], s[2 * g + j], s[3 * g + j],
-                s[4 * g + j], s[5 * g + j], s[6 * g + j], s[7 * g + j],
-                s[8 * g + j], ox, oy, oz, dx, dy, dz, use_eps, t_eps, u, v);
-}
-
 // `mt_tri` against a v0|e1|e2 row in device memory.
 __device__ __forceinline__ float mt_row(const float* w, float ox, float oy,
                                         float oz, float dx, float dy,
@@ -145,39 +115,6 @@ __device__ __forceinline__ float mt_row(const float* w, float ox, float oy,
                                         float& u, float& v) {
   return mt_tri(w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], ox,
                 oy, oz, dx, dy, dz, use_eps, t_eps, u, v);
-}
-
-// Closest hit of one ray over its tile's listed clusters: ascending
-// (cluster, slot), strict `<`.  Every thread of the block must call it (it
-// holds the block's barriers).  On a miss bt stays FLT_MAX, bs 0, bu = bv
-// = 0.
-__device__ __forceinline__ void sweep_closest(
-    float* s, const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ blocks, int g, int tile, float ox,
-    float oy, float oz, float dx, float dy, float dz, bool use_eps,
-    float t_eps, float& bt, float& bu, float& bv, int& bs) {
-  bt = kFltMax;
-  bu = 0.0f;
-  bv = 0.0f;
-  bs = 0;
-  const int end = offsets[tile + 1];
-  for (int r = offsets[tile]; r < end; ++r) {
-    const int c = ids[r];
-    __syncthreads();  // every thread is done with the previous cluster
-    load_cluster(s, blocks, c, g);
-    __syncthreads();
-    for (int j = 0; j < g; ++j) {
-      float u, v;
-      const float t = mt(s, g, j, ox, oy, oz, dx, dy, dz, use_eps, t_eps, u,
-                         v);
-      if (t < bt) {
-        bt = t;
-        bu = u;
-        bv = v;
-        bs = c * g + j;
-      }
-    }
-  }
 }
 
 // The winner's attribute planes 1.. of [n_f, T, R] at ray `o` (planes
@@ -211,37 +148,6 @@ __device__ __forceinline__ void write_attributes(
   }
   if (with_refl) p[k * plane] = w[28];
 }
-
-// Kernel A: the common eye [3], planar directions [T, 3, R].  Grid: one
-// block per tile; block: one thread per ray (blockDim.x = R).  out_f
-// planes [n_f, T, R]: t, u, v, nx, ny, nz, ar, ag, ab[, tex, tu, tv][,
-// refl]; out_slot [T, R].
-__global__ void primary_shade_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ eye, const float* __restrict__ dirs,
-    const float* __restrict__ blocks, int g, int has_uv, int with_refl,
-    int use_eps, float t_eps, float* __restrict__ out_f,
-    int* __restrict__ out_slot) {
-  extern __shared__ float s[];  // [9][g]
-  const int tile = blockIdx.x;
-  const int R = blockDim.x;
-  const int i = threadIdx.x;
-  const size_t o = static_cast<size_t>(tile) * R + i;
-  const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
-  float bt, bu, bv;
-  int bs;
-  sweep_closest(s, offsets, ids, blocks, g, tile, eye[0], eye[1], eye[2],
-                d[i], d[R + i], d[2 * R + i], use_eps != 0, t_eps, bt, bu,
-                bv, bs);
-  out_slot[o] = bs;
-  out_f[o] = bt;
-  write_attributes(out_f, static_cast<size_t>(gridDim.x) * R, o, bt, bu, bv,
-                   bs, blocks, has_uv, with_refl);
-}
-
-// ---------------------------------------------------------------------------
-// C, F and H: the split sweeps.
-// ---------------------------------------------------------------------------
 
 // Starts the copy of cluster `c`'s geometry rows [g, 9] into `s` as [g][12]
 // rows, 4-byte cp.async copies, and commits them as one group.
@@ -282,13 +188,14 @@ __device__ __forceinline__ int pack_rays(bool act, int* s_ray, int* s_warp,
   return i < n_act ? s_ray[i] : -1;
 }
 
-// Pass 1 of C and F.  Grid: one block per work item, items [3, num_items]
-// int32 rows (tile, first, end: list positions [first, end) of the tile's
-// CSR list, empty past the real item count); block: R threads, the tile's
-// rays.  kPerRay: planar per-ray origins [T, 3, R] and activity [T, R]
-// (F; active rays packed into the leading lanes), or the common eye [3]
-// (C).  kPlanar: directions planar [T, 3, R] (F) or row-major [T, R, 3]
-// (C).  Merges each ray's closest hit over the item into keys [T * R].
+// Pass 1 of A, C and F.  Grid: one block per work item, items [3,
+// num_items] int32 rows (tile, first, end: list positions [first, end) of
+// the tile's CSR list, empty past the real item count); block: R threads,
+// the tile's rays.  kPerRay: planar per-ray origins [T, 3, R] and activity
+// [T, R] (F; active rays packed into the leading lanes), or the common eye
+// [3] (A, C).  kPlanar: directions planar [T, 3, R] (A, F) or row-major
+// [T, R, 3] (C).  Merges each ray's closest hit over the item into keys
+// [T * R].
 template <bool kPerRay, bool kPlanar>
 __global__ void sweep_items_kernel(
     const int* __restrict__ items, int num_items, const int* __restrict__ ids,
@@ -440,24 +347,27 @@ __global__ void closest_epilogue_kernel(
   out_slot[o] = slot;
 }
 
-// Pass 2 of F: one thread per ray of [T, R]; planar origins and
-// directions; out_f planes [n_f, T, R] as kernel A's with reflectivity,
-// the attributes from shade rows [C, g, 32].
-__global__ void general_epilogue_kernel(
+// Pass 2 of A and F: one thread per ray of [T, R]; planar directions, and
+// the common eye [3] (A) or planar per-ray origins (F, kPerRay); out_f
+// planes [n_f, T, R]: t, u, v, nx, ny, nz, ar, ag, ab[, tex, tu, tv][,
+// refl], the attributes from shade rows [C, g, 32]; out_slot [T, R].
+template <bool kPerRay>
+__global__ void shade_epilogue_kernel(
     const unsigned long long* __restrict__ keys,
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ geom, const float* __restrict__ blocks,
-    long long num_rays, int R, int has_uv, int use_eps, float t_eps,
-    float* __restrict__ out_f, int* __restrict__ out_slot) {
+    long long num_rays, int R, int has_uv, int with_refl, int use_eps,
+    float t_eps, float* __restrict__ out_f, int* __restrict__ out_slot) {
   const long long o = rt::thread_index();
   if (o >= num_rays) return;
   float t, u, v;
   int slot;
-  decode_hit<true, true>(keys, origins, dirs, geom, o, R, use_eps, t_eps, t,
-                         u, v, slot);
+  decode_hit<kPerRay, true>(keys, origins, dirs, geom, o, R, use_eps, t_eps,
+                            t, u, v, slot);
   out_slot[o] = slot;
   out_f[o] = t;
-  write_attributes(out_f, num_rays, o, t, u, v, slot, blocks, has_uv, 1);
+  write_attributes(out_f, num_rays, o, t, u, v, slot, blocks, has_uv,
+                   with_refl);
 }
 
 // Fills the keys, then runs pass 1 over the items.
@@ -489,50 +399,7 @@ inline int ray_blocks(long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// B: one block per tile.
-// ---------------------------------------------------------------------------
-
-// Kernel B: any hit along `light` from each active ray's planar origin
-// [T, 3, R] over its tile's listed shade blocks [C, g, 32].  Grid: one
-// block per tile; block: one thread per ray.  occ [T, R] int32.
-__global__ void occlusion_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ ids,
-    const float* __restrict__ light, const float* __restrict__ origins,
-    const int* __restrict__ active, const float* __restrict__ blocks, int g,
-    float t_eps, int* __restrict__ occ) {
-  extern __shared__ float s[];  // [9][g]
-  const int tile = blockIdx.x;
-  const int R = blockDim.x;
-  const int i = threadIdx.x;
-  const float dx = light[0], dy = light[1], dz = light[2];
-  const size_t o = static_cast<size_t>(tile) * R + i;
-  const float* org = origins + static_cast<size_t>(tile) * 3 * R;
-  const float ox = org[i], oy = org[R + i], oz = org[2 * R + i];
-  const bool act = active[o] != 0;
-
-  bool hit = false;
-  const int end = offsets[tile + 1];
-  for (int r = offsets[tile]; r < end; ++r) {
-    // Also the barrier before the shared cluster is overwritten.
-    if (__syncthreads_and(hit || !act)) break;
-    load_cluster(s, blocks, ids[r], g);
-    __syncthreads();
-    if (act && !hit) {
-      for (int j = 0; j < g; ++j) {
-        float u, v;
-        if (mt(s, g, j, ox, oy, oz, dx, dy, dz, true, t_eps, u, v) <
-            kFltMax) {
-          hit = true;
-          break;
-        }
-      }
-    }
-  }
-  occ[o] = hit ? 1 : 0;
-}
-
-// ---------------------------------------------------------------------------
-// H: the split any-hit.
+// B and H: the split any-hit.
 // ---------------------------------------------------------------------------
 
 // flags[0, n) = 0.
@@ -541,15 +408,16 @@ __global__ void clear_flags_kernel(bool* __restrict__ flags, long long n) {
     flags[i] = false;
 }
 
-// Any hit along `light` over one work item (kernel H; B's planar origins
-// by instantiation).  Grid: one block per item, items [3, num_items] as in
-// `sweep_items_kernel`; block: the tile's R rays rounded up to a multiple
-// of 32 (lanes from R on hold no ray).  kRowMajor: origins [T, R, 3] (H)
-// or planar [T, 3, R].  active [T, R] bool; occ [T, R] bool, cleared
+// Any hit along `light` over one work item (kernels B and H).  Grid: one
+// block per item, items [3, num_items] as in `sweep_items_kernel`; block:
+// the tile's R rays rounded up to a multiple of 32 (lanes from R on hold
+// no ray).  kRowMajor: origins [T, R, 3] (H)
+// or planar [T, 3, R] (B).  active [T, R] bool; occ [T, R] bool, cleared
 // before the launch, set where an item finds a hit.  A ray takes part when
 // it is active and not yet flagged; its lane stops at its first hit, or
 // when another item has flagged it, and the block leaves the item once
-// every lane has stopped.  Each test is `mt_tri` with t_eps, as in B.
+// every lane has stopped.  Each test is `mt_tri` with t_eps, as in the
+// JAX kernels.
 template <bool kRowMajor>
 __global__ void occlusion_items_kernel(
     const int* __restrict__ items, int num_items, const int* __restrict__ ids,
@@ -627,27 +495,58 @@ __global__ void occlusion_items_kernel(
   __pipeline_wait_prior(0);  // no copy outlives the block
 }
 
+// Clears the flags, then runs the any-hit over the items.
+template <bool kRowMajor>
+cudaError_t launch_occlusion(const int* items, int num_items, const int* ids,
+                             const float* light, const float* origins,
+                             const bool* active, const float* geom,
+                             long long n, int R, int g, float t_eps,
+                             bool* occ, cudaStream_t stream) {
+  if (R > kMaxRays) return cudaErrorInvalidValue;
+  clear_flags_kernel<<<rt::card_grid(n), rt::kThreads, 0, stream>>>(occ, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_items == 0) return err;
+  const size_t smem = sizeof(float) * 2 * g * kRowFloats;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(occlusion_items_kernel<kRowMajor>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = (R + 31) / 32 * 32;
+  occlusion_items_kernel<kRowMajor><<<num_items, threads, smem, stream>>>(
+      items, num_items, ids, light, origins, active, geom, R, g, t_eps, occ);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each returns the first launch error (0 on success).  The split sweeps
-// (C, F, H, the ray bundles) take work items [3, num_items] int32 from
-// `sweep.split_lists`, the lists' ids and geometry rows [C, g, 9]; C, F
-// and the bundles also keys [T * R] of scratch.  R is at most 1024 and,
-// for F and the bundles, a multiple of 32.
+// Each returns the first launch error (0 on success).  Every sweep takes
+// work items [3, num_items] int32 from `sweep.split_lists`, the lists' ids
+// and geometry rows [C, g, 9]; A, C, F and the ray bundles also keys
+// [T * R] of scratch.  R is at most 1024 and, for F and the bundles, a
+// multiple of 32.
 
-int rt_primary_shade(const int* offsets, const int* ids, const float* eye,
-                     const float* dirs, const float* blocks, int num_tiles,
-                     int rays_per_tile, int g, int has_uv, int with_refl,
-                     int use_eps, float t_eps, float* out_f, int* out_slot,
-                     void* stream) {
-  if (num_tiles == 0) return 0;
-  const size_t smem = sizeof(float) * 9 * g;
-  primary_shade_kernel<<<num_tiles, rays_per_tile, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      offsets, ids, eye, dirs, blocks, g, has_uv, with_refl, use_eps, t_eps,
-      out_f, out_slot);
+// Kernel A: the common eye [3], planar directions [T, 3, R]; out_f
+// [n_f, T, R] with shade rows `blocks` [C, g, 32].
+int rt_primary_shade(const int* items, int num_items, const int* ids,
+                     const float* eye, const float* dirs, const float* geom,
+                     const float* blocks, int num_tiles, int rays_per_tile,
+                     int g, int has_uv, int with_refl, int use_eps,
+                     float t_eps, unsigned long long* keys, float* out_f,
+                     int* out_slot, void* stream) {
+  const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_sweep<false, true>(
+      items, num_items, ids, eye, dirs, nullptr, geom, n, rays_per_tile, g,
+      use_eps, t_eps, keys, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  shade_epilogue_kernel<false><<<ray_blocks(n), rt::kThreads, 0, s>>>(
+      keys, eye, dirs, geom, blocks, n, rays_per_tile, has_uv, with_refl,
+      use_eps, t_eps, out_f, out_slot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -667,22 +566,23 @@ int rt_general_shade(const int* items, int num_items, const int* ids,
       items, num_items, ids, origins, dirs, active, geom, n, rays_per_tile,
       g, use_eps, t_eps, keys, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  general_epilogue_kernel<<<ray_blocks(n), rt::kThreads, 0, s>>>(
-      keys, origins, dirs, geom, blocks, n, rays_per_tile, has_uv, use_eps,
-      t_eps, out_f, out_slot);
+  shade_epilogue_kernel<true><<<ray_blocks(n), rt::kThreads, 0, s>>>(
+      keys, origins, dirs, geom, blocks, n, rays_per_tile, has_uv, 1,
+      use_eps, t_eps, out_f, out_slot);
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_occlusion(const int* offsets, const int* ids, const float* light,
-                 const float* origins, const int* active,
-                 const float* blocks, int num_tiles, int rays_per_tile, int g,
-                 float t_eps, int* occ, void* stream) {
-  if (num_tiles == 0) return 0;
-  const size_t smem = sizeof(float) * 9 * g;
-  occlusion_kernel<<<num_tiles, rays_per_tile, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      offsets, ids, light, origins, active, blocks, g, t_eps, occ);
-  return static_cast<int>(cudaGetLastError());
+// Kernel B: planar origins [T, 3, R], activity [T, R] bool; occ [T, R]
+// bool.  R may be any count from 1 to 1024.
+int rt_occlusion(const int* items, int num_items, const int* ids,
+                 const float* light, const float* origins, const bool* active,
+                 const float* geom, int num_tiles, int rays_per_tile, int g,
+                 float t_eps, bool* occ, void* stream) {
+  const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
+  if (n == 0) return 0;
+  return static_cast<int>(launch_occlusion<false>(
+      items, num_items, ids, light, origins, active, geom, n, rays_per_tile,
+      g, t_eps, occ, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel C: the common eye [3], row-major directions [T, R, 3]; out_f
@@ -726,9 +626,7 @@ int rt_closest_rays(const int* items, int num_items, const int* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel H: work items [3, num_items] as for the split sweeps, row-major
-// origins [T, R, 3], activity [T, R] bool, geometry rows [C, g, 9]; occ
-// [T, R] bool.  R may be any count from 1 to 1024.
+// Kernel H: B on row-major origins [T, R, 3].
 int rt_occlusion_rows(const int* items, int num_items, const int* ids,
                       const float* light, const float* origins,
                       const bool* active, const float* geom, int num_tiles,
@@ -736,23 +634,9 @@ int rt_occlusion_rows(const int* items, int num_items, const int* ids,
                       void* stream) {
   const long long n = static_cast<long long>(num_tiles) * rays_per_tile;
   if (n == 0) return 0;
-  if (rays_per_tile > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  clear_flags_kernel<<<rt::card_grid(n), rt::kThreads, 0, s>>>(occ, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || num_items == 0) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * 2 * g * kRowFloats;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(occlusion_items_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = (rays_per_tile + 31) / 32 * 32;
-  occlusion_items_kernel<true><<<num_items, threads, smem, s>>>(
-      items, num_items, ids, light, origins, active, geom, rays_per_tile, g,
-      t_eps, occ);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_occlusion<true>(
+      items, num_items, ids, light, origins, active, geom, n, rays_per_tile,
+      g, t_eps, occ, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -46,8 +46,8 @@ def cluster_set_from_numpy(cmin, cmax, tris, face_order, face_rank=None, *,
                            ) -> ClusterSet:
     """A port `ClusterSet` from a JAX `ClusterSet`'s cluster boxes, sorted
     triangles, slot -> face table and (when it has one) face -> slot
-    table, on ``device`` (the card when None).  The geometry rows of
-    kernels C and H are derived here."""
+    table, on ``device`` (the card when None).  The geometry rows of the
+    tile sweeps are derived here."""
     device = resolve_device(device)
     tris = _tensor(tris, device, np.float32)
     return ClusterSet(cmin=_tensor(cmin, device, np.float32),

@@ -91,41 +91,44 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     return out, time.perf_counter() - t0
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64, _U32 = ctypes.c_longlong, ctypes.c_uint
+
+#: The argument types of each C entry of `csrc/*.cu`, in order: a pointer
+#: or the stream is ``c_void_p`` (passed bare, ctypes would cut it to a
+#: 32-bit int), ``int`` ``c_int``, ``long long`` ``c_longlong``,
+#: ``unsigned int`` ``c_uint``, ``float`` ``c_float``.  Each entry returns
+#: its first launch error as an ``int``.
+SIGNATURES = {
+    "rt_primary_shade": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _P, _P, _P, _P),
+    "rt_general_shade": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _F, _P, _P, _P, _P),
+    "rt_occlusion": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
+    "rt_primary": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
+                   _P),
+    "rt_closest_rays": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+                        _P, _P, _P),
+    "rt_occlusion_rows": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
+                          _P),
+    "rt_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "rt_segment_sum": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "rt_brute": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P),
+    "rt_clear": (_P, _I64, _U32, _P),
+    "rt_gradient": (_P, _I64, _P),
+    "rt_blob": (_P, _I, _I, _P, _P),
+}
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built library with its C signatures declared."""
+    """The built library with its C signatures (`SIGNATURES`) declared."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    i64, u32 = ctypes.c_longlong, ctypes.c_uint
-    lib.rt_primary_shade.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p, p,
-                                     p]
-    lib.rt_primary_shade.restype = i
-    lib.rt_general_shade.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
-                                     f, p, p, p, p]
-    lib.rt_general_shade.restype = i
-    lib.rt_occlusion.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
-    lib.rt_occlusion.restype = i
-    lib.rt_primary.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p, p, p, p]
-    lib.rt_primary.restype = i
-    lib.rt_closest_rays.argtypes = [p, i, p, p, p, p, p, i, i, i, i, f, p, p,
-                                    p, p]
-    lib.rt_closest_rays.restype = i
-    lib.rt_occlusion_rows.argtypes = [p, i, p, p, p, p, p, i, i, i, f, p,
-                                      p]
-    lib.rt_occlusion_rows.restype = i
-    lib.rt_scatter_add.argtypes = [p, p, i, i, i, i, i, i, p, p]
-    lib.rt_scatter_add.restype = i
-    lib.rt_segment_sum.argtypes = [p, p, p, i, i, i, p, p]
-    lib.rt_segment_sum.restype = i
-    lib.rt_brute.argtypes = [p, p, p, i, i, i, f, i, i, p, p, p, p, p, p]
-    lib.rt_brute.restype = i
-    lib.rt_clear.argtypes = [p, i64, u32, p]
-    lib.rt_clear.restype = i
-    lib.rt_gradient.argtypes = [p, i64, p]
-    lib.rt_gradient.restype = i
-    lib.rt_blob.argtypes = [p, i, i, p, p]
-    lib.rt_blob.restype = i
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = _I
     return lib
 
 

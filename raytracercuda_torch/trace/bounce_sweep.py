@@ -284,7 +284,7 @@ def render_bounces_tiled(
         soy = torch.where(sactive, eye[1] + dy * tmin, eye[1]) + light[1] * eps
         soz = torch.where(sactive, eye[2] + dz * tmin, eye[2]) + light[2] * eps
         shadow = occlusion_tiles_planar(
-            cs, shade_blocks, _planar(sox, soy, soz, T, R), light,
+            cs, _planar(sox, soy, soz, T, R), light,
             sactive.reshape(T, R), tile_px=tile_px,
             trace_cfg=trace_cfg).reshape(-1)
 

@@ -119,7 +119,7 @@ class FrameRenderer:
                               soy.reshape(t, tp * tp),
                               soz.reshape(t, tp * tp)], dim=1)
             shadow = occlusion_tiles_planar(
-                self.accel, self.blocks, o3, self.light,
+                self.accel, o3, self.light,
                 active.reshape(t, tp * tp), tile_px=tp,
                 trace_cfg=self.config.trace)
             ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)

@@ -6,8 +6,9 @@ Each 16x16 pixel tile gets the list of clusters that survive its cull, in
 ascending cluster id.  The kernels live in `csrc/sweep.cu`:
 
   * A (replacing `pallas_sweep._primary_shade_kernel`) finds each ray's
-    closest hit over the tile's clusters and interpolates the winner's
-    attributes, on planar ``[T, 3, R]`` directions;
+    closest hit from the common eye over the tile's clusters and
+    interpolates the winner's attributes, on planar ``[T, 3, R]``
+    directions;
   * F (replacing `pallas_bounce._general_shade_kernel`) is A with planar
     per-ray origins and an activity mask, always with reflectivity; its
     entry point, with the cull that feeds it, is
@@ -17,10 +18,10 @@ ascending cluster id.  The kernels live in `csrc/sweep.cu`:
   * B (replacing `pallas_sweep._occlusion_cols_kernel`) answers any-hit
     along one light direction from planar per-ray origins;
   * C (replacing `pallas_sweep._primary_kernel`) is A without the
-    attributes, on row-major ``[T, R, 3]`` directions and geometry-only
-    rows: t, u, v and the winning slot, for the differentiable route;
+    attributes, on row-major ``[T, R, 3]`` directions: t, u, v and the
+    winning slot, for the differentiable route;
   * H (replacing `pallas_sweep._occlusion_kernel`) is B on row-major
-    ``[T, R, 3]`` origins and geometry-only rows.
+    ``[T, R, 3]`` origins.
 
 The rules that decide a result are the JAX kernels':
 
@@ -30,14 +31,16 @@ The rules that decide a result are the JAX kernels':
     (cluster, slot) order;
   * a miss carries ``FLT_MAX``, slot 0 and zero attributes.
 
-C, F and H split each tile's list over many blocks: `split_lists` cuts
-the lists into work items of at most ``PRIMARY_CHUNK`` (C),
-``GENERAL_CHUNK`` (F) or ``OCCLUSION_CHUNK`` (H) clusters, one block
-each.  C's and F's blocks merge their closest hits per ray with a 64-bit
-``atomicMin`` before a second pass writes the outputs; H's blocks set a
+Every kernel splits each tile's list over many blocks: `split_lists` cuts
+the lists into work items of at most ``SHADE_CHUNK`` (A),
+``PRIMARY_CHUNK`` (C), ``GENERAL_CHUNK`` (F), ``OCCLUSION_CHUNK`` (B)
+or ``OCCLUSION_ROWS_CHUNK`` (H) clusters, one block each, which sweeps
+the geometry rows `segment_blocks`.  A's, C's and F's blocks merge their closest hits per
+ray with a 64-bit ``atomicMin`` before a second pass writes the outputs
+(A's and F's attributes from the shade rows); B's and H's blocks set a
 ray's flag at its first hit, and a ray flagged by one item is skipped by
-the others (`csrc/sweep.cu`).  One launch of C, F or H is one call of its
-C entry (the key fill or flag clear, and its passes).
+the others (`csrc/sweep.cu`).  One launch is one call of the kernel's C
+entry (the key fill or flag clear, and its passes).
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its CUDA kernel for tensors on a GPU; there is no fallback from
@@ -78,19 +81,23 @@ _DET_TINY = 1.1754944e-38
 #: reflectivity, 29-31 zero (rows of 128 bytes, whole 16-byte loads).
 SHADE_COLS = 32
 
-#: Columns of a geometry-only row (kernels C and H): v0 | e1 | e2.
+#: Columns of a geometry row (the operand of every sweep): v0 | e1 | e2.
 GEOM_COLS = 9
 
 #: Kernel launches per wrapper, counted where the kernel is launched.
 launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
                  "primary": 0, "occlusion_rows": 0, "closest_rays": 0}
 
-#: Clusters per work item of kernels C, F and H, K: the fastest, within
-#: the run's spread, of `chip_smoke.py`'s sweep over K on config 4 (C, H)
-#: and both of config 5's bounces (F) on the H100 (PERF.md).
+#: Clusters per work item of each kernel, K: the fastest, within the run's
+#: spread, of `chip_smoke.py`'s sweep over K on the H100 (PERF.md), by the
+#: card's time: on the bench frame and config 5's primary pass (A), config
+#: 4 (C, H), the bench frame and config 5's shadows (B) and both of config
+#: 5's bounces (F).
+SHADE_CHUNK = 1
 PRIMARY_CHUNK = 2
 GENERAL_CHUNK = 8
-OCCLUSION_CHUNK = 4
+OCCLUSION_CHUNK = 1
+OCCLUSION_ROWS_CHUNK = 2
 
 #: Tiles a plain version sweeps at once: its ``[n, G, R]`` temporaries then
 #: stay near 33 MB each at G = 128, R = 256, whatever the frame size.
@@ -109,8 +116,9 @@ def reset_launch_counts() -> None:
 
 def segment_blocks(cs: ClusterSet) -> torch.Tensor:
     """``[C, G, 9]`` float32 geometry rows (v0 | e1 | e2 per sorted slot),
-    kernels C and H's operand: the cluster set's cached copy, or built
-    from its triangles."""
+    the operand of every sweep and bit-equal to the shade blocks' first
+    nine columns: the cluster set's cached copy, or built from its
+    triangles."""
     if cs.tri_blocks is not None:
         return cs.tri_blocks
     return edge_rows(cs.tris).contiguous()
@@ -314,9 +322,11 @@ def _closest_plain(lists, origin, d3_tiles, blocks, t_eps):
 
 
 def _primary_shade_plain(lists, eye, d3_tiles, blocks, has_uv, with_refl,
-                         t_eps):
+                         t_eps, geom=None):
     """Plain version of kernel A: `_closest_plain` on the shade blocks,
-    then the winner's attributes."""
+    then the winner's attributes.  ``geom`` (the kernel's geometry rows,
+    equal to the blocks' first nine columns) is not needed here."""
+    del geom
     bt, bs, bu, bv = _closest_plain(lists, eye, d3_tiles, blocks, t_eps)
     attrs = _interpolate_winners(blocks, bt, bs, bu, bv, has_uv, with_refl)
     return (bt, bs, bu, bv, *attrs)
@@ -363,7 +373,8 @@ def _closest_rays_plain(lists, o3_tiles, d3_tiles, active, blocks, t_eps):
 
 def _occlusion_plain(lists, light, o3_tiles, active, blocks, t_eps):
     """Plain version of kernel B: any hit along ``light`` from each active
-    ray's origin over its tile's listed clusters."""
+    ray's origin over its tile's listed clusters.  It reads columns 0-8 of
+    ``blocks``, so geometry rows and shade rows give the same mask."""
     occ = torch.zeros(active.shape, dtype=torch.bool, device=active.device)
     dx, dy, dz = light[0], light[1], light[2]
     o = o3_tiles[:, :, None, :]  # [T,3,1,R]
@@ -406,8 +417,8 @@ def _check_lists(lists: TileLists, device, num_tiles: int):
 def _check_split(num_rays: int, packs: bool):
     """The split sweep's block is the tile's rays: at most 1024, and a
     multiple of 32 where it packs active rays with warp ballots over
-    exactly the tile's rays (F, the ray bundles; H rounds its block up
-    instead)."""
+    exactly the tile's rays (F, the ray bundles; B and H round their block
+    up instead)."""
     if not 0 < num_rays <= 1024 or (packs and num_rays % 32):
         raise ValueError(f"the split sweep takes 1 to 1024 rays per tile"
                          f"{', a multiple of 32,' if packs else ''} got "
@@ -419,8 +430,10 @@ def _eps_args(t_eps):
 
 
 def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
-                        t_eps):
-    """Launch kernel A; outputs as in `_primary_shade_plain`."""
+                        t_eps, geom):
+    """Launch kernel A; outputs as in `_primary_shade_plain`.  Pass 1
+    sweeps ``geom``, the geometry rows `segment_blocks` gives; pass 2
+    reads the shade rows."""
     num_tiles, _, R = d3_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = d3_tiles.device
@@ -428,13 +441,18 @@ def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
     _check_cuda("eye", eye, dev, torch.float32, (3,))
     _check_cuda("d3_tiles", d3_tiles, dev, torch.float32, (num_tiles, 3, R))
     _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
+    _check_cuda("geom", geom, dev, torch.float32, (c, g, GEOM_COLS))
+    _check_split(R, packs=False)
+    items = split_lists(lists, SHADE_CHUNK)
     n_f = (12 if has_uv else 9) + (1 if with_refl else 0)
+    keys = torch.empty(num_tiles * R, dtype=torch.int64, device=dev)
     out_f = torch.empty((n_f, num_tiles, R), dtype=torch.float32, device=dev)
     out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
     err = kernel_fn("rt_primary_shade")(
-        lists.offsets.data_ptr(), lists.ids.data_ptr(), eye.data_ptr(),
-        d3_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R, g,
-        int(has_uv), int(with_refl), *_eps_args(t_eps), out_f.data_ptr(),
+        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
+        eye.data_ptr(), d3_tiles.data_ptr(), geom.data_ptr(),
+        blocks.data_ptr(), num_tiles, R, g, int(has_uv), int(with_refl),
+        *_eps_args(t_eps), keys.data_ptr(), out_f.data_ptr(),
         out_slot.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel A launch failed: CUDA error {err}")
@@ -442,26 +460,41 @@ def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
     return (out_f[0], out_slot, *out_f[1:])
 
 
-def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
-    """Launch kernel B; output as in `_occlusion_plain`."""
-    num_tiles, _, R = o3_tiles.shape
+def _launch_occlusion(entry, what, chunk, num_tiles, R, lists, light,
+                      origins, active, blocks, t_eps):
+    """Launch kernel B or H (C entry ``entry``, work items of ``chunk``
+    clusters) on ``origins`` already checked to hold ``num_tiles`` tiles
+    of ``R`` rays: ``[T, R]`` bool occlusion."""
     c, g = blocks.shape[0], blocks.shape[1]
-    dev = o3_tiles.device
+    dev = origins.device
     _check_lists(lists, dev, num_tiles)
     _check_cuda("light", light, dev, torch.float32, (3,))
-    _check_cuda("o3_tiles", o3_tiles, dev, torch.float32, (num_tiles, 3, R))
     _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
-    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, SHADE_COLS))
-    act = active.to(torch.int32)
-    occ = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
-    err = kernel_fn("rt_occlusion")(
-        lists.offsets.data_ptr(), lists.ids.data_ptr(), light.data_ptr(),
-        o3_tiles.data_ptr(), act.data_ptr(), blocks.data_ptr(), num_tiles,
-        R, g, float(t_eps), occ.data_ptr(), raw_stream(dev))
+    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
+    _check_split(R, packs=False)
+    items = split_lists(lists, chunk)
+    # The kernel reads the bool mask as bytes and writes the bool result.
+    occ = torch.empty((num_tiles, R), dtype=torch.bool, device=dev)
+    err = kernel_fn(entry)(
+        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
+        light.data_ptr(), origins.data_ptr(), active.data_ptr(),
+        blocks.data_ptr(), num_tiles, R, g, float(t_eps), occ.data_ptr(),
+        raw_stream(dev))
     if err:
-        raise RuntimeError(f"kernel B launch failed: CUDA error {err}")
+        raise RuntimeError(f"kernel {what} launch failed: CUDA error {err}")
+    return occ
+
+
+def _occlusion_cuda(lists, light, o3_tiles, active, blocks, t_eps):
+    """Launch kernel B; output as in `_occlusion_plain`.  ``blocks`` are
+    geometry rows."""
+    num_tiles, _, R = o3_tiles.shape
+    _check_cuda("o3_tiles", o3_tiles, o3_tiles.device, torch.float32,
+                (num_tiles, 3, R))
+    occ = _launch_occlusion("rt_occlusion", "B", OCCLUSION_CHUNK, num_tiles,
+                            R, lists, light, o3_tiles, active, blocks, t_eps)
     launch_counts["occlusion"] += 1
-    return occ > 0
+    return occ
 
 
 def _general_shade_cuda(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
@@ -557,24 +590,11 @@ def _closest_rays_cuda(lists, o3_tiles, d3_tiles, active, blocks, t_eps):
 def _occlusion_rows_cuda(lists, light, o_tiles, active, blocks, t_eps):
     """Launch kernel H; output as in `_occlusion_rows_plain`."""
     num_tiles, R, _ = o_tiles.shape
-    c, g = blocks.shape[0], blocks.shape[1]
-    dev = o_tiles.device
-    _check_lists(lists, dev, num_tiles)
-    _check_cuda("light", light, dev, torch.float32, (3,))
-    _check_cuda("o_tiles", o_tiles, dev, torch.float32, (num_tiles, R, 3))
-    _check_cuda("active", active, dev, torch.bool, (num_tiles, R))
-    _check_cuda("blocks", blocks, dev, torch.float32, (c, g, GEOM_COLS))
-    _check_split(R, packs=False)
-    items = split_lists(lists, OCCLUSION_CHUNK)
-    # The kernel reads the bool mask as bytes and writes the bool result.
-    occ = torch.empty((num_tiles, R), dtype=torch.bool, device=dev)
-    err = kernel_fn("rt_occlusion_rows")(
-        items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
-        light.data_ptr(), o_tiles.data_ptr(), active.data_ptr(),
-        blocks.data_ptr(), num_tiles, R, g, float(t_eps), occ.data_ptr(),
-        raw_stream(dev))
-    if err:
-        raise RuntimeError(f"kernel H launch failed: CUDA error {err}")
+    _check_cuda("o_tiles", o_tiles, o_tiles.device, torch.float32,
+                (num_tiles, R, 3))
+    occ = _launch_occlusion("rt_occlusion_rows", "H", OCCLUSION_ROWS_CHUNK,
+                            num_tiles, R, lists, light, o_tiles, active,
+                            blocks, t_eps)
     launch_counts["occlusion_rows"] += 1
     return occ
 
@@ -620,12 +640,11 @@ def trace_shade_tiles_planar(
     run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
     return run(lists, eye.to(torch.float32).contiguous(),
                d3_tiles.contiguous(), shade_blocks, has_uv, with_refl,
-               t_eps_of(trace_cfg))
+               t_eps_of(trace_cfg), segment_blocks(cs))
 
 
 def occlusion_tiles_planar(
     cs: ClusterSet,
-    shade_blocks: torch.Tensor,
     o3_tiles: torch.Tensor,
     light_dir: torch.Tensor,
     a_tiles: torch.Tensor,
@@ -636,12 +655,12 @@ def occlusion_tiles_planar(
     ``a_tiles [T,R]`` bool -> ``[T,R]`` bool occlusion, false where
     inactive.  The lists come from the swept-beam cull; the sweep runs
     along ``beam.l``, the light direction that `light_basis`
-    re-normalises."""
+    re-normalises, over the geometry rows `segment_blocks(cs)`."""
     beam = swept_tile_beams_planar(o3_tiles, a_tiles, light_dir)
     lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
     run = _pick(o3_tiles, _occlusion_plain, _occlusion_cuda)
     occ = run(lists, beam.l.to(torch.float32).contiguous(),
-              o3_tiles.contiguous(), a_tiles.contiguous(), shade_blocks,
+              o3_tiles.contiguous(), a_tiles.contiguous(), segment_blocks(cs),
               np.float32(trace_cfg.t_epsilon))
     return occ & a_tiles
 

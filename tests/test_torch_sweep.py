@@ -155,7 +155,7 @@ def test_occlusion_matches_jax(list_width, light):
         s["jc"], s["jblocks"], jnp.asarray(o3), jnp.asarray(light),
         jnp.asarray(hit), trace_cfg=jcfg))
     got = tsweep.occlusion_tiles_planar(
-        s["tc"], s["tblocks"], torch.from_numpy(o3), torch.from_numpy(light),
+        s["tc"], torch.from_numpy(o3), torch.from_numpy(light),
         torch.from_numpy(hit), trace_cfg=TraceConfig())
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
@@ -268,14 +268,14 @@ def test_cuda_wrappers_reject_cpu_tensors():
     lists = tsweep._tile_lists(torch.ones((16, s["tc"].num_clusters),
                                           dtype=torch.bool))
     d3 = torch.from_numpy(s["d3"])
+    geom = tsweep.segment_blocks(s["tc"])
     with pytest.raises(ValueError, match="CUDA"):
         tsweep._primary_shade_cuda(lists, torch.zeros(3), d3, s["tblocks"],
-                                   False, False, None)
+                                   False, False, None, geom)
     with pytest.raises(ValueError, match="CUDA"):
-        tsweep._occlusion_cuda(lists, torch.ones(3), d3, d3[:, 0] > 0,
-                               s["tblocks"], np.float32(1e-4))
+        tsweep._occlusion_cuda(lists, torch.ones(3), d3, d3[:, 0] > 0, geom,
+                               np.float32(1e-4))
     rows = d3.transpose(1, 2).contiguous()
-    geom = tsweep.segment_blocks(s["tc"])
     with pytest.raises(ValueError, match="CUDA"):
         tsweep._primary_cuda(lists, torch.zeros(3), rows, geom, None)
     with pytest.raises(ValueError, match="CUDA"):
@@ -363,32 +363,55 @@ def _occlusion_inputs(s, num_tiles, rays, seed):
             torch.from_numpy(active))
 
 
-@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
-def test_occlusion_items_or_equals_plain(case):
-    """Kernel H's decomposition on the CPU: each tile's list cut into work
-    items of ``OCCLUSION_CHUNK`` clusters (`split_lists`), each item's
-    any-hit over its own clusters for the rays no earlier item flagged,
-    OR-ed, is the plain version's mask over whole lists; tiles with no
-    active ray stay unflagged.  9x9 tiles (R = 81, not a multiple of
-    32)."""
+# (origin layout, rays per tile): H's row-major [T, R, 3] origins and B's
+# planar [T, 3, R], at 9x9 tiles (R = 81, not a multiple of 32) and 16x16.
+# The row-major 9x9 cases keep their first ids.
+OCCLUSION_ITEM_CASES = [
+    pytest.param(layout, rays, case,
+                 id=case if (layout, rays) == ("rows", 81)
+                 else f"{layout}-{rays}-{case}")
+    for layout, rays in (("rows", 81), ("planar", 81), ("rows", 256),
+                         ("planar", 256))
+    for case in sorted(SPLIT_CASES)]
+
+
+@pytest.mark.parametrize("layout,rays,case", OCCLUSION_ITEM_CASES)
+def test_occlusion_items_or_equals_plain(layout, rays, case):
+    """Kernels B's and H's decomposition on the CPU: each tile's list cut
+    into work items of ``OCCLUSION_CHUNK`` (B) or ``OCCLUSION_ROWS_CHUNK``
+    (H) clusters (`split_lists`), each
+    item's any-hit over its own clusters for the rays no earlier item
+    flagged, OR-ed, is the plain version's mask over whole lists; tiles
+    with no active ray stay unflagged.  B's plain version on planar
+    origins and H's on row-major ones give the same mask."""
     s = setup("plain", num_faces=5200, seed=3)
     geom = tsweep.segment_blocks(s["tc"])
     assert geom.shape[0] >= 40
     counts = SPLIT_CASES[case]
     lists = _random_lists(counts, 40, seed=len(case))
-    light, o, active = _occlusion_inputs(s, len(counts), 81, len(case))
+    light, o, active = _occlusion_inputs(s, len(counts), rays, len(case))
     t_eps = np.float32(1e-4)
-    want = tsweep._occlusion_rows_plain(lists, light, o, active, geom, t_eps)
-    items = tsweep.split_lists(lists, tsweep.OCCLUSION_CHUNK)
+    if layout == "rows":
+        plain = tsweep._occlusion_rows_plain
+        chunk = tsweep.OCCLUSION_ROWS_CHUNK
+    else:
+        plain = tsweep._occlusion_plain
+        chunk = tsweep.OCCLUSION_CHUNK
+        want_rows = tsweep._occlusion_rows_plain(lists, light, o, active,
+                                                 geom, t_eps)
+        o = o.transpose(1, 2).contiguous()  # [T, 3, R]
+    want = plain(lists, light, o, active, geom, t_eps)
+    if layout == "planar":
+        np.testing.assert_array_equal(want.numpy(), want_rows.numpy())
+    items = tsweep.split_lists(lists, chunk)
     got = torch.zeros_like(want)
     for tile, first, end in items.T.tolist():
         if first == end:
             continue
         survive = torch.zeros((len(counts), geom.shape[0]), dtype=torch.bool)
         survive[tile, lists.ids[first:end].long()] = True
-        got |= tsweep._occlusion_rows_plain(
-            tsweep._tile_lists(survive), light, o, active & ~got, geom,
-            t_eps)
+        got |= plain(tsweep._tile_lists(survive), light, o, active & ~got,
+                     geom, t_eps)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert not want[~active].any()
     if max(counts) >= 7:
