@@ -126,30 +126,65 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      requiring the native OBJ tokenizer;
  26. runs the render CLI on it at 512x512 (three frames, 15 degrees of
      orbit each): lambert-shadow through `FrameRenderer` (A, B; with the
-     per-phase profiler), parity on CLUSTER (C), and parity on BRUTE at
-     256x256 (E), requiring each route's kernels launched, and holds each
-     launch of E against its plain version (t/u/v bit-equal);
- 27. runs the same three CLI calls on the plain versions and holds the
-     PNGs: parity routes equal, lambert-shadow within 1 per u8 channel;
+     per-phase profiler), parity on CLUSTER (C), parity on BRUTE at
+     256x256 (E), and with ``--accel bvh`` parity (L) and lambert-shadow
+     (L, and K's any hit for the shadows), requiring each route's kernels
+     launched, and holds each launch of E against its plain version
+     (t/u/v bit-equal);
+ 27. runs the same five CLI calls on the plain versions and holds the
+     PNGs: the `FrameRenderer` lambert-shadow route within 1 per u8
+     channel, every other route equal;
  28. runs the fly loop for four frames on BRUTE at 256x256 with a
      scripted event list, requiring the render targets 1, 2, 0, 1, and
-     holds each launch of E against its plain version;
+     holds each launch of E against its plain version; then `fly.main`
+     with its default ``--accel`` (BVH, kernel L) for the same four
+     frames, its PNGs equal to the same run on the plain versions;
  29. times the bench frame (kernel path) by the profiler's device time,
      and A and B by profiler device time (their C entries' kernels) and
      at K = 1 to 16 (A) and 2 to 16 (B) clusters per work item, after
      every other phase;
- 30. prints each kernel's time beside its bound: the larger of its FP32
+ 31. builds the LBVH of the bench frame's scene on the card with
+     `build_bvh` (timed), requires every field bitwise equal to the same
+     build on the CPU from the same tensors, and prints its nodes, leaves
+     and leaf depth p50/p99 (`bvh_stats`);
+ 32. traces the 512x512 primary rays through `trace_bvh` and 2,048
+     scattered rays through `trace_hit` (kernel K, closest hit), requiring
+     K launched; holds K against its plain version (slots equal, t/u/v
+     bit-equal) and against kernel E on the same rays (t bit-equal, faces
+     equal but for exact-t ties, whose count it prints);
+ 33. traces the frame through `trace_hit` (kernel L, the tile beam) and
+     holds L against its plain version (the same checks) and its slots
+     and t against K's;
+ 34. casts the frame's shadow rays by `render_grad`'s rule (hit point +
+     l * 10 t_epsilon, t_max FLT_MAX) through `any_hit_bvh` (kernel K, any
+     hit): masks equal to its plain version's and to `any_hit_brute`'s;
+ 35. traces 256x256 rays through `trace_wavefront` (plain PyTorch on the
+     card): faces equal to K's;
+ 36. builds config 2's scene through `Scene.create()` with no config
+     (BVH) and traces its 256x256 frame through `Camera.trace_scene`
+     (kernel L): equal to the same frame on the plain versions; renders
+     the bench frame through the `FrameRenderer`'s BVH route with shadows
+     (L, then E): within 1 per u8 channel of its plain path, timed;
+ 37. times K (closest and any hit) and L by events, by the profiler's
+     device time per recorded launch and with the host's cost hidden, and
+     counts the work each needs on these inputs (ray-triangle tests and
+     node tests) by instrumented plain runs;
+ 30. prints the BVH route's frame beside the CLUSTER bench frame (rays/s),
+     and each kernel's time beside its bound: the larger of its FP32
      operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
-     this run's inputs (ray-triangle tests from the tile lists, 46
-     operations each), and, for D and G, the time of the one PyTorch call
-     that computes the same function (`torch.full`, `index_add_`), their
-     device times and G's `torch.zeros` + `index_add_`.
+     this run's inputs (ray-triangle tests from the tile lists or the
+     instrumented runs, 46 operations each; K's slab tests 23 operations
+     and L's node tests 61), and, for D and G, the time of the one PyTorch
+     call that computes the same function (`torch.full`, `index_add_`),
+     their device times and G's `torch.zeros` + `index_add_`.
 
-Any failure exits non-zero.  The last two lines of standard output are a
-JSON object of the ten kernels' counts, errors, times and bounds (every
-sweep's, D's, E's and G's with ``device_ms``, D's and G's with
-``library_device_ms``, G's with ``library_zeroed_ms``; null elsewhere),
-and ``{"ok": true, "device": {...}}``.
+Phases 31-37 run after phase 28, before phase 29.  Any failure exits
+non-zero.  The last two lines of standard output are a JSON object of the
+kernels' counts, errors, times and bounds (A-J and the LBVH kernels K,
+closest and any hit, and L; every sweep's, D's, E's, G's, K's and L's
+with ``device_ms``, D's and G's with ``library_device_ms``, G's with
+``library_zeroed_ms``; null elsewhere), and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -157,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -254,10 +290,17 @@ def time_cuda(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, iters: int) -> dict:
-    """Mean device milliseconds per call of ``fn`` by activity name: the
-    kernels, copies and fills that `torch.profiler` records over ``iters``
-    calls back to back, after a warm-up ({} when it records none)."""
+def device_activities(fn, iters: int) -> dict:
+    """``{activity name: (device ms per call, occurrences recorded)}``:
+    the kernels, copies and fills that `torch.profiler` records over
+    ``iters`` calls of ``fn`` back to back, after a warm-up ({} when it
+    records none).  Each activity's time per call is its mean over the
+    occurrences recorded times its occurrences per call.  ``fn`` does the
+    same work every call, so that count is the recorded one over ``iters``
+    rounded up: exact while fewer than ``iters`` of an activity's
+    occurrences were dropped.  The profiler has kept as few as one in ten
+    of kernel L's launches (PERF.md §7), which a division by ``iters``
+    would read as a tenth of the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -269,23 +312,33 @@ def device_times(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = {}
+    out = {}
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us:
-            times[e.key] = us / 1e3 / iters
-    return times
+        if e.device_type == DeviceType.CUDA and us and e.count:
+            out[e.key] = (us / 1e3 / e.count * math.ceil(e.count / iters),
+                          e.count)
+    return out
 
 
-def device_time(fn, iters: int):
-    """`device_times` summed: the card's time per call, or None when the
-    profiler records nothing.  Beside `time_cuda`'s event time it says
-    whether a call costs the host or the device.  Kernels that overlap
-    (G's fill and scatter under programmatic dependent launch) each count
-    whole, so the sum can exceed the card's span; `time_queued` gives the
-    span."""
-    return sum(device_times(fn, iters).values()) or None
+def device_ms(fn, iters: int, kernels=None) -> tuple:
+    """``(mine, rest, recorded)``: `device_activities` of ``fn`` summed,
+    ms per call.  ``mine`` sums the kernels named in ``kernels`` (names
+    without template arguments; every activity when None), ``rest`` the
+    others; ``recorded`` is the fewest occurrences recorded of any of
+    ``mine``.  (None, None, 0) when the profiler records nothing.
+    Kernels that overlap (G's fill and scatter under programmatic
+    dependent launch) each count whole, so a sum can exceed the card's
+    span; `time_queued` gives the span."""
+    acts = device_activities(fn, iters)
+    if not acts:
+        return None, None, 0
+    mine = {name: v for name, v in acts.items() if kernels is None
+            or short_kernel_name(name).split("<")[0] in kernels}
+    rest = sum(ms for name, (ms, _) in acts.items() if name not in mine)
+    return (sum(ms for ms, _ in mine.values()) or None, rest,
+            min((n for _, n in mine.values()), default=0))
 
 
 def short_kernel_name(name: str) -> str:
@@ -471,19 +524,6 @@ SPLIT_KERNELS = ("fill_keys_kernel", "sweep_items_kernel",
                  "closest_epilogue_kernel", "shade_epilogue_kernel",
                  "clear_flags_kernel", "occlusion_items_kernel",
                  "brute_items_kernel", "brute_epilogue_kernel")
-
-
-def split_device_ms(fn, iters: int):
-    """A split kernel's device time per call: its C entry's kernels summed
-    (`SPLIT_KERNELS`), and the rest (the work-item split and the
-    allocations' PyTorch kernels); (None, None) when the profiler records
-    nothing."""
-    times = device_times(fn, iters)
-    if not times:
-        return None, None
-    mine = sum(ms for name, ms in times.items()
-               if short_kernel_name(name).split("<")[0] in SPLIT_KERNELS)
-    return mine, sum(times.values()) - mine
 
 
 def scatter_err(k, p, idx, num_rows: int, name: str) -> float:
@@ -940,7 +980,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         "H": (time_cuda(kernel_h, 20),
               time_cuda(lambda: sweep._occlusion_rows_plain(*h_args), 3)),
     }
-    c_device_ms, c_glue_ms = split_device_ms(kernel_c, 20)
+    c_device_ms, c_glue_ms = device_ms(kernel_c, 20, SPLIT_KERNELS)[:2]
     c_queued_ms = time_queued(kernel_c, 10)
     print(f"kernel C: {times['C'][0]:.4f} ms per launch, device (both "
           f"passes and the key fill) {ms_text(c_device_ms)}, the split's "
@@ -949,7 +989,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     c_k = k_sweep(sweep, "PRIMARY_CHUNK", (1, 2, 4, 8, 16), kernel_c, 20,
                   c_args[0], c_args[2].shape[1])
     print(f"kernel C by K ({K_SWEEP_FIELDS}): {c_k}")
-    h_device_ms, h_glue_ms = split_device_ms(kernel_h, 20)
+    h_device_ms, h_glue_ms = device_ms(kernel_h, 20, SPLIT_KERNELS)[:2]
     h_queued_ms = time_queued(kernel_h, 10)
     print(f"kernel H: {times['H'][0]:.4f} ms per launch, device (the flag "
           f"clear and the pass) {ms_text(h_device_ms)}, the split's PyTorch "
@@ -984,19 +1024,19 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
             return torch.zeros((rows, d), dtype=torch.float32,
                                device=dev).index_add_(0, flat, src_rows)
 
-        split = device_times(kernel, 20)
+        split = device_activities(kernel, 20)
         r = {"ms": time_cuda(kernel, 20),
-             "device_ms": sum(split.values()) or None,
+             "device_ms": sum(ms for ms, _ in split.values()) or None,
              "queued_ms": time_queued(kernel, 20),
              "ordered_ms": time_cuda(ordered, 20),
              "ordered_queued_ms": time_queued(ordered, 20),
              "plain_ms": time_cuda(lambda a=(g, idx, rows):
                                    scatter._scatter_add_plain(*a), 20),
              "library_ms": time_cuda(library, 20),
-             "library_device_ms": device_time(library, 20),
+             "library_device_ms": device_ms(library, 20)[0],
              "library_queued_ms": time_queued(library, 20),
              "library_zeroed_ms": time_cuda(zeroed, 20),
-             "library_zeroed_device_ms": device_time(zeroed, 20),
+             "library_zeroed_device_ms": device_ms(zeroed, 20)[0],
              "library_zeroed_queued_ms": time_queued(zeroed, 20),
              "kept": int(keep.sum())}
         # The cotangents of dropped ids (misses) need not be read.
@@ -1007,7 +1047,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
               f"({r['kept']} kept rays, atomic width "
               f"{scatter._atomic_width(d)}), bound {r['bound'][0]:.6f} ms:")
         parts = "".join(f", {short_kernel_name(name)} {ms:.4f}"
-                        for name, ms in split.items())
+                        for name, (ms, _) in split.items())
         print(f"  G {r['ms']:.4f} ms, device {ms_text(r['device_ms'])}"
               f"{parts}; host hidden {ms_text(r['queued_ms'])}; in stream "
               f"order (no PDL) {r['ordered_ms']:.4f} ms, host hidden "
@@ -1026,8 +1066,8 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     # G's record: the mean of the backward's launches.
     times["G"] = (g_mean("ms"), g_mean("plain_ms"))
     with torch.no_grad():
-        prog_device_ms = device_time(lambda: prog(state), 5)
-    grad_device_ms = device_time(grad_step, 5)
+        prog_device_ms = device_ms(lambda: prog(state), 5)[0]
+    grad_device_ms = device_ms(grad_step, 5)[0]
     print(f"progressive step ({size}x{size}, shadows): kernel path "
           f"{prog_ms:.4f} ms (device {ms_text(prog_device_ms)}), plain path "
           f"{prog_plain_ms:.4f} ms")
@@ -1137,7 +1177,7 @@ K_SWEEP_FIELDS = ("events ms per launch, device ms (the C entry's kernels), "
 def k_sweep(sweep, name: str, ks, fn, iters: int, lists, rays_per_tile,
             active=None) -> dict:
     """``fn`` with `sweep`'s chunk constant ``name`` (K) at each of ``ks``:
-    its event time and its device time (`split_device_ms`; None when the
+    its event time and its device time (`device_ms`; None when the
     profiler records nothing), both ms per call, with the work items and
     active lanes per warp; the constant is put back.  K changes what the
     card does, so the device time is the one that chooses it."""
@@ -1147,9 +1187,9 @@ def k_sweep(sweep, name: str, ks, fn, iters: int, lists, rays_per_tile,
         for k in ks:
             setattr(sweep, name, k)
             items, lanes = split_stats(lists, k, rays_per_tile, active)
-            device_ms, _ = split_device_ms(fn, iters)
+            dev_ms, _, _ = device_ms(fn, iters, SPLIT_KERNELS)
             out[k] = (round(time_cuda(fn, iters), 4),
-                      None if device_ms is None else round(device_ms, 4),
+                      None if dev_ms is None else round(dev_ms, 4),
                       items, round(lanes, 2))
     finally:
         setattr(sweep, name, keep)
@@ -1167,13 +1207,13 @@ def split_chunk_report(sweep, where: str, kernel_a, kernel_b, a_args,
             ("A", kernel_a, "SHADE_CHUNK", (1, 2, 4, 8, 16), a_args, None),
             ("B", kernel_b, "OCCLUSION_CHUNK", (1, 2, 4, 8, 16), b_args,
              b_args[3])):
-        device_ms, glue_ms = split_device_ms(fn, iters)
+        a_ms, glue_ms, _ = device_ms(fn, iters, SPLIT_KERNELS)
         by_k = k_sweep(sweep, const, ks, fn, iters, args[0],
                        args[2].shape[2], active)
         print(f"kernel {name} ({where}): device (its C entry's kernels) "
-              f"{ms_text(device_ms)}, the split's PyTorch kernels "
+              f"{ms_text(a_ms)}, the split's PyTorch kernels "
               f"{ms_text(glue_ms)}; by K ({K_SWEEP_FIELDS}): {by_k}")
-        out.append(device_ms)
+        out.append(a_ms)
     return tuple(out)
 
 
@@ -1413,20 +1453,22 @@ def occlusion_cases(dev, accel, config) -> None:
         sweep.OCCLUSION_CHUNK, sweep.OCCLUSION_ROWS_CHUNK = keep
 
 
-def config2_scene(dev, size, suzanne_faces):
+def config2_scene(dev, size, suzanne_faces, default_structure=False):
     """Config 2's scene through the public API (scripts/bench_configs.py:
-    79-102): BRUTE, the suzanne stand-in ``bumpy_sphere_mesh`` at the
-    origin (radius 1) and the reference's quad at z = 2.5, a ``size``
-    square `Camera` and locked `RenderTarget`, eye (0, 0, -2.1).
-    Returns ``(scene, camera, target, eye, orient)``."""
+    79-102): BRUTE (or, with ``default_structure``, `Scene.create()` with
+    no config), the suzanne stand-in ``bumpy_sphere_mesh`` at the origin
+    (radius 1) and the reference's quad at z = 2.5, a ``size`` square
+    `Camera` and locked `RenderTarget`, eye (0, 0, -2.1).  Returns
+    ``(scene, camera, target, eye, orient)``."""
     import numpy as np
 
     import raytracercuda_torch as rt
     from raytracercuda_torch.models.procedural import (bumpy_sphere_mesh,
                                                        quad_mesh)
 
-    scene = rt.Scene.create(rt.RenderConfig(accel=rt.AccelKind.BRUTE),
-                            device=dev)
+    scene = (rt.Scene.create(device=dev) if default_structure else
+             rt.Scene.create(rt.RenderConfig(accel=rt.AccelKind.BRUTE),
+                             device=dev))
     scene.add_mesh(bumpy_sphere_mesh(suzanne_faces, radius=1.0,
                                      center=(0.0, 0.0, 0.0)))
     scene.add_mesh(quad_mesh(z=2.5))
@@ -1555,7 +1597,7 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
 
     e_ms = time_cuda(kernel_e, 20)
     e_plain_ms = time_cuda(lambda: bruteforce._brute_plain(*e_args), 3)
-    e_device_ms, e_glue_ms = split_device_ms(kernel_e, 20)
+    e_device_ms, e_glue_ms = device_ms(kernel_e, 20, SPLIT_KERNELS)[:2]
     e_queued_ms = time_queued(kernel_e, 10)
     print(f"kernel E: {e_ms:.4f} ms per launch, device (the key fill and "
           f"both passes) {ms_text(e_device_ms)}, the wrapper's PyTorch "
@@ -1570,10 +1612,10 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
         return clear._clear_plain(n, CLEAR_VALUE, dev)
 
     d_ms = time_cuda(kernel_d, 100)
-    d_device_ms = device_time(kernel_d, 100)
+    d_device_ms = device_ms(kernel_d, 100)[0]
     d_queued_ms = time_queued(kernel_d, 100)
     d_plain_ms = time_cuda(plain_d, 100)
-    d_plain_device_ms = device_time(plain_d, 100)
+    d_plain_device_ms = device_ms(plain_d, 100)[0]
     d_plain_queued_ms = time_queued(plain_d, 100)
     print(f"config 2 frame ({size}x{size}, BRUTE): kernel path "
           f"{frame_ms:.4f} ms, plain path {plain_frame_ms:.4f} ms, "
@@ -1944,7 +1986,7 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
         return bounce_sweep._general_shade_cuda(*f_args)
 
     f_ms = time_cuda(kernel_f, 5)
-    f_device_ms, f_glue_ms = split_device_ms(kernel_f, 5)
+    f_device_ms, f_glue_ms = device_ms(kernel_f, 5, SPLIT_KERNELS)[:2]
     f_queued_ms = time_queued(kernel_f, 5)
     print(f"kernel F (bounce 1): {f_ms:.4f} ms per launch, device (both "
           f"passes and the key fill) {ms_text(f_device_ms)}, the split's "
@@ -2264,9 +2306,11 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
              fly_size=FLY_SIZE):
     """Phases 25-28: the TestProgram path.  A textured stand-in for
     suzanne.obj through `load_model` (the native tokenizer), the render
-    CLI's three routes (A and B, C, E) held against the same runs on the
-    plain versions, and the fly loop on BRUTE (E).  Returns the launches
-    of A, B, C and E on this path."""
+    CLI's five routes (A and B, C, E; on BVH, L for parity and L and K's
+    any hit for lambert-shadow) held against the same runs on the plain
+    versions, the fly loop on BRUTE (E), and `fly.main` with its default
+    structure (BVH, kernel L) held against its run on the plain versions.
+    Returns the launches of A, B, C, E, K and L on this path."""
     import tempfile
 
     import numpy as np
@@ -2275,7 +2319,7 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
     import raytracercuda_torch as rt
     from raytracercuda_torch.apps import fly, render_cli
     from raytracercuda_torch.models import loader
-    from raytracercuda_torch.trace import bruteforce, sweep
+    from raytracercuda_torch.trace import beam, bruteforce, sweep, traverse
 
     def sync():
         if dev.type == "cuda":
@@ -2309,27 +2353,40 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
                         "--size", str(size)], ("primary",)),
             "brute": (["--accel", "brute", "--shading", "parity", "--size",
                        str(fly_size)], ("brute",)),
+            "bvh-parity": (["--accel", "bvh", "--shading", "parity",
+                            "--size", str(size)], ("beam",)),
+            "bvh-lambert-shadow": (["--accel", "bvh", "--shading",
+                                    "lambert-shadow", "--size", str(size)],
+                                   ("beam", "walk_any")),
         }
         common = ["--frames", str(frames), "--orbit", "15"]
         launches = {"primary_shade": 0, "occlusion": 0, "primary": 0,
-                    "brute": 0}
+                    "brute": 0, "beam": 0, "walk_any": 0, "walk_closest": 0}
+
+        def reset():
+            for m in (sweep, bruteforce, beam, traverse):
+                m.reset_launch_counts()
+
+        def counts():
+            return {**sweep.launch_counts, **bruteforce.launch_counts,
+                    **beam.launch_counts, **traverse.launch_counts}
+
         rec_e = Recorder(bruteforce, ["_brute_cuda"])
         try:
             for name, (flags, kernels) in routes.items():
                 argv = [path, *flags, *common, "-o", os.path.join(tmp, name)]
                 if name == "lambert-shadow":
                     argv.append("--profile")
-                sweep.reset_launch_counts()
-                bruteforce.reset_launch_counts()
+                reset()
                 check(render_cli.main(argv) == 0,
                       f"render CLI ({name}) failed")
                 sync()
-                counts = {**sweep.launch_counts, **bruteforce.launch_counts}
-                print(f"render CLI {name}: launches {counts}")
+                got = counts()
+                print(f"render CLI {name}: launches {got}")
                 for k in kernels:
-                    check(counts[k] > 0, f"render CLI {name}: kernel {k} "
+                    check(got[k] > 0, f"render CLI {name}: kernel {k} "
                           "never launched")
-                    launches[k] += counts[k]
+                    launches[k] += got[k]
         finally:
             rec_e.restore()
         brute_calls_err(rec_e.calls["_brute_cuda"], "render CLI brute")
@@ -2337,17 +2394,21 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
 
         # 27. The same runs on the plain versions: parity routes equal,
         # lambert within 1 per u8 channel.
-        with PlainOnCard({
-                sweep: {"_primary_shade_cuda": sweep._primary_shade_plain,
-                        "_occlusion_cuda": sweep._occlusion_plain,
-                        "_primary_cuda": sweep._primary_plain},
-                bruteforce: {"_brute_cuda": bruteforce._brute_plain}}):
+        plain = {
+            sweep: {"_primary_shade_cuda": sweep._primary_shade_plain,
+                    "_occlusion_cuda": sweep._occlusion_plain,
+                    "_primary_cuda": sweep._primary_plain},
+            bruteforce: {"_brute_cuda": bruteforce._brute_plain},
+            beam: {"_beam_cuda": beam._beam_plain},
+            traverse: {"_walk_closest_cuda": traverse._walk_closest_plain,
+                       "_walk_any_cuda": traverse._walk_any_plain}}
+        with PlainOnCard(plain):
             for name, (flags, _) in routes.items():
                 check(render_cli.main([path, *flags, *common, "-o",
                                        os.path.join(tmp, name + "_plain")])
                       == 0, f"render CLI ({name}, plain) failed")
         for name in routes:
-            bar = 1 if name == "lambert-shadow" else 0
+            bar = 1 if name == "lambert-shadow" else 0  # FrameRenderer
             worst, hit = 0, 0.0
             for f in range(frames):
                 png = f"frame_{f:04d}.png"
@@ -2399,8 +2460,341 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
         check(fly_launches >= FLY_FRAMES, "fly loop: kernel E not launched")
         check(not any(r.locked for r in rts), "fly loop left a target locked")
         launches["brute"] += fly_launches
+
+        # `fly.main` with its default structure (BVH), against the same
+        # run on the plain versions: equal PNGs.
+        script = os.path.join(tmp, "events.jsonl")
+        with open(script, "w") as f:
+            for frame, evs in events.items():
+                for ev in evs:
+                    f.write(json.dumps({"frame": frame, **ev}) + "\n")
+        argv = ["--model", path, "--script", script, "--frames",
+                str(FLY_FRAMES), "--size", str(fly_size)]
+        reset()
+        check(fly.main(argv + ["--out", os.path.join(tmp, "fly")]) == 0,
+              "fly.main failed")
+        sync()
+        got = counts()
+        check(got["beam"] > 0, "fly.main: kernel L never launched")
+        for k in ("beam", "walk_any", "walk_closest"):
+            launches[k] += got[k]
+        with PlainOnCard(plain):
+            check(fly.main(argv + ["--out", os.path.join(tmp, "fly_plain")])
+                  == 0, "fly.main (plain) failed")
+        names = sorted(os.listdir(os.path.join(tmp, "fly")))
+        check(len(names) == FLY_FRAMES, f"fly.main wrote {names}")
+        hit = 0.0
+        for png in names:
+            k = read_png(os.path.join(tmp, "fly", png))
+            check(np.array_equal(k, read_png(os.path.join(tmp, "fly_plain",
+                                                          png))),
+                  f"fly.main {png} differs from the plain path's")
+            hit = max(hit, float((k != k[0, 0]).any(axis=-1).mean()))
+        check(hit > 0.0, "fly.main: the model is not in view")
+        print(f"fly.main (default --accel, BVH): {len(names)} frames equal "
+              f"to the plain path's, launches {got}, up to {hit:.4f} of "
+              f"pixels off the background")
         clock.done("28 (fly loop)")
     return launches
+
+
+# The BVH path: the bench frame's scene and camera; the wavefront's frame
+# edge; the frame edge of kernel L's check at tiles of 2x2 and 3x3; the
+# FP32 operations of kernel K's slab test (6 subtractions, 6 multiplies, 6
+# pairwise min/max, 4 more to reduce them, the clamp at 0) and of kernel
+# L's node test (5 planes of 3 subtractions, 3 multiplies and
+# 2 adds; the gap's 6 subtractions, 6 clamps and 3 adds; its square's 3
+# multiplies and 2 adds; tile_tmax squared), comparisons not counted.
+WAVEFRONT_SIZE = 256
+SMALL_TILE_FRAME = 48
+SLAB_OPS = 23
+BEAM_NODE_OPS = 61
+BVH_SOURCE = "raytracercuda_torch/csrc/bvh.cu"
+
+
+def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
+             wf_size=WAVEFRONT_SIZE, api_size=C2_SIZE,
+             suzanne_faces=C2_SUZANNE):
+    """Phases 31-36: the LBVH backend on the bench frame's scene (``data``,
+    ``eye``, ``orient``, ``rays`` of ``size``²) and on config 2's scene
+    through `Scene.create()` with no config.  Returns the kernels' records
+    (K closest, K any hit, L; launches of this path only) and the BVH
+    frame's milliseconds."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.accel.bvh import build_bvh
+    from raytracercuda_torch.accel.stats import bvh_stats
+    from raytracercuda_torch.config import AccelKind, RenderConfig
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.trace import beam, bruteforce, pipeline, traverse
+    from raytracercuda_torch.trace.dense import (tile_frustum_planes,
+                                                 tile_pixels)
+    from raytracercuda_torch.trace.frame import FrameRenderer
+    from raytracercuda_torch.trace.wavefront import trace_wavefront
+
+    flt_max = float(3.4028234663852886e38)
+    launches = {"walk_closest": 0, "walk_any": 0, "beam": 0}
+
+    def reset():
+        traverse.reset_launch_counts()
+        beam.reset_launch_counts()
+        bruteforce.reset_launch_counts()
+
+    def read(*need):
+        """The counts since `reset`, added to this path's launches; each
+        kernel of ``need`` must have launched."""
+        sync_device(dev)
+        c = {**traverse.launch_counts, **beam.launch_counts}
+        for k in need:
+            check(c[k] > 0, f"BVH path: kernel {k} never launched")
+        for k in launches:
+            launches[k] += c[k]
+        return c
+
+    plain_all = {beam: {"_beam_cuda": beam._beam_plain},
+                 traverse: {"_walk_closest_cuda": traverse._walk_closest_plain,
+                            "_walk_any_cuda": traverse._walk_any_plain},
+                 bruteforce: {"_brute_cuda": bruteforce._brute_plain}}
+
+    config = RenderConfig()
+    check(config.accel is AccelKind.BVH, "the default structure is not BVH")
+    tc, bc = config.trace, config.bvh
+    t_eps = np.float32(tc.t_epsilon)
+
+    # 31. The build on the card, held bitwise against the CPU's.
+    build_ms = time_cuda(lambda: build_bvh(data.positions, data.faces, bc),
+                         5)
+    bvh = build_bvh(data.positions, data.faces, bc)
+    host = build_bvh(data.positions.cpu(), data.faces.cpu(), bc)
+    for name in bvh._fields:
+        k, p = getattr(bvh, name).cpu(), getattr(host, name)
+        same = (bits_equal(k, p) if p.dtype == torch.float32
+                else torch.equal(k, p))
+        check(same, f"build_bvh on the card: {name} differs from the CPU's")
+    st = bvh_stats(bvh)
+    print(f"BVH build: {data.num_faces} faces -> {st['nodes']} nodes, "
+          f"{st['leaves']} leaves, leaf depth p50 {st['leaf_depth']['p50']} "
+          f"p99 {st['leaf_depth']['p99']} max {st['leaf_depth']['max']}, "
+          f"faces per leaf mean {st['faces_per_leaf']['mean']}; "
+          f"{build_ms:.4f} ms on {card}; every field bitwise equal to the "
+          "CPU build")
+    clock.done("31 (BVH build)")
+
+    # 32. K (closest hit) on the primary rays, through `trace_bvh`, and on
+    # a scattered bundle through `trace_hit`.
+    n = size * size
+    dirs = pipeline.rotate_rays(rays, orient).contiguous()
+    origin = eye[None, :].expand(dirs.shape).contiguous()
+    bo, bd = scattered_bundle(dev, data.positions.amin(dim=0),
+                              data.positions.amax(dim=0), BUNDLE_RAYS, 5)
+    reset()
+    walk_hit = traverse.trace_bvh(bvh, data.positions, data.faces, origin,
+                                  dirs, bc, tc)
+    bundle_hit = pipeline.trace_hit(data, bvh, bo, bd, config)
+    read("walk_closest")
+    k_args = (bvh, origin, dirs, bc.max_iters, t_eps)
+    kk = traverse._walk_closest_cuda(*k_args)
+    pk, k_plain_ms = time_once(
+        lambda: traverse._walk_closest_plain(*k_args))
+    hits, _ = closest_err(kk, pk, "kernel K (closest hit)")
+    k_face = traverse.slot_hit(bvh, *kk).face
+    check(torch.equal(walk_hit.face, k_face), "trace_bvh's faces differ")
+    pb = traverse._walk_closest_plain(bvh, bo, bd, bc.max_iters, t_eps)
+    check(torch.equal(bundle_hit.face, traverse.slot_hit(bvh, *pb).face),
+          "kernel K on the bundle: faces differ from plain")
+    e_hit = bruteforce.trace_brute(data.positions, data.faces, origin, dirs,
+                                   tc)
+    ties = k_face != e_hit.face
+    check(bits_equal(e_hit.t, kk[0]), "kernel K's t differs from kernel E's "
+          f"on {int((e_hit.t != kk[0]).sum())} rays")
+    print(f"kernel K (closest hit) matches plain: {hits} of {n} rays hit, "
+          f"slots equal, t/u/v bit-equal; the {BUNDLE_RAYS}-ray bundle "
+          f"through trace_hit equal to plain; against kernel E t bit-equal "
+          f"everywhere, {int(ties.sum())} pixels differ in face only by an "
+          f"exact-t tie (E takes the lowest face id, the walk the lowest "
+          f"Morton slot)")
+    clock.done("32 (K closest)")
+
+    # 33. L through `trace_hit` on the frame.
+    reset()
+    beam_hit = pipeline.trace_hit(data, bvh, origin, dirs, config,
+                                  frame_hw=(size, size), common_origin=eye)
+    read("beam")
+    tp = tc.beam_tile
+    planes = tile_frustum_planes(tile_pixels(dirs, size, size, tp),
+                                 tp).contiguous()
+    l_args = (bvh, eye, dirs, planes, size, size, tp, tc.beam_queue,
+              bc.max_leaf_faces, beam.walk_steps(bc.max_iters), t_eps,
+              tc.beam_tiles_per_chunk)
+    kl = beam._beam_cuda(*l_args)
+    pl, l_plain_ms = time_once(lambda: beam._beam_plain(*l_args))
+    closest_err(kl, pl, "kernel L")
+    check(torch.equal(kl[3], kk[3]) and bits_equal(kl[0], kk[0]),
+          "kernel L's slots or t differ from kernel K's")
+    check(torch.equal(beam_hit.face, k_face), "trace_hit's beam faces differ")
+    # Tiles of fewer than 15 pixels: their blocks load the 15 plane floats
+    # in a strided loop.
+    sf = SMALL_TILE_FRAME
+    small_dirs = pipeline.rotate_rays(camera_ray_grid(sf, sf, device=dev),
+                                      orient).contiguous()
+    small_hits = []
+    for stp in (2, 3):
+        s_args = (bvh, eye, small_dirs, tile_frustum_planes(
+            tile_pixels(small_dirs, sf, sf, stp), stp).contiguous(), sf, sf,
+            stp) + l_args[7:]
+        small_hits.append(closest_err(
+            beam._beam_cuda(*s_args), beam._beam_plain(*s_args),
+            f"kernel L at {stp}x{stp} tiles")[0])
+    print(f"kernel L matches plain: slots equal, t/u/v bit-equal, slots and "
+          f"t equal to kernel K's; {size // tp}x{size // tp} tiles of "
+          f"{tp}x{tp}, queue {tc.beam_queue}; also on {sf}x{sf} rays in "
+          f"tiles of 2x2 and 3x3 ({small_hits} hits)")
+    clock.done("33 (L)")
+
+    # 34. K (any hit) on the frame's shadow rays, by render_grad's rule.
+    light = torch.tensor([0.4, 0.8, -0.45], device=dev)
+    light = light / torch.sqrt(torch.sum(light * light))
+    hit_mask = k_face >= 0
+    p = origin + dirs * torch.clamp(kk[0], max=1e6)[:, None]
+    so = (torch.where(hit_mask[:, None], p, origin)
+          + light * (10 * tc.t_epsilon)).contiguous()
+    sd = light.expand(dirs.shape).contiguous()
+    reset()
+    occ = traverse.any_hit_bvh(bvh, data.positions, data.faces, so, sd,
+                               flt_max, bc, tc)
+    read("walk_any")
+    a_args = (bvh, so, sd, torch.full((n,), flt_max, device=dev),
+              bc.max_iters, t_eps)
+    ka = traverse._walk_any_cuda(*a_args)
+    pa, a_plain_ms = time_once(lambda: traverse._walk_any_plain(*a_args))
+    a_err = occlusion_err(ka, pa, "kernel K (any hit)")
+    check(torch.equal(occ, ka), "any_hit_bvh's mask differs")
+    check(torch.equal(ka, bruteforce.any_hit_brute(
+        data.positions, data.faces, so, sd, flt_max, tc)),
+        "kernel K (any hit) differs from any_hit_brute")
+    print(f"kernel K (any hit) matches plain and any_hit_brute: "
+          f"{int((ka & hit_mask).sum())} of {int(hit_mask.sum())} hit "
+          f"pixels in shadow, {int(ka.sum())} occluded rays in all")
+    clock.done("34 (K any hit)")
+
+    # 35. The wavefront (plain PyTorch on the card).
+    wd = pipeline.rotate_rays(camera_ray_grid(wf_size, wf_size, device=dev),
+                              orient).contiguous()
+    wo = eye[None, :].expand(wd.shape).contiguous()
+    wf, wf_ms = time_once(lambda: trace_wavefront(
+        bvh, data.positions, data.faces, wo, wd, bc, tc))
+    wk = traverse.slot_hit(bvh, *traverse._walk_closest_cuda(
+        bvh, wo, wd, bc.max_iters, t_eps))
+    check(torch.equal(wf.face, wk.face),
+          f"wavefront faces differ from kernel K's on "
+          f"{int((wf.face != wk.face).sum())} rays")
+    print(f"wavefront at {wf_size}x{wf_size}: faces equal to kernel K's, "
+          f"{wf_ms:.1f} ms")
+    clock.done("35 (wavefront)")
+
+    # 36. The public API's default structure: Scene.create() with no
+    # config, config 2's scene, Camera.trace_scene (kernel L); then the
+    # FrameRenderer's BVH route with shadows on the bench frame.
+    scene2, cam, target, eye2, orient2 = config2_scene(
+        dev, api_size, suzanne_faces, default_structure=True)
+    check(scene2.config.accel is AccelKind.BVH,
+          "Scene.create() did not pick BVH")
+    reset()
+    check(cam.trace_scene(eye2, orient2, scene2, target) == 0,
+          "trace_scene on the default structure")
+    read("beam")
+    api_frame = target.buffer.clone()
+    with PlainOnCard(plain_all):
+        check(cam.trace_scene(eye2, orient2, scene2, target) == 0,
+              "trace_scene on the plain versions")
+        sync_device(dev)
+    check(torch.equal(api_frame, target.buffer),
+          "default-structure frame differs from the plain path's")
+    check(target.unlock() == 0, "unlock")
+    renderer = FrameRenderer(data, bvh, config, size, size)
+    reset()
+    frame = renderer.render(eye, orient, rays)
+    read("beam")
+    check(bruteforce.launch_counts["brute"] > 0,
+          "BVH frame: kernel E (shadows) never launched")
+    with PlainOnCard(plain_all):
+        plain_frame = renderer.render(eye, orient, rays)
+        sync_device(dev)
+    worst = u8_diff(frame, plain_frame)
+    check(worst <= 1, f"BVH frame vs plain frame: u8 diff {worst}")
+    frame_ms = time_cuda(lambda: renderer.render(eye, orient, rays), 10)
+    print(f"Scene.create() (no config) -> {scene2.config.accel}: "
+          f"{api_size}x{api_size} frame equal to the plain path's, "
+          f"{int((api_frame != 255 << 8).sum())} pixels hit; FrameRenderer "
+          f"BVH route with shadows at {size}x{size}: max u8 diff {worst} to "
+          f"the plain path, {frame_ms:.4f} ms/frame, "
+          f"{n / frame_ms * 1e3:.6g} rays/s (W*H per frame) on {card}")
+    clock.done("36 (default structure, BVH frame)")
+
+    # Times and bounds: the work each function needs on these inputs, from
+    # instrumented plain runs of the walk.  L computes the same closest
+    # hits on the same rays as K (phase 33 holds its slots and t to K's),
+    # and its candidates are chosen inside the kernel, not given to it, so
+    # its bound is K's work with L's own inputs and outputs; the beam's
+    # own tests are printed beside it.  Bytes: each input and output once,
+    # and of the tree only the node and triangle rows the walk reads.
+    tallies = []
+    for fn, args in ((traverse._walk_closest_plain, k_args),
+                     (traverse._walk_any_plain, a_args),
+                     (beam._beam_plain, l_args)):
+        tally = {"box_tests": 0, "tri_tests": 0}
+        fn(*args, tally=tally)
+        tallies.append(tally)
+
+    def walk_work(tally, *io):
+        node_row = nbytes(bvh.packed_nodes[:1], bvh.packed_links[:1])
+        tri_row = nbytes(bvh.packed_tris[:1])
+        return (tally["tri_tests"] * MT_OPS + tally["box_tests"] * SLAB_OPS
+                + 3 * n,
+                int(tally["touched_nodes"].sum()) * node_row
+                + int(tally["touched_rows"].sum()) * tri_row + nbytes(*io))
+
+    work = [walk_work(tallies[0], origin, dirs, kk),
+            walk_work(tallies[1], *a_args[1:4], ka),
+            walk_work(tallies[0], eye, dirs, planes, kl)]
+    for name, tally in (("K closest", tallies[0]), ("K any hit", tallies[1])):
+        print(f"kernel {name} reads {int(tally['touched_nodes'].sum())} of "
+              f"{bvh.packed_nodes.shape[0]} nodes and "
+              f"{int(tally['touched_rows'].sum())} of "
+              f"{bvh.packed_tris.shape[0]} triangle rows")
+    print(f"kernel L's own work (the tile beam's, above the bound's): "
+          f"{tallies[2]['tri_tests']} ray-triangle tests, "
+          f"{tallies[2]['box_tests']} node tests of {BEAM_NODE_OPS} "
+          f"operations")
+    fns = [(lambda: traverse._walk_closest_cuda(*k_args), "walk_kernel"),
+           (lambda: traverse._walk_any_cuda(*a_args), "walk_kernel"),
+           (lambda: beam._beam_cuda(*l_args), "beam_kernel")]
+    names = [("walk_closest", "raytracercuda_tpu/trace/traverse.py:62",
+              k_plain_ms, 0.0),
+             ("walk_any", "raytracercuda_tpu/trace/traverse.py:163",
+              a_plain_ms, a_err),
+             ("beam", "raytracercuda_tpu/trace/beam.py:121", l_plain_ms,
+              0.0)]
+    records = []
+    for (name, replaces, plain_ms, err), (fn, kernel), (o, m), tally in zip(
+            names, fns, work, tallies):
+        ms = time_cuda(fn, 20)
+        dev_ms, _, recorded = device_ms(fn, 20, (kernel,))
+        hidden = time_queued(fn, 20)
+        records.append(kernel_record(name, BVH_SOURCE, replaces,
+                                     launches[name], err, ms, plain_ms,
+                                     bound(o, m), device_ms=dev_ms))
+        print(f"kernel {name}: {ms:.4f} ms a launch by events, "
+              f"{ms_text(dev_ms)} on the card (profiler, {recorded} of 20 "
+              f"launches recorded), host hidden {ms_text(hidden)}, plain "
+              f"{plain_ms:.1f} ms on the card; bound {o:.0f} operations, "
+              f"{m} bytes; its own {tally['tri_tests']} ray-triangle "
+              f"tests, {tally['box_tests']} node tests")
+    print(f"wavefront {wf_size}x{wf_size} (plain PyTorch): {wf_ms:.1f} ms; "
+          f"BVH build {build_ms:.4f} ms; on {card}")
+    clock.done("37 (BVH kernel times)")
+    return records, frame_ms
 
 
 def main() -> None:
@@ -2565,11 +2959,19 @@ def main() -> None:
     c5_kernels, c5_ab = bounce_path(dev, clock, card)
     c1_kernels, c1_clear = fill_path(dev, clock, card)
     app = app_path(dev, clock, card)
+    bvh_kernels, bvh_frame_ms = bvh_path(dev, clock, card, data, eye, orient,
+                                         rays)
+    for k in bvh_kernels:  # the CLI's and fly's launches of K and L
+        k["launches"] += app[k["name"]]
+    print(f"frames at {SIZE}x{SIZE} on {card}: BVH route (L, shadows by E) "
+          f"{bvh_frame_ms:.4f} ms, {px / bvh_frame_ms * 1e3:.6g} rays/s; "
+          f"CLUSTER bench frame (A, B) {frame_ms:.4f} ms, "
+          f"{px / frame_ms * 1e3:.6g} rays/s (W*H per frame)")
 
     # 29. The bench frame's device times, and A's and B's with their K
     # sweeps: last, so that no profiler session runs before the config-4
     # steps that phase 13 times by events.
-    frame_device_ms = device_time(render, 10)
+    frame_device_ms = device_ms(render, 10)[0]
     print(f"bench frame (kernel path) on the card: "
           f"{ms_text(frame_device_ms)} (every activity summed)")
     a_device_ms, b_device_ms = split_chunk_report(
@@ -2610,7 +3012,7 @@ def main() -> None:
                       "raytracercuda_tpu/trace/pallas_brute.py:36",
                       **{**c2["brute"],
                          "launches": c2["brute"]["launches"] + app["brute"]}),
-        *c5_kernels, *c1_kernels,
+        *c5_kernels, *c1_kernels, *bvh_kernels,
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["primary"]["launches"] += app["primary"]  # the CLI's parity route

@@ -22,9 +22,9 @@ Event-script format (one JSON object per line):
 Events fire at the START of their frame (same as an SDL poll).
 
 `main` renders on the card unless ``--device cpu`` is given.  Its
-``--accel`` defaults to ``cluster``, where the JAX package's defaults to
-``bvh``: the port's LBVH comes with slice 6, and until then ``bvh``,
-``grid`` and ``wavefront`` raise `NotImplementedError`.
+``--accel`` defaults to ``bvh``, as the JAX package's does (kernel L
+traces its frames); ``grid`` raises `NotImplementedError` until the GRID
+slice of the port.
 """
 
 from __future__ import annotations
@@ -164,7 +164,7 @@ def main(argv=None) -> int:
     p.add_argument("--script", required=True, help="event-script path")
     p.add_argument("--frames", type=int, default=30)
     p.add_argument("--size", type=int, default=256)
-    p.add_argument("--accel", default="cluster",
+    p.add_argument("--accel", default="bvh",
                    choices=[k.value for k in AccelKind])
     p.add_argument("--out", default="frames_fly")
     p.add_argument("--num-rt", type=int, default=NUM_RT)

@@ -14,13 +14,17 @@ Routes, by ``--shading`` and ``--accel``:
 
   * ``parity``: `Camera.trace_scene`, the reference's packed normal
     shading; BRUTE traces through kernel E, CLUSTER through kernel C
-    (edge-padded where the 16-pixel tile does not divide the size);
+    (edge-padded where the 16-pixel tile does not divide the size), BVH
+    through kernel L's tile beams (kernel K's per-ray walk where the
+    16-pixel beam tile does not divide the size), WAVEFRONT through its
+    plain PyTorch rounds;
   * ``lambert``/``lambert-shadow`` on CLUSTER at a size the tile divides:
     `FrameRenderer` (kernels A and B), the bench's frame;
-  * otherwise `render_rgb` and `pack_shaded`.
+  * otherwise `render_rgb` and `pack_shaded` (shadows through kernel K's
+    any-hit walk on BVH and WAVEFRONT).
 
-``--accel bvh|grid|wavefront`` raises `Scene`'s `NotImplementedError`:
-those structures come with slice 6 of the port.
+``--accel grid`` raises `Scene`'s `NotImplementedError`: GRID comes with a
+later slice of the port.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@
 // about twice the 67 TFLOP/s bound, which counts an FMA as two operations.
 //
 // The design keeps the pipes fed and runs fewer instructions a pair:
-//   * `brute_mt` runs the miss tests as their terms come: a pair that
+//   * `oracle_mt` runs the miss tests as their terms come: a pair that
 //     misses on u (most pairs) computes no v or t, and a warp whose rays
 //     all miss skips them; a hit runs every term in the oracle's order;
 //   * each thread holds P rays in registers (`rays_per_thread`), and reads
@@ -39,7 +39,7 @@
 //     +inf never wins, and with clip_backward_hits off -inf and negative
 //     t do;
 //   * pass 2, one thread per ray, decodes the key and re-runs the same
-//     `brute_mt` on the winning face's columns, so t (with its sign), u
+//     `oracle_mt` on the winning face's columns, so t (with its sign), u
 //     and v are bit-equal to the plain version's.  The TPU kernel also
 //     re-intersects its winner outside its sweep.
 // The edges e1 = v1 - v0 and e2 = v2 - v0 are the wrapper's float32
@@ -52,46 +52,13 @@
 
 #include "hit_key.cuh"
 #include "launch.cuh"
+#include "mt.cuh"
 
 namespace {
 
 constexpr int kBruteThreads = 128;  // threads of a pass-1 block
 constexpr int kRun = 128;           // faces staged in shared memory at once
 constexpr int kRowFloats = 12;      // floats per staged face: v0|e1|e2, pad
-
-// The oracle's test of one ray against the face v0|e1|e2 (`tri_intersect`,
-// math.py:80-108): returns t, FLT_MAX on a miss or, with use_eps, below
-// t_eps; u and v as computed.
-__device__ __forceinline__ float brute_mt(float v0x, float v0y, float v0z,
-                                          float e1x, float e1y, float e1z,
-                                          float e2x, float e2y, float e2z,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          bool use_eps, float t_eps,
-                                          float& u, float& v) {
-  // pvec = d x e2; det = e1 . pvec.
-  const float pvx = dy * e2z - dz * e2y;
-  const float pvy = dz * e2x - dx * e2z;
-  const float pvz = dx * e2y - dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const float inv = 1.0f / det;
-  const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-  v = 0.0f;
-  // The miss tests in the order the terms come: u < 0, u > 1 or a NaN u
-  // needs no v or t, and most pairs leave here (a warp whose rays all
-  // leave skips the rest).  A hit runs every term as the oracle does.
-  if (!(u >= 0.0f && u <= 1.0f)) return kFltMax;
-  // qvec = tvec x e1.
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  v = (dx * qvx + dy * qvy + dz * qvz) * inv;
-  if (!(v >= 0.0f && u + v <= 1.0f)) return kFltMax;  // or a NaN v
-  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-  if (isnan(t) || (use_eps && t < t_eps)) return kFltMax;
-  return t;
-}
 
 // Starts the copy of faces [f, f + n) of the [9, F] columns into `s` as
 // [n][12] rows (4-byte cp.async copies, each column read in order) and
@@ -164,9 +131,9 @@ __global__ void __launch_bounds__(kBruteThreads) brute_items_kernel(
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         float u, v;
-        const float t = brute_mt(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x,
-                                 ox[p], oy[p], oz[p], dx[p], dy[p], dz[p],
-                                 use_eps != 0, t_eps, u, v);
+        const float t = oracle_mt(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                                  e.x, ox[p], oy[p], oz[p], dx[p], dy[p],
+                                  dz[p], use_eps != 0, t_eps, u, v);
         if (t < bt[p]) {
           bt[p] = t;
           bf[p] = f + j;
@@ -184,7 +151,7 @@ __global__ void __launch_bounds__(kBruteThreads) brute_items_kernel(
 }
 
 // Pass 2: one thread per ray.  A miss writes t = FLT_MAX, u = v = 0 and
-// face -1; a hit re-runs `brute_mt` on the winning face's columns.
+// face -1; a hit re-runs `oracle_mt` on the winning face's columns.
 __global__ void brute_epilogue_kernel(
     const unsigned long long* __restrict__ keys,
     const float* __restrict__ origins, const float* __restrict__ dirs,
@@ -200,10 +167,11 @@ __global__ void brute_epilogue_kernel(
     face = static_cast<int>(static_cast<unsigned int>(key));
     const float* c = tris + face;
     const size_t F = num_faces;
-    t = brute_mt(c[0], c[F], c[2 * F], c[3 * F], c[4 * F], c[5 * F],
-                 c[6 * F], c[7 * F], c[8 * F], origins[3 * i],
-                 origins[3 * i + 1], origins[3 * i + 2], dirs[3 * i],
-                 dirs[3 * i + 1], dirs[3 * i + 2], use_eps != 0, t_eps, u, v);
+    t = oracle_mt(c[0], c[F], c[2 * F], c[3 * F], c[4 * F], c[5 * F],
+                  c[6 * F], c[7 * F], c[8 * F], origins[3 * i],
+                  origins[3 * i + 1], origins[3 * i + 2], dirs[3 * i],
+                  dirs[3 * i + 1], dirs[3 * i + 2], use_eps != 0, t_eps, u,
+                  v);
   }
   out_t[i] = t;
   out_u[i] = u;

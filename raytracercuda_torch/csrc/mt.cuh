@@ -1,0 +1,48 @@
+// The oracle's Moller-Trumbore test (`ops/math.tri_intersect`), shared by
+// kernel E (brute.cu) and kernels K and L (bvh.cu): the NaN miss rule, no
+// |det| threshold, and with use_eps t < t_eps clipped.  Built with
+// -fmad=false and IEEE division, each expression rounds as the plain
+// PyTorch versions' separate operations do.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "hit_key.cuh"
+
+namespace {
+
+// The oracle's test of one ray against the face v0|e1|e2 (`tri_intersect`,
+// math.py:80-108): returns t, FLT_MAX on a miss or, with use_eps, below
+// t_eps; u and v as computed.
+__device__ __forceinline__ float oracle_mt(float v0x, float v0y, float v0z,
+                                           float e1x, float e1y, float e1z,
+                                           float e2x, float e2y, float e2z,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           bool use_eps, float t_eps,
+                                           float& u, float& v) {
+  // pvec = d x e2; det = e1 . pvec.
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv = 1.0f / det;
+  const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+  v = 0.0f;
+  // The miss tests in the order the terms come: u < 0, u > 1 or a NaN u
+  // needs no v or t, and most pairs leave here (a warp whose rays all
+  // leave skips the rest).  A hit runs every term as the oracle does.
+  if (!(u >= 0.0f && u <= 1.0f)) return kFltMax;
+  // qvec = tvec x e1.
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  v = (dx * qvx + dy * qvy + dz * qvz) * inv;
+  if (!(v >= 0.0f && u + v <= 1.0f)) return kFltMax;  // or a NaN v
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+  if (isnan(t) || (use_eps && t < t_eps)) return kFltMax;
+  return t;
+}
+
+}  // namespace

@@ -5,9 +5,10 @@ uvs, albedo, textures, eye and orientation (counterpart of
 Which face each ray hits is discrete, so the gradient is taken in two
 parts:
 
-  1. traversal (kernel C, or E on BRUTE) and the shadow test (kernel H,
-     or E) run under ``torch.no_grad()`` on detached tensors; only the
-     integer face ids and the shadow mask go on;
+  1. traversal (kernel C on CLUSTER, L or K on BVH, E on BRUTE) and the
+     shadow test (kernel H, K or E) run under ``torch.no_grad()`` on
+     detached tensors; only the integer face ids and the shadow mask go
+     on;
   2. t, u and v are re-derived from the hit face alone with live
      parameters, and shading interpolates, samples and lights them, so
      autograd reaches every continuous input.
@@ -236,8 +237,9 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
 def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
                         frame_hw) -> torch.Tensor:
     """Discrete directional-light occlusion mask from a traversal `Hit`,
-    without gradients: kernel E on BRUTE, kernel H over the swept-beam
-    lists on CLUSTER (a frame the tile does not divide is edge-padded and
+    without gradients: kernel E on BRUTE, kernel K's any-hit walk on BVH
+    and WAVEFRONT (``t_max`` FLT_MAX), kernel H over the swept-beam lists
+    on CLUSTER (a frame the tile does not divide is edge-padded and
     cropped; rays that are not a frame go in groups of one tile's count,
     in their given order).
 
@@ -246,9 +248,9 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
     scaling), active wherever the primary ray hit."""
     tc = config.trace
     brute = config.accel == AccelKind.BRUTE or accel is None
-    if not brute and config.accel != AccelKind.CLUSTER:
+    if config.accel == AccelKind.GRID and not brute:
         raise NotImplementedError(
-            f"shadows on {config.accel} wait for slice 6 of the port")
+            f"shadows on {config.accel} wait for the GRID slice of the port")
     with torch.no_grad():
         origin, dirs, l = origin.detach(), dirs.detach(), l.detach()
         hit_mask = hit_nd.hit_mask
@@ -261,6 +263,12 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
             mask = any_hit_brute(scene.positions.detach(), scene.faces,
                                  shadow_origin, l.expand(dirs.shape),
                                  float(FLT_MAX), tc)
+        elif config.accel != AccelKind.CLUSTER:
+            from ..trace.traverse import any_hit_bvh
+
+            mask = any_hit_bvh(accel, scene.positions.detach(), scene.faces,
+                               shadow_origin, l.expand(dirs.shape),
+                               float(FLT_MAX), config.bvh, tc)
         elif frame_hw is None:
             from ..trace.bounce_sweep import group_rays
             from ..trace.sweep import occlusion_tiles, segment_blocks

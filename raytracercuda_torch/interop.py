@@ -1,6 +1,6 @@
 """Scene state carried across from the JAX package.
 
-The JAX package's `SceneData` and `ClusterSet` hold jax arrays; their
+The JAX package's `SceneData`, `ClusterSet` and `Bvh` hold jax arrays; their
 fields converted to numpy (``np.asarray``) become the port's tensors
 here, on any device.  Integer index tables widen to int64, the port's
 index type.  Nothing here imports JAX.
@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel.bvh import Bvh
 from .accel.clusters import ClusterSet, edge_rows
 from .device import resolve_device
 from .models.scene import SceneData
@@ -57,3 +58,24 @@ def cluster_set_from_numpy(cmin, cmax, tris, face_order, face_rank=None, *,
                       tri_blocks=edge_rows(tris).contiguous(),
                       face_rank=None if face_rank is None
                       else _tensor(face_rank, device, np.int64))
+
+
+def bvh_from_numpy(node_min, node_max, hit_link, skip_link, is_leaf,
+                   leaf_first, leaf_count, face_order, packed_nodes,
+                   packed_links, packed_tris, *,
+                   device: torch.device | str | None = None) -> Bvh:
+    """A port `Bvh` from the fields of a JAX `Bvh` (``Bvh(**{k:
+    np.asarray(v) ...})``), on ``device`` (the card when None): index
+    tables int64, ``packed_links`` int32, boxes and triangles float32."""
+    device = resolve_device(device)
+    return Bvh(node_min=_tensor(node_min, device, np.float32),
+               node_max=_tensor(node_max, device, np.float32),
+               hit_link=_tensor(hit_link, device, np.int64),
+               skip_link=_tensor(skip_link, device, np.int64),
+               is_leaf=_tensor(is_leaf, device, np.bool_),
+               leaf_first=_tensor(leaf_first, device, np.int64),
+               leaf_count=_tensor(leaf_count, device, np.int64),
+               face_order=_tensor(face_order, device, np.int64),
+               packed_nodes=_tensor(packed_nodes, device, np.float32),
+               packed_links=_tensor(packed_links, device, np.int32),
+               packed_tris=_tensor(packed_tris, device, np.float32))

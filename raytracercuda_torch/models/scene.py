@@ -2,9 +2,9 @@
 API's ``march`` (counterpart of `raytracercuda_tpu/models/scene.py`).
 
 Every mesh is concatenated into single SoA tensors with a global face
-table, rows ``(i0, i1, i2, mesh_id)``.  The `Scene` builds the CLUSTER
-structure, or none for BRUTE; BVH, GRID and WAVEFRONT come with slice 6 of
-the port.
+table, rows ``(i0, i1, i2, mesh_id)``.  The `Scene` builds the LBVH for
+BVH and WAVEFRONT (the default structure), the cluster set for CLUSTER,
+or none for BRUTE; GRID comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -138,10 +138,11 @@ class Scene:
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
                  device: torch.device | str | None = None):
-        if config.accel not in (AccelKind.CLUSTER, AccelKind.BRUTE):
+        if config.accel is AccelKind.GRID:
             raise NotImplementedError(
-                f"{config.accel} waits for slice 6 of the port (the "
-                "remaining backends); the port builds CLUSTER and BRUTE")
+                f"{config.accel} waits for the GRID slice of the port "
+                "(accel/grid.py, trace/grid_march.py); the port builds BVH, "
+                "WAVEFRONT, CLUSTER and BRUTE")
         self.config = config
         self.device = resolve_device(device)
         self._meshes: list[Mesh] = []
@@ -181,10 +182,15 @@ class Scene:
         return self._data
 
     def update_gpu_scene(self):
-        """Rebuild the structure over the flattened scene: the cluster set,
-        or None for BRUTE."""
+        """Rebuild the structure over the flattened scene: the LBVH (BVH
+        and WAVEFRONT), the cluster set, or None for BRUTE."""
         data = self.data()
-        if self.config.accel is AccelKind.CLUSTER:
+        if self.config.accel in (AccelKind.BVH, AccelKind.WAVEFRONT):
+            from ..accel.bvh import build_bvh
+
+            self._accel = build_bvh(data.positions, data.faces,
+                                    self.config.bvh)
+        elif self.config.accel is AccelKind.CLUSTER:
             from ..accel.clusters import build_clusters
 
             self._accel = build_clusters(data.positions, data.faces,

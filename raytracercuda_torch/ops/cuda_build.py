@@ -6,7 +6,7 @@ plain C interface in ``raytracercuda_torch/_build/`` (git-ignored).  The
 library's name carries a hash of the sources, headers and flags, so an
 edited source is rebuilt.  Nothing here runs at import.
 
-`kernel_fn` and `raw_stream` are every wrapper's launch path (A-J): the
+`kernel_fn` and `raw_stream` are every wrapper's launch path (A-L): the
 library's function looked up once, and the current stream's handle
 without building a `torch.cuda.Stream`.
 """
@@ -27,9 +27,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
-                ("sweep.cu", "scatter.cu", "brute.cu", "frame.cu"))
+                ("sweep.cu", "scatter.cu", "brute.cu", "frame.cu",
+                 "bvh.cu"))
 HEADERS = tuple(_PKG / "csrc" / name for name in
-                ("launch.cuh", "hit_key.cuh"))
+                ("launch.cuh", "hit_key.cuh", "mt.cuh"))
 BUILD_DIR = _PKG / "_build"
 # -fmad=false and IEEE division (no --use_fast_math): every expression
 # rounds as the plain PyTorch versions' separate operations do.
@@ -117,6 +118,11 @@ SIGNATURES = {
     "rt_clear": (_P, _I64, _U32, _P),
     "rt_gradient": (_P, _I64, _P),
     "rt_blob": (_P, _I, _I, _P, _P),
+    "rt_walk_closest": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P,
+                        _P, _P),
+    "rt_walk_any": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P),
+    "rt_beam": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                _P, _P, _P, _P, _P),
 }
 
 

@@ -68,3 +68,17 @@ def tri_intersect(orig, direction, v0, v1, v2):
     miss = miss | torch.isnan(u) | torch.isnan(v) | torch.isnan(t)
     t = torch.where(miss, torch.full_like(t, float(FLT_MAX)), t)
     return t, u, v
+
+
+def box_ray_intersect(bmin, bmax, orig, inv_dir):
+    """Slab test (`bmBoxRayIntersect`, `CudaComon.cuh:158-172`): the entry
+    distance, clamped to 0 when the origin is inside; FLT_MAX on a miss.
+    A NaN slab product (0 * inf) misses, as the JAX package's NaN-
+    propagating min/max make it."""
+    t_min = (bmin - orig) * inv_dir
+    t_max = (bmax - orig) * inv_dir
+    t_far = torch.amin(torch.maximum(t_min, t_max), dim=-1)
+    t_near = torch.amax(torch.minimum(t_min, t_max), dim=-1)
+    dist = torch.clamp(t_near, min=0.0)
+    dist = torch.where(t_far >= t_near, dist, float(FLT_MAX))
+    return torch.where(t_far < 0.0, float(FLT_MAX), dist)

@@ -1,7 +1,8 @@
-"""FrameRenderer: pinhole frames of one CLUSTER scene (counterpart of
-`raytracercuda_tpu/trace/frame.py:54-188`, its two-stage kernel route).
+"""FrameRenderer: pinhole frames of one scene (counterpart of
+`raytracercuda_tpu/trace/frame.py:54-251`).
 
-One `render` call:
+On a CLUSTER scene (the JAX package's two-stage kernel route) one `render`
+call:
 
   1. rotates the ray grid into planar ``[3, N]`` directions and tiles it
      ``[T, 3, R]``;
@@ -12,21 +13,27 @@ One `render` call:
   4. shades with Lambert (textured where the scene has uvs and a
      texture), packs ``0x00RRGGBB`` and untiles into row-major order.
 
-Shade blocks are built once per (scene, clusters) pair.  The tensors'
-device picks the kernels: CUDA kernels on a GPU, their plain PyTorch
-versions on the CPU.
+Shade blocks are built once per (scene, clusters) pair.  On any other
+structure (BVH, WAVEFRONT, or none for BRUTE; JAX `_frame_xla`) it traces
+with `pipeline.trace_hit` (kernel L or K on BVH), tests shadows with
+`any_hit_brute` (kernel E) from origins offset by ``light * shadow_eps``,
+and shades through the per-face rows of `shade.build_face_tables`.  The
+tensors' device picks the kernels: CUDA kernels on a GPU, their plain
+PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..accel.clusters import ClusterSet
 from ..config import RenderConfig
 from ..models.scene import SceneData
 from ..ops.math import normalize, pack_rgb
 from ..types import FLT_MAX
 from .dense import tile_pixels_planar, untile_pixels
-from .shade import sample_texture
+from .shade import (build_face_tables, pack_shaded, sample_texture,
+                    shade_lambert_rgb)
 from .sweep import (
     occlusion_tiles_planar,
     shade_segment_blocks,
@@ -35,7 +42,8 @@ from .sweep import (
 
 
 class FrameRenderer:
-    """Render pinhole frames of one (scene, clusters) pair at a fixed size."""
+    """Render pinhole frames of one (scene, structure) pair at a fixed
+    size."""
 
     def __init__(
         self,
@@ -50,7 +58,8 @@ class FrameRenderer:
         shadows: bool = True,
     ):
         tp = config.trace.dense_tile_px
-        if height % tp or width % tp:
+        self.clusters = isinstance(accel, ClusterSet)
+        if self.clusters and (height % tp or width % tp):
             raise ValueError(f"frame {height}x{width} is not a multiple of "
                              f"the {tp}-pixel tile")
         dev = scene.device
@@ -70,7 +79,10 @@ class FrameRenderer:
         # the light far enough to clear the surface at float precision.
         self.shadow_eps = torch.tensor(config.trace.t_epsilon * extent,
                                        dtype=torch.float32, device=dev)
-        self.blocks, self.has_uv = shade_segment_blocks(accel, scene)
+        if self.clusters:
+            self.blocks, self.has_uv = shade_segment_blocks(accel, scene)
+        else:
+            self.tables = build_face_tables(scene)
 
     def _trace(self, eye, orient, rays):
         # dirs = rays @ orient.T, written out per component so the three
@@ -141,6 +153,34 @@ class FrameRenderer:
         return untile_pixels(packed.reshape(t, tp * tp), self.height,
                              self.width, tp)
 
+    def _render_rows(self, eye, orient, rays):
+        """The route of every structure other than CLUSTER (JAX
+        `_frame_xla`): `trace_hit`, shadows by kernel E, per-face rows."""
+        from .bruteforce import any_hit_brute
+        from .pipeline import rotate_rays, trace_hit
+
+        tc = self.config.trace
+        dirs = rotate_rays(rays, orient)
+        origin = eye[None, :].expand(dirs.shape)
+        hit = trace_hit(self.scene, self.accel, origin, dirs, self.config,
+                        frame_hw=(self.height, self.width),
+                        common_origin=eye)
+        shadow = None
+        if self.shadows:
+            p = origin + dirs * torch.clamp(hit.t, max=1e6)[..., None]
+            so = (torch.where(hit.hit_mask[..., None], p, origin)
+                  + self.light * self.shadow_eps)
+            shadow = any_hit_brute(
+                self.scene.positions, self.scene.faces, so,
+                self.light.expand(dirs.shape), float(FLT_MAX), tc)
+            shadow = shadow & hit.hit_mask
+        rgb = shade_lambert_rgb(self.scene, hit, origin, dirs,
+                                light_dir=self.light, shadow_mask=shadow,
+                                ambient=self.ambient,
+                                background=self.background,
+                                tables=self.tables)
+        return pack_shaded(rgb)
+
     def render(self, eye: torch.Tensor, orient: torch.Tensor,
                rays: torch.Tensor) -> torch.Tensor:
         """Packed ``0x00RRGGBB`` row-major framebuffer ``[H*W]`` (int64)
@@ -148,5 +188,8 @@ class FrameRenderer:
         (`camera_ray_grid`), row-major ``[H*W, 3]``; all on the scene's
         device."""
         eye = eye.to(torch.float32)
-        d3_tiles, outs = self._trace(eye, orient.to(torch.float32), rays)
+        orient = orient.to(torch.float32)
+        if not self.clusters:
+            return self._render_rows(eye, orient, rays)
+        d3_tiles, outs = self._trace(eye, orient, rays)
         return self._shadow_shade(eye, d3_tiles, outs)

@@ -1,5 +1,5 @@
 """Swept-beam occlusion culling for directional lights (counterpart of
-`raytracercuda_tpu/trace/occlusion_cull.py:41-97`).
+`raytracercuda_tpu/trace/occlusion_cull.py:41-113`).
 
 A tile's shadow rays share one direction, so the tile is a beam: the
 active origins' AABB swept along the light.  A box can occlude only if
@@ -85,3 +85,16 @@ def beam_survive_matrix(beam: SweptBeam, cmin: torch.Tensor,
         & (cv_lo[None, :] <= beam.ov_hi[:, None])
         & (cl_hi[None, :] >= beam.ol_lo[:, None])
     )
+
+
+def beam_cannot_occlude(beam: SweptBeam, bmin: torch.Tensor,
+                        bmax: torch.Tensor) -> torch.Tensor:
+    """``[T]`` bool: per-tile boxes ``[T, 3]`` that cannot occlude their
+    tile (the walk-side dual of `beam_survive_matrix`)."""
+    nu_lo, nu_hi = box_interval(bmin, bmax, beam.u_ax)
+    nv_lo, nv_hi = box_interval(bmin, bmax, beam.v_ax)
+    _, nl_hi = box_interval(bmin, bmax, beam.l)
+    miss_u = (nu_hi < beam.ou_lo) | (nu_lo > beam.ou_hi)
+    miss_v = (nv_hi < beam.ov_lo) | (nv_lo > beam.ov_hi)
+    behind = nl_hi < beam.ol_lo
+    return miss_u | miss_v | behind | ~beam.tile_any

@@ -13,8 +13,14 @@ framebuffer (counterpart of `raytracercuda_tpu/trace/pipeline.py`).
     the general cull and C's epilogue over F's sweep
     (`bounce_sweep.trace_rays`).
 
-The BVH, GRID and WAVEFRONT structures raise `NotImplementedError` naming
-the slice of the port that brings them.
+  * BVH traces a pinhole frame that ``beam_tile`` divides through kernel L
+    (`beam.trace_beam`, with ``use_beam``), and any other frame or bundle
+    through kernel K's per-ray walk (`traverse.trace_bvh`), as the
+    reference does: no edge-padding here;
+  * WAVEFRONT traces through `wavefront.trace_wavefront` (plain PyTorch).
+
+GRID raises `NotImplementedError` naming the slice of the port that
+brings it.
 """
 
 from __future__ import annotations
@@ -68,30 +74,53 @@ def trace_hit(
 ) -> Hit:
     """Closest hit of row-major rays over the configured structure.
     ``frame_hw`` + ``common_origin`` mark a pinhole frame, which the
-    CLUSTER route traces as pixel tiles."""
+    CLUSTER route traces as pixel tiles and the BVH route as tile beams."""
     kind = config.accel
+    tc = config.trace
     if kind == AccelKind.BRUTE or accel is None:
         from .bruteforce import trace_brute
 
         return trace_brute(scene.positions, scene.faces, origin, direction,
-                           config.trace)
+                           tc)
+    if kind == AccelKind.BVH:
+        if (tc.use_beam and frame_hw is not None
+                and common_origin is not None
+                and frame_hw[0] % tc.beam_tile == 0
+                and frame_hw[1] % tc.beam_tile == 0):
+            from .beam import trace_beam
+
+            return trace_beam(accel, common_origin, direction,
+                              height=frame_hw[0], width=frame_hw[1],
+                              tile_px=tc.beam_tile, queue=tc.beam_queue,
+                              cfg=config.bvh, trace_cfg=tc,
+                              tiles_per_chunk=tc.beam_tiles_per_chunk)
+        from .traverse import trace_bvh
+
+        return trace_bvh(accel, scene.positions, scene.faces, origin,
+                         direction, config.bvh, tc)
+    if kind == AccelKind.WAVEFRONT:
+        from .wavefront import trace_wavefront
+
+        return trace_wavefront(accel, scene.positions, scene.faces, origin,
+                               direction, config.bvh, tc)
     if kind != AccelKind.CLUSTER:
         raise NotImplementedError(
-            f"{kind} waits for slice 6 of the port (the remaining backends)")
+            f"{kind} waits for the GRID slice of the port (accel/grid.py, "
+            "trace/grid_march.py)")
     from .sweep import segment_blocks, trace_dense
 
-    tp = config.trace.dense_tile_px
+    tp = tc.dense_tile_px
     if frame_hw is None or common_origin is None:
         from .bounce_sweep import trace_rays
 
         return trace_rays(accel, segment_blocks(accel), origin, direction,
-                          rays_per_group=tp * tp, trace_cfg=config.trace)
+                          rays_per_group=tp * tp, trace_cfg=tc)
     height, width = frame_hw
     # Edge-pad a frame the tile does not divide: the repeated edge rays are
     # valid directions, and their pixels are cropped.
     dirs, hp, wp = pad_frame(direction, height, width, tp)
     hit = trace_dense(accel, segment_blocks(accel), common_origin, dirs,
-                      height=hp, width=wp, tile_px=tp, trace_cfg=config.trace)
+                      height=hp, width=wp, tile_px=tp, trace_cfg=tc)
     return Hit(*(crop_frame(x, height, width, hp, wp) for x in hit))
 
 

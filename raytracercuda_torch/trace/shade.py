@@ -144,7 +144,8 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
     # Face the normal against the incoming ray.
     flip = torch.sum(n * ray_dir, dim=-1) > 0.0
     n = torch.where(flip[..., None], -n, n)
-    l = normalize(torch.tensor(light_dir, dtype=torch.float32, device=dev))
+    l = normalize(torch.as_tensor(light_dir, dtype=torch.float32,
+                                  device=dev))
     ndotl = torch.clamp(torch.sum(n * l, dim=-1), min=0.0)
     if shadow_mask is not None:
         ndotl = torch.where(shadow_mask, 0.0, ndotl)

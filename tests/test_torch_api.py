@@ -209,10 +209,12 @@ def test_scene_backends_and_meshes():
     c = trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.CLUSTER), "cpu")
     c.add_mesh(b)
     assert c.accel.num_clusters == 1
-    for kind in (trt.AccelKind.BVH, trt.AccelKind.GRID,
-                 trt.AccelKind.WAVEFRONT):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            trt.Scene.create(trt.RenderConfig(accel=kind), "cpu")
+    for kind in (trt.AccelKind.BVH, trt.AccelKind.WAVEFRONT):
+        lb = trt.Scene.create(trt.RenderConfig(accel=kind), "cpu")
+        lb.add_mesh(b)
+        assert lb.accel.num_faces == 1 and bool(lb.accel.is_leaf[0])
+    with pytest.raises(NotImplementedError, match="GRID slice"):
+        trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.GRID), "cpu")
 
 
 # ---------------------------------------------------------------------------

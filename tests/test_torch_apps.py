@@ -140,10 +140,16 @@ def test_render_cli_unlocks_when_a_frame_fails(model, tmp_path, monkeypatch):
 
 
 def test_render_cli_backends_and_errors(model, tmp_path, capsys):
-    for accel in ("bvh", "grid", "wavefront"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            tcli.main([model, "--accel", accel, "-o", str(tmp_path),
-                       "--device", "cpu"])
+    for accel in ("bvh", "wavefront"):
+        out = tmp_path / accel
+        assert tcli.main([model, "--accel", accel, "--size", "16", "-o",
+                          str(out), "--device", "cpu"]) == 0
+        frame = read_png(out / "frame_0000.png")
+        assert frame.shape == (16, 16, 3)
+        assert (frame != frame[0, 0]).any()  # the model is in view
+    with pytest.raises(NotImplementedError, match="GRID slice"):
+        tcli.main([model, "--accel", "grid", "-o", str(tmp_path),
+                   "--device", "cpu"])
     assert tcli.main([str(tmp_path / "none.obj"), "-o", str(tmp_path),
                       "--device", "cpu"]) == 1
     assert "model not found" in capsys.readouterr().err
@@ -255,17 +261,28 @@ def test_fly_main(model, tmp_path):
     script.write_text(json.dumps({"frame": 1, "event": "keydown",
                                   "key": "w"}) + "\n")
     out = tmp_path / "frames"
-    # The default structure, CLUSTER (the JAX package's default, BVH,
-    # waits for slice 6 of the port).
-    assert tfly.main(["--model", model, "--script", str(script), "--frames",
-                      "3", "--size", "16", "--out", str(out), "--device",
-                      "cpu"]) == 0
+    # The default structure, BVH, as the JAX package's.
+    built = []
+    real = trt.Scene.update_gpu_scene
+
+    def update(scene):
+        built.append(scene.config.accel)
+        return real(scene)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trt.Scene, "update_gpu_scene", update)
+        assert tfly.main(["--model", model, "--script", str(script),
+                          "--frames", "3", "--size", "16", "--out", str(out),
+                          "--device", "cpu"]) == 0
+    assert built and set(built) == {trt.AccelKind.BVH}
     assert sorted(os.listdir(out)) == [f"fly_{i:04d}.png" for i in range(3)]
-    assert read_png(out / "fly_0002.png").shape == (16, 16, 3)
+    frame = read_png(out / "fly_0002.png")
+    assert frame.shape == (16, 16, 3)
+    assert (frame != frame[0, 0]).any()  # the model is in view
     assert trt.RenderTarget.get() is None
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="GRID slice"):
         tfly.main(["--model", model, "--script", str(script), "--accel",
-                   "bvh", "--out", str(out), "--device", "cpu"])
+                   "grid", "--out", str(out), "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

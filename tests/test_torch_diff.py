@@ -320,15 +320,31 @@ def test_frame_hw_mismatch_raises():
 
 
 def test_unported_routes_raise():
+    """`render_rgb` on BVH with shadows, with ``frame_hw`` (kernel L's plain
+    version) and without (kernel K's), equals JAX's: the BVH routes that
+    raised until the LBVH was ported.  GRID still raises."""
+    from raytracercuda_tpu.accel.bvh import build_bvh as jax_bvh
+    from raytracercuda_tpu.config import RenderConfig as JaxRenderConfig
+
+    from raytracercuda_torch.accel.bvh import build_bvh
+
     s = setup()
     side = s["side"]
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    jcfg = JaxRenderConfig(accel=jax_accel_kind.BVH)
+    tcfg = TorchRenderConfig(accel=TorchAccelKind.BVH)
+    jb = jax_bvh(s["js"].positions, s["js"].faces, jcfg.bvh)
+    tb = build_bvh(s["ts"].positions, s["ts"].faces, tcfg.bvh)
+    for frame_hw in ((side, side), None):
+        kw = dict(with_shadows=True, frame_hw=frame_hw)
+        want = np.asarray(jrg.render_rgb(s["js"], jb, *jax_args(s), jcfg,
+                                         **kw))
+        got = trg.render_rgb(s["ts"], tb, *torch_args(s), tcfg, **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+        assert (np.abs(want - want[0]).max(axis=1) > 0.1).mean() > 0.1
+    with pytest.raises(NotImplementedError, match="GRID slice"):
         trg.render_rgb(s["ts"], s["tc"], *torch_args(s),
-                       TorchRenderConfig(accel=TorchAccelKind.BVH),
+                       TorchRenderConfig(accel=TorchAccelKind.GRID),
                        frame_hw=(side, side))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        trg.render_rgb(s["ts"], s["tc"], *torch_args(s),
-                       TorchRenderConfig(accel=TorchAccelKind.BVH))
 
 
 @pytest.mark.parametrize("shadows", [False, True])
