@@ -154,7 +154,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      equal but for exact-t ties, whose count it prints);
  33. traces the frame through `trace_hit` (kernel L, the tile beam) and
      holds L against its plain version (the same checks) and its slots
-     and t against K's;
+     and t against K's, also at tiles of 2x2 and 3x3; prints L's rounds
+     (needed and launched) and host syncs a call, its work items a round
+     (each round's held against `beam.split_queue`), the tiles that test
+     triangles and the tests per such tile (max, mean), and holds every
+     hit's key, decoded to its round, entry and k, to its output slot;
+ 33b. holds L, K (closest hit) and K (any hit) against their plain
+     versions on small trees (`BVH_CASES`): queue 4 over many rounds
+     (max_leaf_faces 4 and 1), 2 and 9 faces at max_leaf_faces 16 (no
+     traversal leaves: a-link -1, first = -1) and doubled clouds (each hit
+     an exact-t tie with its copy, the first in sequence order winning);
  34. casts the frame's shadow rays by `render_grad`'s rule (hit point +
      l * 10 t_epsilon, t_max FLT_MAX) through `any_hit_bvh` (kernel K, any
      hit): masks equal to its plain version's and to `any_hit_brute`'s;
@@ -162,13 +171,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      card): faces equal to K's;
  36. builds config 2's scene through `Scene.create()` with no config
      (BVH) and traces its 256x256 frame through `Camera.trace_scene`
-     (kernel L): equal to the same frame on the plain versions; renders
+     (kernel L): equal to the same frame on the plain versions, timed
+     (20 frames by events); renders
      the bench frame through the `FrameRenderer`'s BVH route with shadows
      (L, then E): within 1 per u8 channel of its plain path, timed;
  37. times K (closest and any hit) and L by events, by the profiler's
      device time per recorded launch and with the host's cost hidden, and
      counts the work each needs on these inputs (ray-triangle tests and
-     node tests) by instrumented plain runs;
+     node tests) by instrumented plain runs; prints K's longest walk in
+     steps and tests and its chain floor (the longest walk times one
+     dependent load's latency, measured by `rt_chase` in a table L1 holds
+     and in one of the tree's size), K on node rows in walk order and in
+     the build's order (equal outputs), L's time by kernel (walk, test,
+     epilogue) and L at 1, 2, 4 and 8 queue entries a work item; with
+     ``--parent DIR`` (an unpacked parent commit) it builds DIR's kernels
+     and times its K and L in turns with this tree's on the same inputs
+     (parent, this, this, parent), holding their outputs equal;
  30. prints the BVH route's frame beside the CLUSTER bench frame (rays/s),
      and each kernel's time beside its bound: the larger of its FP32
      operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
@@ -179,8 +197,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      their device times and G's `torch.zeros` + `index_add_`.
 
 Phases 31-37 run after phase 28, before phase 29.  Any failure exits
-non-zero.  The last two lines of standard output are a JSON object of the
-kernels' counts, errors, times and bounds (A-J and the LBVH kernels K,
+non-zero.  ``--parent DIR`` is the only option; the run needs none.
+The last two lines of standard output are a JSON object of the kernels'
+counts, errors, times and bounds (A-J and the LBVH kernels K,
 closest and any hit, and L; every sweep's, D's, E's, G's, K's and L's
 with ``device_ms``, D's and G's with ``library_device_ms``, G's with
 ``library_zeroed_ms``; null elsewhere), and ``{"ok": true, "device":
@@ -2510,16 +2529,295 @@ SMALL_TILE_FRAME = 48
 SLAB_OPS = 23
 BEAM_NODE_OPS = 61
 BVH_SOURCE = "raytracercuda_torch/csrc/bvh.cu"
+# Kernel L's C entry launches these (phase 37 splits its time by them).
+BEAM_KERNELS = ("beam_walk_kernel", "beam_test_kernel",
+                "beam_epilogue_kernel")
+# The chain-floor probe: dependent loads a run, and the tables it chases
+# (rows of 32 bytes, as the node table's): one that stays in L1, and one of
+# the bench tree's node count, which L2 holds.
+CHASE_STEPS = 200_000
+CHASE_L1_ROWS = 1024
+# Queue entries a work item of kernel L's test, swept in phase 37.
+BEAM_CHUNKS = (1, 2, 4, 8)
+
+
+def random_tris(num_faces: int, seed: int, spread=1.5, z_shift=3.0):
+    """``num_faces`` small random triangles in front of the origin, as
+    `tests/test_torch_bvh.py:random_mesh` builds them: numpy ``(positions
+    [3F, 3], faces [F, 4])``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-spread, spread, (num_faces, 3)).astype(np.float32)
+    base[:, 2] += z_shift
+    offs = rng.normal(scale=0.3, size=(num_faces, 2, 3)).astype(np.float32)
+    verts = np.concatenate([base[:, None], base[:, None] + offs],
+                           axis=1).reshape(-1, 3)
+    faces = np.arange(num_faces * 3, dtype=np.int64).reshape(-1, 3)
+    return verts, np.concatenate([faces, np.zeros((num_faces, 1),
+                                                  np.int64)], 1)
+
+
+def big_tris(count: int):
+    """``count`` large triangles dead ahead, one behind the other
+    (`tests/test_torch_bvh.py:big_triangles`)."""
+    import numpy as np
+
+    tri = np.array([[-2, -2, 3], [2, -2, 3], [0, 2.5, 3]], np.float32)
+    verts = np.concatenate([tri + [0.3 * i, 0.1 * i, 0.5 * i]
+                            for i in range(count)]).astype(np.float32)
+    faces = np.concatenate([np.arange(3 * count).reshape(-1, 3),
+                            np.zeros((count, 1), int)], 1).astype(np.int64)
+    return verts, faces
+
+
+def doubled(mesh):
+    """Every face of ``mesh`` twice, on the same vertices: each hit is an
+    exact-t tie between a face and its copy."""
+    import numpy as np
+
+    verts, faces = mesh
+    return verts, np.concatenate([faces, faces])
+
+
+# Phase 33b's LBVH cases: name -> (mesh, max_leaf_faces, frame side,
+# tile_px, queue).  Queue 4 overflows into many rounds; 2 and 9 faces at
+# max_leaf_faces 16 leave the tree without traversal leaves (a-link -1,
+# first = -1, the beam's row and slot rules part); the doubled clouds tie.
+BVH_CASES = {
+    "f120_queue4_overflow": (lambda: random_tris(120, 32), 4, 32, 8, 4),
+    "f200_leaf1_queue4": (lambda: random_tris(200, 35), 1, 32, 8, 4),
+    "two_faces_first_minus_1": (lambda: big_tris(2), 16, 32, 8, 128),
+    "nine_faces_first_minus_1": (lambda: random_tris(9, 40, spread=0.6),
+                                 16, 32, 8, 128),
+    "f60_doubled_ties": (lambda: doubled(random_tris(60, 34)), 4, 32, 8, 16),
+    "f300_doubled_ties_leaf1": (lambda: doubled(random_tris(300, 3)), 1, 64,
+                                16, 8),
+}
+
+
+def bvh_cases(dev) -> None:
+    """Phase 33b: kernel L, and K (closest and any hit), against their plain
+    versions on `BVH_CASES`: slots equal, t/u/v bit-equal, masks equal; L's
+    t equal to K's.  The doubled clouds must tie on every hit."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.accel.bvh import build_bvh
+    from raytracercuda_torch.config import BvhConfig
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.trace import beam, traverse
+    from raytracercuda_torch.trace.dense import (tile_frustum_planes,
+                                                 tile_pixels)
+
+    t_eps = np.float32(1e-4)
+    for name, (mesh, leaf, side, tp, queue) in BVH_CASES.items():
+        verts, faces = mesh()
+        cfg = BvhConfig(max_leaf_faces=leaf)
+        bvh = build_bvh(torch.from_numpy(verts).to(dev),
+                        torch.from_numpy(faces).to(dev), cfg)
+        eye = torch.zeros(3, device=dev)
+        dirs = camera_ray_grid(side, side, device=dev).contiguous()
+        planes = tile_frustum_planes(tile_pixels(dirs, side, side, tp),
+                                     tp).contiguous()
+        l_args = (bvh, eye, dirs, planes, side, side, tp, queue, leaf,
+                  beam.walk_steps(cfg.max_iters), t_eps, 8)
+        st = {}
+        kl = beam._beam_cuda(*l_args, stats=st)
+        hits, _ = closest_err(kl, beam._beam_plain(*l_args),
+                              f"kernel L on {name}")
+        origin = eye.expand(dirs.shape).contiguous()
+        k_args = (bvh, origin, dirs, cfg.max_iters, t_eps)
+        kk = traverse._walk_closest_cuda(*k_args)
+        closest_err(kk, traverse._walk_closest_plain(*k_args),
+                    f"kernel K (closest hit) on {name}")
+        check(bits_equal(kl[0], kk[0]), f"{name}: L's t differs from K's")
+        rng = np.random.default_rng(7)
+        n = 4096
+        so = torch.from_numpy((rng.uniform(-2, 2, (n, 3)) + [0, 0, 3])
+                              .astype(np.float32)).to(dev)
+        sd = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)
+                              ).to(dev)
+        tm = torch.from_numpy(rng.uniform(0.5, 4.0, n).astype(np.float32)
+                              ).to(dev)
+        a_args = (bvh, so, sd, tm, cfg.max_iters, t_eps)
+        ka = traverse._walk_any_cuda(*a_args)
+        occlusion_err(ka, traverse._walk_any_plain(*a_args),
+                      f"kernel K (any hit) on {name}")
+        check(hits > 0 and 0 < int(ka.sum()) < n, f"{name}: no hit or every "
+              "ray occluded")
+        ties = ""
+        if "doubled" in name:
+            # Both copies of each hit face give the winner's t: the first
+            # in sequence order won.
+            f = bvh.face_order.shape[0] // 2
+            hit = kl[0] < float(3.4028234663852886e38)
+            twin = (bvh.face_order[kl[3][hit].long()] + f) % (2 * f)
+            t_twin = traverse.row_mt(
+                bvh.packed_tris[torch.argsort(bvh.face_order)[twin]], eye,
+                dirs[hit], t_eps)[0]
+            check(bits_equal(t_twin, kl[0][hit]),
+                  f"{name}: a winner's copy gives another t")
+            ties = f", {int(hit.sum())} exact-t ties"
+        print(f"  {name}: {faces.shape[0]} faces, leaf {leaf}, queue "
+              f"{queue}, "
+              f"{side}x{side} in {tp}x{tp} tiles: L equal to plain in "
+              f"{st['rounds']} rounds ({st['launched']} launched, "
+              f"{st['syncs']} host syncs), "
+              f"{hits} hits{ties}; K closest and any hit equal to plain "
+              f"({int(ka.sum())} of {n} occluded)")
+
+
+def chase_ns(dev, rows: int, steps: int = CHASE_STEPS) -> float:
+    """Nanoseconds per dependent load: one thread follows a random cycle
+    through ``rows`` rows of 32 bytes (`rt_chase`), warmed first, timed by
+    events over ``steps`` loads."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.ops.cuda_build import kernel_fn, raw_stream
+
+    order = np.random.default_rng(3).permutation(rows)
+    nxt = np.zeros(rows * 8, np.int32)
+    nxt[order * 8] = np.roll(order, -1) * 8
+    table = torch.from_numpy(nxt).to(dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def run(n):
+        err = kernel_fn("rt_chase")(table.data_ptr(), int(order[0]) * 8, n,
+                                    out.data_ptr(), raw_stream(dev))
+        check(err == 0, f"rt_chase launch failed: CUDA error {err}")
+
+    run(rows)  # every row once: the table is in the caches
+    return time_cuda(lambda: run(steps), 3) * 1e6 / steps
+
+
+def parent_library(tree: str):
+    """The kernel library of the tree ``tree`` (an unpacked parent commit):
+    its own `ops/cuda_build.py`, loaded under another name, builds its own
+    sources into its own `_build/`."""
+    import importlib.util
+
+    path = os.path.join(tree, "raytracercuda_torch", "ops", "cuda_build.py")
+    check(os.path.exists(path), f"--parent {tree}: no {path}")
+    spec = importlib.util.spec_from_file_location("parent_cuda_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load_library()
+
+
+def parent_bvh_fns(lib):
+    """The parent's kernels K (closest, any hit) and L, called as this
+    tree's `_walk_closest_cuda`, `_walk_any_cuda` and `_beam_cuda`: the
+    first design's C entries, which read `Bvh.packed_nodes`,
+    `packed_links` and `packed_tris` directly."""
+    import torch
+
+    from raytracercuda_torch.ops.cuda_build import raw_stream
+
+    def tree(bvh):
+        return (bvh.packed_nodes.data_ptr(), bvh.packed_links.data_ptr(),
+                bvh.packed_tris.data_ptr(), bvh.packed_tris.shape[0])
+
+    def eps(t_eps):
+        return int(t_eps is not None), 0.0 if t_eps is None else float(t_eps)
+
+    def closest(bvh, origin, direction, max_iters, t_eps):
+        n, dev = direction.shape[0], direction.device
+        out = torch.empty((3, n), device=dev)
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        err = lib.rt_walk_closest(*tree(bvh), origin.data_ptr(),
+                                  direction.data_ptr(), n, max_iters,
+                                  *eps(t_eps), out[0].data_ptr(),
+                                  out[1].data_ptr(), out[2].data_ptr(),
+                                  slot.data_ptr(), raw_stream(dev))
+        check(err == 0, f"parent's K failed: CUDA error {err}")
+        return out[0], out[1], out[2], slot
+
+    def any_hit(bvh, origin, direction, t_max, max_iters, t_eps):
+        n, dev = direction.shape[0], direction.device
+        occ = torch.empty(n, dtype=torch.bool, device=dev)
+        err = lib.rt_walk_any(*tree(bvh), origin.data_ptr(),
+                              direction.data_ptr(), t_max.data_ptr(), n,
+                              max_iters, float(t_eps), occ.data_ptr(),
+                              raw_stream(dev))
+        check(err == 0, f"parent's K (any hit) failed: CUDA error {err}")
+        return occ
+
+    def beam_fn(bvh, eye, dirs, planes, height, width, tile_px, queue,
+                k_leaf, steps, t_eps, tiles_per_chunk):
+        n, dev = dirs.shape[0], dirs.device
+        out = torch.empty((3, n), device=dev)
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        err = lib.rt_beam(*tree(bvh), eye.data_ptr(), dirs.data_ptr(),
+                          planes.data_ptr(), height, width, tile_px, queue,
+                          k_leaf, steps, *eps(t_eps), out[0].data_ptr(),
+                          out[1].data_ptr(), out[2].data_ptr(),
+                          slot.data_ptr(), raw_stream(dev))
+        check(err == 0, f"parent's L failed: CUDA error {err}")
+        return out[0], out[1], out[2], slot
+
+    return closest, any_hit, beam_fn
+
+
+def beam_work(stats, num_slots: int, size: int, tp: int, queue: int,
+              k_leaf: int, out):
+    """Kernel L's per-round scratch read back (`_beam_cuda`'s ``stats``):
+    each round's items held against `beam.split_queue`, each hit's key
+    decoded to its round, entry and k and its slot (`candidate_row_slot`)
+    held against the output slot.  Returns ``(tests per tile [T], items
+    per round)``."""
+    import torch
+
+    from raytracercuda_torch.trace import beam
+    from raytracercuda_torch.trace.dense import tile_pixels
+
+    num_tiles = (size // tp) ** 2
+    ws = stats["log"]
+    dev = ws.device
+    cand = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+    items_per_round = []
+    firsts = []
+    for r in range(ws.shape[0]):
+        q_first, q_count, q_n, items = beam.round_views(
+            ws[r], num_tiles, queue, stats["item_cap"])
+        want = beam.split_queue(q_n, beam.BEAM_CHUNK)
+        m = want.shape[1]
+        got = items[:, :m].long()
+        got = got[:, torch.argsort(got[0] * (queue + 1) + got[1])]
+        check(torch.equal(got, want), f"kernel L round {r}: work items "
+              "differ from split_queue's")
+        live = torch.arange(queue, device=dev) < q_n[:, None]
+        cand += (torch.clamp(q_count, max=k_leaf) * live).sum(dim=1)
+        items_per_round.append(m)
+        firsts.append(q_first)
+    # The kernel's unsigned keys in an int64 tensor: flipping the top bit
+    # gives `beam_key`'s signed order.
+    keys = stats["keys"].view(num_tiles, tp * tp) ^ -(1 << 63)
+    hit = keys < beam.beam_key(
+        torch.tensor([3.4028234663852886e38], device=dev),
+        torch.zeros(1, dtype=torch.int64, device=dev))
+    rnd, entry, k = beam.ordinal_entry(keys & 0xFFFFFFFF, queue)
+    tiles = torch.arange(num_tiles, device=dev)[:, None].expand(keys.shape)
+    first = torch.stack(firsts)[rnd.clamp(max=len(firsts) - 1), tiles,
+                                entry]
+    _, slot = beam.candidate_row_slot(first, k, num_slots)
+    want = tile_pixels(out[3], size, size, tp)
+    check(torch.equal(slot[hit].int(), want[hit]),
+          "kernel L's keys decode to other slots than its output's")
+    return cand * tp * tp, items_per_round
 
 
 def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
              wf_size=WAVEFRONT_SIZE, api_size=C2_SIZE,
-             suzanne_faces=C2_SUZANNE):
-    """Phases 31-36: the LBVH backend on the bench frame's scene (``data``,
+             suzanne_faces=C2_SUZANNE, parent=None):
+    """Phases 31-37: the LBVH backend on the bench frame's scene (``data``,
     ``eye``, ``orient``, ``rays`` of ``size``²) and on config 2's scene
-    through `Scene.create()` with no config.  Returns the kernels' records
-    (K closest, K any hit, L; launches of this path only) and the BVH
-    frame's milliseconds."""
+    through `Scene.create()` with no config.  ``parent``: the directory of
+    an unpacked parent commit, whose kernels K and L phase 37 times in
+    turns with this tree's.  Returns the kernels' records (K closest, K
+    any hit, L; launches of this path only) and the BVH frame's
+    milliseconds."""
     import numpy as np
     import torch
 
@@ -2627,9 +2925,23 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     l_args = (bvh, eye, dirs, planes, size, size, tp, tc.beam_queue,
               bc.max_leaf_faces, beam.walk_steps(bc.max_iters), t_eps,
               tc.beam_tiles_per_chunk)
-    kl = beam._beam_cuda(*l_args)
+    l_stats = {}
+    kl = beam._beam_cuda(*l_args, stats=l_stats)
     pl, l_plain_ms = time_once(lambda: beam._beam_plain(*l_args))
     closest_err(kl, pl, "kernel L")
+    tile_tests, l_items = beam_work(l_stats, bvh.packed_tris.shape[0], size,
+                                    tp, tc.beam_queue, bc.max_leaf_faces,
+                                    kl)
+    busy = tile_tests[tile_tests > 0].double()
+    print(f"kernel L's work: {l_stats['rounds']} rounds "
+          f"({l_stats['launched']} launched), {l_stats['syncs']} host "
+          f"syncs a call; work items of "
+          f"{beam.BEAM_CHUNK} queue entries per round {l_items} (each "
+          f"round's equal to split_queue's; every hit's key decodes to its "
+          f"slot); {busy.numel()} of {tile_tests.numel()} tiles test "
+          f"triangles, {int(tile_tests.sum())} ray-triangle tests, per "
+          f"such tile max {int(busy.max())}, mean {float(busy.mean()):.1f}")
+    del l_stats
     check(torch.equal(kl[3], kk[3]) and bits_equal(kl[0], kk[0]),
           "kernel L's slots or t differ from kernel K's")
     check(torch.equal(beam_hit.face, k_face), "trace_hit's beam faces differ")
@@ -2651,6 +2963,12 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
           f"{tp}x{tp}, queue {tc.beam_queue}; also on {sf}x{sf} rays in "
           f"tiles of 2x2 and 3x3 ({small_hits} hits)")
     clock.done("33 (L)")
+
+    # 33b. K and L on small trees that take many rounds, have no traversal
+    # leaves (first = -1) or tie exactly.
+    print("kernels K and L on synthetic trees:")
+    bvh_cases(dev)
+    clock.done("33b (K, L cases)")
 
     # 34. K (any hit) on the frame's shadow rays, by render_grad's rule.
     light = torch.tensor([0.4, 0.8, -0.45], device=dev)
@@ -2711,6 +3029,8 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
         sync_device(dev)
     check(torch.equal(api_frame, target.buffer),
           "default-structure frame differs from the plain path's")
+    api_ms = time_cuda(lambda: cam.trace_scene(eye2, orient2, scene2,
+                                               target), 20)
     check(target.unlock() == 0, "unlock")
     renderer = FrameRenderer(data, bvh, config, size, size)
     reset()
@@ -2726,7 +3046,8 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     frame_ms = time_cuda(lambda: renderer.render(eye, orient, rays), 10)
     print(f"Scene.create() (no config) -> {scene2.config.accel}: "
           f"{api_size}x{api_size} frame equal to the plain path's, "
-          f"{int((api_frame != 255 << 8).sum())} pixels hit; FrameRenderer "
+          f"{int((api_frame != 255 << 8).sum())} pixels hit, "
+          f"Camera.trace_scene {api_ms:.4f} ms a frame; FrameRenderer "
           f"BVH route with shadows at {size}x{size}: max u8 diff {worst} to "
           f"the plain path, {frame_ms:.4f} ms/frame, "
           f"{n / frame_ms * 1e3:.6g} rays/s (W*H per frame) on {card}")
@@ -2767,9 +3088,41 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
           f"{tallies[2]['tri_tests']} ray-triangle tests, "
           f"{tallies[2]['box_tests']} node tests of {BEAM_NODE_OPS} "
           f"operations")
-    fns = [(lambda: traverse._walk_closest_cuda(*k_args), "walk_kernel"),
-           (lambda: traverse._walk_any_cuda(*a_args), "walk_kernel"),
-           (lambda: beam._beam_cuda(*l_args), "beam_kernel")]
+    # The longest walks, and the chain floor: the longest walk's steps,
+    # each one dependent load.
+    floor_ns = {"L1": chase_ns(dev, CHASE_L1_ROWS),
+                "L2": chase_ns(dev, bvh.packed_nodes.shape[0])}
+    for name, tally in (("K closest", tallies[0]), ("K any hit", tallies[1])):
+        steps = tally["ray_steps"]
+        far = int(torch.argmax(steps))
+        print(f"kernel {name}: longest walk {int(steps.max())} steps (ray "
+              f"{far}, {int(tally['ray_tri_tests'][far])} ray-triangle "
+              f"tests), most tests of a ray "
+              f"{int(tally['ray_tri_tests'].max())}; chain floor "
+              + ", ".join(f"{int(steps.max()) * ns / 1e6:.6f} ms at "
+                          f"{ns:.1f} ns a load ({where}-resident chase)"
+                          for where, ns in floor_ns.items()))
+    # K on the same tree with its node rows in the build's order (links as
+    # built): what the walk order gives K.
+    built = (torch.cat([bvh.packed_nodes.view(torch.int32),
+                        bvh.packed_links], dim=1).contiguous(),
+             traverse.kernel_rows(bvh)[1])
+    with PlainOnCard({traverse: {"kernel_rows": lambda _: built}}):
+        closest_err(traverse._walk_closest_cuda(*k_args), kk,
+                    "kernel K on node rows in the build's order")
+        check(torch.equal(traverse._walk_any_cuda(*a_args), ka),
+              "kernel K (any hit) on node rows in the build's order")
+        in_built = [time_cuda(lambda: traverse._walk_closest_cuda(*k_args),
+                              20),
+                    time_cuda(lambda: traverse._walk_any_cuda(*a_args), 20)]
+    in_walk = [time_cuda(lambda: traverse._walk_closest_cuda(*k_args), 20),
+               time_cuda(lambda: traverse._walk_any_cuda(*a_args), 20)]
+    print(f"kernel K by events, node rows in walk order: closest "
+          f"{in_walk[0]:.4f} ms, any hit {in_walk[1]:.4f}; in the build's "
+          f"order: {in_built[0]:.4f}, {in_built[1]:.4f} (equal outputs)")
+    fns = [(lambda: traverse._walk_closest_cuda(*k_args), ("walk_kernel",)),
+           (lambda: traverse._walk_any_cuda(*a_args), ("walk_kernel",)),
+           (lambda: beam._beam_cuda(*l_args), BEAM_KERNELS)]
     names = [("walk_closest", "raytracercuda_tpu/trace/traverse.py:62",
               k_plain_ms, 0.0),
              ("walk_any", "raytracercuda_tpu/trace/traverse.py:163",
@@ -2780,7 +3133,7 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     for (name, replaces, plain_ms, err), (fn, kernel), (o, m), tally in zip(
             names, fns, work, tallies):
         ms = time_cuda(fn, 20)
-        dev_ms, _, recorded = device_ms(fn, 20, (kernel,))
+        dev_ms, _, recorded = device_ms(fn, 20, kernel)
         hidden = time_queued(fn, 20)
         records.append(kernel_record(name, BVH_SOURCE, replaces,
                                      launches[name], err, ms, plain_ms,
@@ -2791,6 +3144,55 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
               f"{plain_ms:.1f} ms on the card; bound {o:.0f} operations, "
               f"{m} bytes; its own {tally['tri_tests']} ray-triangle "
               f"tests, {tally['box_tests']} node tests")
+    acts = device_activities(fns[2][0], 20)
+    split = {k: sum(ms for name, (ms, _) in acts.items()
+                    if short_kernel_name(name) == k) for k in BEAM_KERNELS}
+    rest = sum(ms for ms, _ in acts.values()) - sum(split.values())
+    print("kernel L on the card by kernel (profiler, ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; the rest {rest:.4f}")
+    # L by queue entries a work item (`beam.BEAM_CHUNK`), each run equal
+    # to the default's.
+    chunk = beam.BEAM_CHUNK
+    try:
+        for c in BEAM_CHUNKS:
+            beam.BEAM_CHUNK = c
+            closest_err(beam._beam_cuda(*l_args), kl,
+                        f"kernel L at {c} entries an item")
+            acts = device_activities(fns[2][0], 20)
+            by = [sum(ms for name, (ms, _) in acts.items()
+                      if short_kernel_name(name) == k) for k in BEAM_KERNELS]
+            print(f"kernel L at {c} queue entries a work item: "
+                  f"{time_cuda(fns[2][0], 20):.4f} ms by events; on the "
+                  f"card walk {by[0]:.4f}, test {by[1]:.4f}, epilogue "
+                  f"{by[2]:.4f} ms")
+    finally:
+        beam.BEAM_CHUNK = chunk
+    if parent is not None:
+        p_closest, p_any, p_beam = parent_bvh_fns(parent_library(parent))
+        for name, new_fn, old_fn, args, kernels in (
+                ("K closest", traverse._walk_closest_cuda, p_closest,
+                 k_args, ("walk_kernel",)),
+                ("K any hit", traverse._walk_any_cuda, p_any, a_args,
+                 ("walk_kernel",)),
+                ("L", beam._beam_cuda, p_beam, l_args,
+                 BEAM_KERNELS + ("beam_kernel",))):
+            got, want = new_fn(*args), old_fn(*args)
+            if name == "K any hit":
+                occlusion_err(got, want, f"kernel {name} against the parent")
+            else:
+                closest_err(got, want, f"kernel {name} against the parent")
+            turns = [time_cuda(lambda: f(*args), 20)
+                     for f in (old_fn, new_fn, new_fn, old_fn)]
+            dev_new = device_ms(lambda: new_fn(*args), 20, kernels)[0]
+            dev_old = device_ms(lambda: old_fn(*args), 20, kernels)[0]
+            print(f"kernel {name} against the parent ({parent}), equal "
+                  f"outputs; by events parent, this, this, parent: "
+                  + ", ".join(f"{t:.4f}" for t in turns)
+                  + f" ms; on the card this {ms_text(dev_new)}, parent "
+                  f"{ms_text(dev_old)}")
+    else:
+        print("parent's kernels K and L: not timed (no --parent)")
     print(f"wavefront {wf_size}x{wf_size} (plain PyTorch): {wf_ms:.1f} ms; "
           f"BVH build {build_ms:.4f} ms; on {card}")
     clock.done("37 (BVH kernel times)")
@@ -2798,8 +3200,15 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
 
 
 def main() -> None:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="an unpacked parent commit: time its kernels K "
+                        "and L in turns with this tree's (phase 37)")
+    args = parser.parse_args()
     clock = PhaseClock()
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2960,7 +3369,7 @@ def main() -> None:
     c1_kernels, c1_clear = fill_path(dev, clock, card)
     app = app_path(dev, clock, card)
     bvh_kernels, bvh_frame_ms = bvh_path(dev, clock, card, data, eye, orient,
-                                         rays)
+                                         rays, parent=args.parent)
     for k in bvh_kernels:  # the CLI's and fly's launches of K and L
         k["launches"] += app[k["name"]]
     print(f"frames at {SIZE}x{SIZE} on {card}: BVH route (L, shadows by E) "

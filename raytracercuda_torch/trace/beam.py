@@ -20,17 +20,28 @@ per tile replaces a walk per ray, in rounds:
   * rounds repeat until the cursor is -1, so every tile tests the same
     candidates as the JAX package's and the result is exact.
 
-Kernel L (`csrc/bvh.cu:beam_kernel`, replacing the XLA rounds of
-`trace_beam`, `beam.py:121-290`) runs one block per tile.  The tile
-planes (`dense.tile_frustum_planes`) are computed here once and handed to
-either version, so the kernel and its plain version cull with the same
-planes.
+Kernel L (`csrc/bvh.cu`, replacing the XLA rounds of `trace_beam`,
+`beam.py:121-290`) runs each round as a walk, one warp a tile (32 node
+rows at a time over `traverse.kernel_rows` in walk order), that writes
+the tiles' queues to device memory and cuts them into work items of
+`BEAM_CHUNK` entries (`split_queue` is its plain statement), then a test
+whose blocks take the items in turn and merge each ray's first minimum
+with a 64-bit ``atomicMin`` on (ordered t, candidate ordinal)
+(`beam_key`, `candidate_ordinal`; `beam_key_t` reads the next round's
+``tile_tmax`` back).  Rounds go out in batches, the host waiting once a
+batch for their flags.  An epilogue recovers each winner's row and slot
+(`ordinal_entry`, `candidate_row_slot`) and re-runs its test.  The tile
+planes (`dense.tile_frustum_planes`) are computed here once and handed
+to either version, so the kernel and its plain version cull with the
+same planes.
 
 `occlusion_beam`, the any-hit beam toward a directional light, is plain
 PyTorch only: no path of the JAX package calls it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -41,7 +52,7 @@ from ..ops.cuda_build import kernel_fn, raw_stream
 from ..types import FLT_MAX, Hit
 from .dense import tile_frustum_planes, tile_pixels, untile_pixels
 from .sweep import _check_cuda, _eps_args, _pick, t_eps_of
-from .traverse import row_mt, slot_hit
+from .traverse import kernel_rows, row_mt, slot_hit
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"beam": 0}
@@ -49,6 +60,22 @@ launch_counts = {"beam": 0}
 #: Queue entries the plain version tests at once (the JAX package's
 #: leaf block).
 _LEAF_BLOCK = 64
+
+#: Queue entries in one work item of kernel L's test: of `chip_smoke.py`'s
+#: sweep on the H100 (PERF.md), 1 and 2 were the fastest.
+BEAM_CHUNK = 2
+
+#: Bits of an entry's candidate k in the ordinal: k < LEAF_PACK.
+_K_BITS = 6
+
+#: Bytes of queue log kernel L starts with (at least two rounds, at most
+#: eight: 11.6 MB at 512² in 16-pixel tiles); a frame that needs more
+#: rounds doubles it.
+_LOG_BYTES = 16 << 20
+
+#: Pinned host words the kernel's C entry reads each batch's counters
+#: into.
+_FLAGS = None
 
 
 def reset_launch_counts() -> None:
@@ -112,6 +139,65 @@ def _walk_round(bvh: Bvh, cur, queue: int, steps: int, survives,
     return cur, q_first, q_count, q_n
 
 
+def split_queue(q_n, chunk: int):
+    """Cut each tile's round queue of ``q_n[t]`` entries into work items of
+    at most ``chunk`` consecutive entries: ``[3, M]`` int64 rows (tile,
+    first entry, end entry), tiles in order and each tile's items in
+    queue order.  Kernel L's walk writes the same items, each tile's in
+    this order, at places an ``atomicAdd`` gives."""
+    dev = q_n.device
+    per_tile = (q_n.long() + chunk - 1) // chunk
+    tile = torch.repeat_interleave(torch.arange(q_n.numel(), device=dev),
+                                   per_tile)
+    start = torch.cumsum(per_tile, 0) - per_tile
+    lo = (torch.arange(tile.numel(), device=dev) - start[tile]) * chunk
+    return torch.stack([tile, lo, torch.minimum(lo + chunk,
+                                                q_n.long()[tile])])
+
+
+def candidate_ordinal(round_, entry, k, queue: int):
+    """Kernel L's ordinal of candidate ``k`` of queue entry ``entry`` of
+    round ``round_``: ``(round_ * queue + entry) * 64 + k``, rising along a
+    tile's candidate sequence (round, queue order, then k)."""
+    return ((round_ * queue + entry) << _K_BITS) | k
+
+
+def ordinal_entry(ordinal, queue: int):
+    """``(round, entry, k)`` of an ordinal (`candidate_ordinal`)."""
+    return (ordinal >> _K_BITS) // queue, (ordinal >> _K_BITS) % queue, \
+        ordinal & (LEAF_PACK - 1)
+
+
+def candidate_row_slot(first, k, num_slots: int):
+    """The triangle row candidate ``k`` of a queue entry tests, ``max(first,
+    0) + k``, and the slot it records, ``clip(first + k)``: the two differ
+    only for the ``first = -1`` of a Karras leaf that the collapse left
+    internal, as in the JAX package."""
+    return first.clamp(min=0) + k, torch.clamp(first + k, 0, num_slots - 1)
+
+
+def beam_key(t, ordinal):
+    """Kernel L's 64-bit hit key (`csrc/hit_key.cuh`) of float32 ``t`` and
+    ``ordinal``, as int64 whose signed order is the key's unsigned order:
+    t's bits mapped to an order monotone over every non-NaN float (-0.0
+    as +0.0) in the high word, the ordinal in the low.  The smallest key
+    is the first minimum of the candidates in ordinal order."""
+    b = t.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    b = torch.where(b == 0x80000000, 0, b)
+    ordered = torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b ^ 0x80000000)
+    return ((ordered - 0x80000000) << 32) | ordinal.long()
+
+
+def beam_key_t(key):
+    """The float32 t in the high word of `beam_key`'s keys: kernel L's walk
+    reads each tile's ``tile_tmax`` back from its rays' largest key
+    (-0.0 comes back as +0.0, which squares alike)."""
+    ordered = (key >> 32) + 0x80000000
+    b = torch.where(ordered >= 0x80000000, ordered ^ 0x80000000,
+                    ordered ^ 0xFFFFFFFF)
+    return b.to(torch.int32).view(torch.float32)
+
+
 def _queue_blocks(bvh: Bvh, q_first, q_count, q_n, k_leaf: int):
     """The queued candidates of tiles ``[C]``, ``_LEAF_BLOCK`` queue
     entries at a time: yields ``(slots [C, B*k_leaf], valid, tri [C,
@@ -131,8 +217,7 @@ def _queue_blocks(bvh: Bvh, q_first, q_count, q_n, k_leaf: int):
         qc = q_count[:, q_idx]
         valid = (((q_lo + b_ids)[None, :, None] < q_n[:, None, None])
                  & (k_off[None, None, :] < qc[:, :, None]))
-        slots = torch.clamp(qf[:, :, None] + k_off, 0, num_slots - 1)
-        rows = qf.clamp(min=0)[:, :, None] + k_off
+        rows, slots = candidate_row_slot(qf[:, :, None], k_off, num_slots)
         yield (slots.reshape(n_tiles, -1), valid.reshape(n_tiles, -1),
                bvh.packed_tris[rows.reshape(n_tiles, -1)])
 
@@ -183,15 +268,20 @@ def _beam_plain(bvh: Bvh, eye, dirs, planes, height: int, width: int,
 
 def _beam_cuda(bvh: Bvh, eye, dirs, planes, height: int, width: int,
                tile_px: int, queue: int, k_leaf: int, steps: int, t_eps,
-               tiles_per_chunk: int):
+               tiles_per_chunk: int, stats: dict | None = None):
     """Launch kernel L; outputs as in `_beam_plain`.  The kernel tests
     every tile at once (``tiles_per_chunk`` bounds only the plain
-    version's temporaries)."""
+    version's temporaries).  A ``stats`` dict receives the rounds the
+    frame needed, the rounds launched (a batch may end past the last) and
+    the host syncs, and the scratch: ``log`` (each round's queues and
+    items, `round_views`), ``keys`` and ``item_cap``."""
+    global _FLAGS
     del tiles_per_chunk
     dev = dirs.device
     num_rays = height * width
     num_tiles = (height // tile_px) * (width // tile_px)
     num_nodes = bvh.packed_nodes.shape[0]
+    num_slots = bvh.packed_tris.shape[0]
     if tile_px * tile_px > 1024:
         raise ValueError(f"kernel L takes tiles of at most 1024 pixels, "
                          f"got {tile_px}x{tile_px}")
@@ -203,20 +293,59 @@ def _beam_cuda(bvh: Bvh, eye, dirs, planes, height: int, width: int,
     _check_cuda("packed_links", bvh.packed_links, dev, torch.int32,
                 (num_nodes, 2))
     _check_cuda("packed_tris", bvh.packed_tris, dev, torch.float32,
-                (bvh.packed_tris.shape[0], 9))
+                (num_slots, 9))
+    node_rows, tri_rows = kernel_rows(bvh)
+    item_cap = num_tiles * -(-queue // BEAM_CHUNK)
+    keys = torch.empty(num_rays, dtype=torch.int64, device=dev)
+    cursor = torch.empty(num_tiles, dtype=torch.int32, device=dev)
     out = torch.empty((3, num_rays), dtype=torch.float32, device=dev)
     slot = torch.empty(num_rays, dtype=torch.int32, device=dev)
-    err = kernel_fn("rt_beam")(
-        bvh.packed_nodes.data_ptr(), bvh.packed_links.data_ptr(),
-        bvh.packed_tris.data_ptr(), bvh.packed_tris.shape[0],
-        eye.data_ptr(), dirs.data_ptr(), planes.data_ptr(), height, width,
-        tile_px, queue, k_leaf, steps, *_eps_args(t_eps), out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(), slot.data_ptr(),
-        raw_stream(dev))
-    if err:
-        raise RuntimeError(f"kernel L launch failed: CUDA error {err}")
+    info = (ctypes.c_int * 4)()
+    stride = 2 * num_tiles * queue + num_tiles + 3 * item_cap
+    begin, end = 0, min(8, max(2, _LOG_BYTES // (4 * stride)))
+    log = torch.empty((end, stride), dtype=torch.int32, device=dev)
+    syncs = 0
+    while True:
+        if end * queue > 1 << (32 - _K_BITS):
+            raise ValueError(f"kernel L: {end} rounds of {queue} entries "
+                             f"overflow the 32-bit candidate ordinal")
+        counters = torch.zeros(2 * end, dtype=torch.int32, device=dev)
+        if _FLAGS is None or _FLAGS.numel() < 2 * end:
+            _FLAGS = torch.zeros(2 * end, dtype=torch.int32,
+                                 pin_memory=True)
+        err = kernel_fn("rt_beam")(
+            node_rows.data_ptr(), num_nodes, tri_rows.data_ptr(), num_slots,
+            eye.data_ptr(), dirs.data_ptr(), planes.data_ptr(), height,
+            width, tile_px, queue, k_leaf, steps, BEAM_CHUNK,
+            *_eps_args(t_eps), keys.data_ptr(), cursor.data_ptr(),
+            log.data_ptr(), counters.data_ptr(),
+            _FLAGS.data_ptr(), begin, end, ctypes.addressof(info),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            slot.data_ptr(), raw_stream(dev))
+        if err:
+            raise RuntimeError(f"kernel L launch failed: CUDA error {err}")
+        syncs += info[2]
+        if not info[1]:
+            break
+        # More rounds: keep the earlier rounds' queues (the epilogue reads
+        # the winners' entries) and go on where the last call stopped.
+        begin, end = end, 2 * end
+        log = torch.cat([log, torch.empty_like(log)])
     launch_counts["beam"] += 1
+    if stats is not None:
+        stats.update(rounds=info[0], launched=info[3], syncs=syncs,
+                     log=log[:info[0]], keys=keys, item_cap=item_cap)
     return out[0], out[1], out[2], slot
+
+
+def round_views(log_round, num_tiles: int, queue: int, item_cap: int):
+    """One round's block of kernel L's log as ``(q_first [T, queue],
+    q_count [T, queue], q_n [T], items [3, item_cap])`` views."""
+    tq = num_tiles * queue
+    return (log_round[:tq].view(num_tiles, queue),
+            log_round[tq:2 * tq].view(num_tiles, queue),
+            log_round[2 * tq:2 * tq + num_tiles],
+            log_round[2 * tq + num_tiles:].view(3, item_cap))
 
 
 def trace_beam(

@@ -27,13 +27,18 @@ skip link.  The rules that decide the results are the JAX package's:
 
 Kernel K (`csrc/bvh.cu:walk_kernel`, replacing the XLA loops
 `_closest_hit_tile` and `_any_hit_tile`, `traverse.py:62-124,163-209`)
-runs one thread per ray.  `trace_bvh` and `any_hit_bvh` run the plain
-PyTorch version for tensors on the CPU and launch kernel K for tensors on
-a GPU; there is no fallback from one to the other.  The plain version
+runs one thread per ray over `kernel_rows`, the kernels' copy of the
+tree: a node's box and both links in one 32-byte row, the rows in
+`walk_order`, a triangle as v0 | e1 | e2 in one 48-byte row.
+`trace_bvh` and `any_hit_bvh` run the plain PyTorch version for tensors
+on the CPU and launch kernel K for tensors on a GPU; there is no
+fallback from one to the other.  The plain version
 walks all live rays in lockstep, one host round-trip a step.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -88,18 +93,110 @@ def leaf_test(bvh: Bvh, first, count, width: int, o, d, t_eps):
     return t, u, v, slots
 
 
+#: The kernels' copies of each live structure's tree: ``{id(packed_nodes):
+#: (weak references to packed_nodes, packed_links and packed_tris, their
+#: versions, (node_rows, tri_rows))}``; an entry leaves with its tree.
+_KERNEL_ROWS: dict = {}
+
+
+def walk_order(links: torch.Tensor) -> torch.Tensor | None:
+    """``[N]`` int64, each node's row in the kernels' node table: the nodes
+    reachable from the root in the order a walk that enters every box
+    visits them (pre-order), then the others in index order.  In it an
+    internal node's hit link and a leaf's skip link are the next row, and
+    every skip link passes over exactly the node's subtree.  None where the
+    links do not form such a threaded tree."""
+    a = links[:, 0].long().cpu()
+    skip = links[:, 1].long().cpu()
+    n = a.numel()
+    frontier = torch.zeros(1, dtype=torch.int64)
+    reached, levels = [frontier], []
+    while frontier.numel():
+        inner = frontier[a[frontier] >= 0]
+        left = a[inner]
+        right = skip[left.clamp(max=n - 1)]
+        if bool((left >= n).any() | (right < 0).any() | (right >= n).any()) \
+                or len(levels) > n:
+            return None
+        levels.append((inner, left, right))
+        frontier = torch.cat([left, right])
+        reached.append(frontier)
+    reached = torch.cat(reached)
+    m = reached.numel()
+    size = torch.ones(n, dtype=torch.int64)
+    for inner, left, right in reversed(levels):
+        size[inner] = 1 + size[left] + size[right]
+    rank = torch.full((n,), -1, dtype=torch.int64)
+    rank[0] = 0
+    for inner, left, right in levels:
+        rank[left] = rank[inner] + 1
+        rank[right] = rank[inner] + 1 + size[left]
+    others = rank < 0
+    rank[others] = m + torch.arange(int(others.sum()))
+    # Each reached node's skip link must lead to the row after its
+    # subtree (-1 after the last).
+    sk = skip[reached]
+    after = torch.where(sk >= 0, rank[sk.clamp(min=0)], m)
+    if not (torch.equal(torch.sort(rank).values, torch.arange(n))
+            and torch.equal(after, rank[reached] + size[reached])
+            and bool((sk >= -1).all())):
+        return None
+    return rank.to(links.device)
+
+
+def kernel_rows(bvh: Bvh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernels K's and L's copy of ``bvh``'s tree on its device, built once
+    per structure (and again if one of its packed tensors is modified in
+    place): node rows ``[N, 8]`` int32 in `walk_order`, the box's min |
+    max float bits, the a-link and the skip link renumbered to the new
+    rows (32 bytes, two 16-byte loads; the root stays row 0, a leaf's
+    a-link keeps its face range), and triangle rows ``[S, 12]`` float32,
+    v0 | e1 | e2 | three zeros (48 bytes, three 16-byte loads).  e1 = v1 -
+    v0 and e2 = v2 - v0 are the single subtractions `row_mt` forms, so a
+    kernel's tests round as the plain versions' do.  Raises ValueError
+    where the links do not form a threaded tree, as `build_bvh`'s do.
+    `Bvh` keeps the JAX package's fields; this copy lives beside it."""
+    nodes, links, tris = bvh.packed_nodes, bvh.packed_links, bvh.packed_tris
+    stamp = (nodes._version, links._version, tris._version)
+    key = id(nodes)
+    hit = _KERNEL_ROWS.get(key)
+    if (hit is not None and hit[0]() is nodes and hit[1]() is links
+            and hit[2]() is tris and hit[3] == stamp):
+        return hit[4]
+    row_of = walk_order(links)
+    if row_of is None:
+        raise ValueError("kernels K and L need packed_links that form a "
+                         "threaded tree (traverse.walk_order)")
+    node_of = torch.empty_like(row_of)
+    node_of[row_of] = torch.arange(row_of.numel(), device=row_of.device)
+    old = links[node_of].long()
+    new = torch.where(old >= 0, row_of[old.clamp(min=0)], old)
+    node_rows = torch.cat([nodes[node_of].contiguous().view(torch.int32),
+                           new.to(torch.int32)], dim=1).contiguous()
+    v0 = tris[:, 0:3]
+    tri_rows = torch.cat([v0, tris[:, 3:6] - v0, tris[:, 6:9] - v0,
+                          torch.zeros_like(v0)], dim=1).contiguous()
+    _KERNEL_ROWS[key] = (
+        weakref.ref(nodes, lambda _: _KERNEL_ROWS.pop(key, None)),
+        weakref.ref(links), weakref.ref(tris), stamp, (node_rows, tri_rows))
+    return node_rows, tri_rows
+
+
 def _node(bvh: Bvh, cur):
     row = bvh.packed_nodes[cur]
     links = bvh.packed_links[cur].long()
     return row[:, 0:3], row[:, 3:6], links[:, 0], links[:, 1]
 
 
-def _tally(tally, bvh: Bvh, nodes=None, first=None, tested=None) -> None:
+def _tally(tally, bvh: Bvh, rays, num_rays: int, nodes=None, first=None,
+           tested=None) -> None:
     """Add a step's work to ``tally`` (when given): a slab test of each
     node of ``nodes`` to its ``box_tests``, and ``tested[i]`` ray-triangle
     tests of rows ``first[i] + k`` to its ``tri_tests``.  Its boolean
     ``touched_nodes`` and ``touched_rows`` mark the `Bvh.packed_nodes`
-    and `Bvh.packed_tris` rows read at least once."""
+    and `Bvh.packed_tris` rows read at least once, and its ``[num_rays]``
+    ``ray_steps`` and ``ray_tri_tests`` count each ray's steps and tests
+    (``rays`` are the rays of ``nodes`` or ``first``)."""
     if tally is None:
         return
     dev = bvh.packed_nodes.device
@@ -107,11 +204,16 @@ def _tally(tally, bvh: Bvh, nodes=None, first=None, tested=None) -> None:
         bvh.packed_nodes.shape[0], dtype=torch.bool, device=dev))
     touched_rows = tally.setdefault("touched_rows", torch.zeros(
         bvh.packed_tris.shape[0], dtype=torch.bool, device=dev))
+    per_ray = {name: tally.setdefault(name, torch.zeros(
+        num_rays, dtype=torch.int64, device=dev))
+        for name in ("ray_steps", "ray_tri_tests")}
     if nodes is not None:
         tally["box_tests"] += nodes.numel()
         touched_nodes[nodes] = True
+        per_ray["ray_steps"][rays] += 1
     if first is not None and first.numel():
         tally["tri_tests"] += int(tested.sum())
+        per_ray["ray_tri_tests"][rays] += tested
         k = torch.arange(int(tested.max()), device=dev)
         rows = (first[:, None] + k)[k < tested[:, None]]
         touched_rows[torch.clamp(rows, 0, touched_rows.numel() - 1)] = True
@@ -148,7 +250,8 @@ def _walk_closest_plain(bvh: Bvh, origin, direction, max_iters: int, t_eps,
             count = enc % LEAF_PACK
             t, u, v, slots = leaf_test(bvh, enc // LEAF_PACK, count, width,
                                        o[at], direction[rays], t_eps)
-            _tally(tally, bvh, first=enc // LEAF_PACK, tested=count)
+            _tally(tally, bvh, rays, num_rays, first=enc // LEAF_PACK,
+                   tested=count)
             t_blk, j = t.min(dim=1)  # the first minimum in slot order
             closer = t_blk < bt[rays]
             jj = j[:, None]
@@ -157,7 +260,7 @@ def _walk_closest_plain(bvh: Bvh, origin, direction, max_iters: int, t_eps,
             bv[rays] = torch.where(closer, v.gather(1, jj)[:, 0], bv[rays])
             bslot[rays] = torch.where(closer, slots.gather(1, jj)[:, 0].to(
                 torch.int32), bslot[rays])
-        _tally(tally, bvh, nodes=cur[live])
+        _tally(tally, bvh, live, num_rays, nodes=cur[live])
         cur[live] = torch.where(enter & ~leaf, a, skip)
     return bt, bu, bv, bslot
 
@@ -191,10 +294,11 @@ def _walk_any_plain(bvh: Bvh, origin, direction, t_max, max_iters: int,
             hits = (t > t_eps) & (t < t_max[rays][:, None])
             hit = hits.any(dim=1)
             if tally is not None:
-                _tally(tally, bvh, first=enc // LEAF_PACK, tested=torch.where(
-                    hit, hits.int().argmax(dim=1) + 1, count))
+                _tally(tally, bvh, rays, num_rays, first=enc // LEAF_PACK,
+                       tested=torch.where(
+                           hit, hits.int().argmax(dim=1) + 1, count))
             occluded[rays] |= hit
-        _tally(tally, bvh, nodes=cur[live])
+        _tally(tally, bvh, live, num_rays, nodes=cur[live])
         nxt = torch.where(enter & ~leaf, a, skip)
         cur[live] = torch.where(occluded[live], -1, nxt)
     return occluded
@@ -207,6 +311,7 @@ def _walk_cuda(bvh: Bvh, origin, direction, t_max, max_iters: int, t_eps,
     num_rays = direction.shape[0]
     dev = direction.device
     num_nodes = bvh.packed_nodes.shape[0]
+    num_slots = bvh.packed_tris.shape[0]
     _check_cuda("origin", origin, dev, torch.float32, (num_rays, 3))
     _check_cuda("direction", direction, dev, torch.float32, (num_rays, 3))
     _check_cuda("packed_nodes", bvh.packed_nodes, dev, torch.float32,
@@ -214,13 +319,13 @@ def _walk_cuda(bvh: Bvh, origin, direction, t_max, max_iters: int, t_eps,
     _check_cuda("packed_links", bvh.packed_links, dev, torch.int32,
                 (num_nodes, 2))
     _check_cuda("packed_tris", bvh.packed_tris, dev, torch.float32,
-                (bvh.packed_tris.shape[0], 9))
+                (num_slots, 9))
+    node_rows, tri_rows = kernel_rows(bvh)
     if any_hit:
         _check_cuda("t_max", t_max, dev, torch.float32, (num_rays,))
         occluded = torch.empty(num_rays, dtype=torch.bool, device=dev)
         err = kernel_fn("rt_walk_any")(
-            bvh.packed_nodes.data_ptr(), bvh.packed_links.data_ptr(),
-            bvh.packed_tris.data_ptr(), bvh.packed_tris.shape[0],
+            node_rows.data_ptr(), tri_rows.data_ptr(), num_slots,
             origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
             num_rays, max_iters, float(t_eps), occluded.data_ptr(),
             raw_stream(dev))
@@ -232,8 +337,7 @@ def _walk_cuda(bvh: Bvh, origin, direction, t_max, max_iters: int, t_eps,
     out = torch.empty((3, num_rays), dtype=torch.float32, device=dev)
     slot = torch.empty(num_rays, dtype=torch.int32, device=dev)
     err = kernel_fn("rt_walk_closest")(
-        bvh.packed_nodes.data_ptr(), bvh.packed_links.data_ptr(),
-        bvh.packed_tris.data_ptr(), bvh.packed_tris.shape[0],
+        node_rows.data_ptr(), tri_rows.data_ptr(), num_slots,
         origin.data_ptr(), direction.data_ptr(), num_rays, max_iters,
         *_eps_args(t_eps), out[0].data_ptr(), out[1].data_ptr(),
         out[2].data_ptr(), slot.data_ptr(), raw_stream(dev))

@@ -33,6 +33,13 @@ from raytracercuda_torch.config import BvhConfig
 from raytracercuda_torch.models.camera import orient_from_pan_pitch
 from raytracercuda_torch.trace import beam, traverse
 
+def doubled(mesh):
+    """Every face of ``mesh`` twice, on the same vertices: each hit is an
+    exact-t tie between a face and its copy."""
+    verts, faces = mesh
+    return verts, np.concatenate([faces, faces])
+
+
 # name: (mesh, max_leaf_faces, frame side, tile_px, queue, eye, (pan,
 # pitch))
 BEAM_CASES = {
@@ -49,6 +56,8 @@ BEAM_CASES = {
     "two_faces": (lambda: big_triangles(2), 16, 32, 8, 128, None, None),
     "offset_eye_rotated": (lambda: random_mesh(100, 36), 16, 32, 16, 128,
                            (0.5, -0.3, 0.2), (0.4, -0.25)),
+    "f60_doubled_ties": (lambda: doubled(random_mesh(60, 34)), 4, 32, 8, 16,
+                         None, None),
 }
 
 
