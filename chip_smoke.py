@@ -187,23 +187,54 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      ``--parent DIR`` (an unpacked parent commit) it builds DIR's kernels
      and times its K and L in turns with this tree's on the same inputs
      (parent, this, this, parent), holding their outputs equal;
- 30. prints the BVH route's frame beside the CLUSTER bench frame (rays/s),
-     and each kernel's time beside its bound: the larger of its FP32
-     operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted from
-     this run's inputs (ray-triangle tests from the tile lists or the
-     instrumented runs, 46 operations each; K's slab tests 23 operations
-     and L's node tests 61), and, for D and G, the time of the one PyTorch
-     call that computes the same function (`torch.full`, `index_add_`),
-     their device times and G's `torch.zeros` + `index_add_`.
+ 38. builds the hash grid of the bench frame's scene on the card with
+     `build_grid` (timed), requires ``cell_start`` and ``entries`` bitwise
+     equal to the same build on the CPU, and prints its live buckets,
+     entries and faces per live bucket (`grid_stats`);
+ 39. renders the bench frame through the `FrameRenderer`'s GRID route
+     (kernel M's march, then shadows by E), requiring M and E launched,
+     within 1 per u8 channel of the same frame on the plain versions;
+     holds M against its plain version on that frame's rays (the plain
+     march run once, inside the plain frame, counting its work), on 2,048
+     scattered rays through `trace_hit` and on synthetic cases (the hash
+     collision of `tests/test_grid.py:112` with axis-aligned rays from
+     cell boundaries, axis-aligned and zero-component directions,
+     ``max_search_iters`` 40, ``max_faces_per_cell`` 4, origins inside
+     the mesh with ``clip_backward_hits`` on and off): slots equal, t/u/v
+     bit-equal; prints the hit share, the longest march and the tests per
+     ray (mean, p99, max);
+ 40. builds config 2's scene through `Scene.create(RenderConfig(accel=
+     GRID))` and traces its 256x256 frame through `Camera.trace_scene`
+     (M): equal to the plain path's frame, its hit pixels printed beside
+     BRUTE's and the quad's truncated cells; runs the render CLI with
+     ``--accel grid`` (parity and lambert, 128x128, three frames each, PNGs
+     equal to the same runs on the plain versions) and requires its
+     lambert-shadow route to raise, as the JAX package's does;
+ 41. times M by events over 20 launches and by the profiler's device
+     time, the GRID frame over 10 frames, `Camera.trace_scene` on GRID
+     over 20, `build_shadow_grid` and `occlusion_grid` (plain PyTorch; its
+     masks held equal to kernel E's any hit) on the GRID frame's shadow
+     rays, and prints M's bound (its tests and steps, from the plain
+     march's count) and chain floor (the longest march's steps x two
+     dependent loads x `rt_chase`'s latency);
+ 30. prints the BVH and GRID routes' frames beside the CLUSTER bench
+     frame (rays/s), and each kernel's time beside its bound: the larger
+     of its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s,
+     counted from this run's inputs (ray-triangle tests from the tile
+     lists or the instrumented runs, 46 operations each; K's slab tests 23
+     operations, L's node tests 61 and M's steps 41), and, for D and G,
+     the time of the one PyTorch call that computes the same function
+     (`torch.full`, `index_add_`), their device times and G's
+     `torch.zeros` + `index_add_`.
 
-Phases 31-37 run after phase 28, before phase 29.  Any failure exits
-non-zero.  ``--parent DIR`` is the only option; the run needs none.
-The last two lines of standard output are a JSON object of the kernels'
-counts, errors, times and bounds (A-J and the LBVH kernels K,
-closest and any hit, and L; every sweep's, D's, E's, G's, K's and L's
-with ``device_ms``, D's and G's with ``library_device_ms``, G's with
-``library_zeroed_ms``; null elsewhere), and ``{"ok": true, "device":
-{...}}``.
+Phases 31-37 and then 38-41 run after phase 28, before phase 29.  Any
+failure exits non-zero.  ``--parent DIR`` is the only option; the run
+needs none.  The last two lines of standard output are a JSON object of
+the kernels' counts, errors, times and bounds (A-J, the LBVH kernels K,
+closest and any hit, and L, and the grid march M; every sweep's, D's,
+E's, G's, K's, L's and M's with ``device_ms``, D's and G's with
+``library_device_ms``, G's with ``library_zeroed_ms``; null elsewhere),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1472,10 +1503,12 @@ def occlusion_cases(dev, accel, config) -> None:
         sweep.OCCLUSION_CHUNK, sweep.OCCLUSION_ROWS_CHUNK = keep
 
 
-def config2_scene(dev, size, suzanne_faces, default_structure=False):
+def config2_scene(dev, size, suzanne_faces, default_structure=False,
+                  accel=None):
     """Config 2's scene through the public API (scripts/bench_configs.py:
-    79-102): BRUTE (or, with ``default_structure``, `Scene.create()` with
-    no config), the suzanne stand-in ``bumpy_sphere_mesh`` at the origin
+    79-102): BRUTE, or the structure ``accel`` names (or, with
+    ``default_structure``, `Scene.create()` with no config), the suzanne
+    stand-in ``bumpy_sphere_mesh`` at the origin
     (radius 1) and the reference's quad at z = 2.5, a ``size`` square
     `Camera` and locked `RenderTarget`, eye (0, 0, -2.1).  Returns
     ``(scene, camera, target, eye, orient)``."""
@@ -1486,8 +1519,8 @@ def config2_scene(dev, size, suzanne_faces, default_structure=False):
                                                        quad_mesh)
 
     scene = (rt.Scene.create(device=dev) if default_structure else
-             rt.Scene.create(rt.RenderConfig(accel=rt.AccelKind.BRUTE),
-                             device=dev))
+             rt.Scene.create(rt.RenderConfig(
+                 accel=accel or rt.AccelKind.BRUTE), device=dev))
     scene.add_mesh(bumpy_sphere_mesh(suzanne_faces, radius=1.0,
                                      center=(0.0, 0.0, 0.0)))
     scene.add_mesh(quad_mesh(z=2.5))
@@ -3199,6 +3232,384 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     return records, frame_ms
 
 
+# The GRID path: the card's hash-grid build and kernel M on the bench
+# scene, config 2's scene through the public API, the render CLI.  The
+# FP32 operations of one step of kernel M's march besides its tests
+# (`csrc/grid.cu:march_kernel`): the cell's 3 divisions and 3 floors, the
+# box's 3 products and 3 sums, the slab's 6 subtractions, 6 products and
+# 10 NaN-propagating min/max, and the advance's 1 sum, 3 products and 3
+# sums; the hash's integer operations and the comparisons not counted.
+# Kernel M's dependent loads a step: the bucket's offsets, then its rows.
+GRID_SOURCE = "raytracercuda_torch/csrc/grid.cu"
+GRID_STEP_OPS = 41
+GRID_STEP_LOADS = 2
+# Rays of each synthetic case of phase 39 on the bench scene, and the frame
+# edge of the render CLI's GRID runs (their plain path's march takes ~7 s a
+# frame at 512x512 on the card).
+GRID_CASE_RAYS = 512
+GRID_CLI_SIZE = 128
+
+
+def collision_scene():
+    """`tests/test_grid.py:112`'s scene: a near face in cell (0,0,100) and
+    a far face in cell (0,0,255), whose bucket is cell (0,0,0)'s, with
+    axis-aligned rays, some from points on cell boundaries (0 * inf in the
+    slab test): numpy ``(positions, faces, origins, directions)``."""
+    import numpy as np
+
+    f32 = np.float32
+
+    def tri_at(z):
+        return np.array([[0.002, 0.002, z], [0.028, 0.002, z],
+                         [0.015, 0.028, z]], np.float32)
+
+    pos = np.concatenate([tri_at(100 * f32(0.03) + f32(0.0015)),
+                          tri_at(255 * f32(0.03) + f32(0.0015))])
+    faces = np.array([[0, 1, 2, 0], [3, 4, 5, 0]], np.int64)
+    o = np.array([[0.015, 0.012, 0.0005], [0.0, 0.0, -1.0], [0.03, 0.06, -1],
+                  [0.03, -0.09, 0.0], [-0.2, 0.0, 0.0], [0.0, -0.2, 0.03]],
+                 np.float32)
+    d = np.array([[0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 1, 0], [1, 0, 0],
+                  [0, 1, 0]], np.float32)
+    return pos, faces, o, d
+
+
+def grid_cases(dev, data, grid, eye) -> None:
+    """Phase 39's synthetic cases: kernel M against its plain version
+    (slots equal, t/u/v bit-equal) on the collision scene, and on the bench
+    scene's grid with axis-aligned and zero-component directions, rays
+    that exhaust ``max_search_iters``, ``max_faces_per_cell`` = 4, and
+    origins inside the mesh with ``clip_backward_hits`` on and off."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.accel.grid import build_grid
+    from raytracercuda_torch.config import GridConfig, TraceConfig
+    from raytracercuda_torch.trace import grid_march
+
+    flt_max = float(3.4028234663852886e38)
+    rng = np.random.default_rng(11)
+    n = GRID_CASE_RAYS
+    lo = data.positions.amin(dim=0).cpu().numpy()
+    hi = data.positions.amax(dim=0).cpu().numpy()
+    centre, eye_np = (lo + hi) / 2, eye.cpu().numpy()
+    axes = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)] * rng.choice(
+        [-1.0, 1.0], (n, 1)).astype(np.float32)
+    zero = rng.normal(size=(n, 3)).astype(np.float32)
+    zero[np.arange(n), rng.integers(0, 3, n)] = 0.0
+    on_cells = (np.round(rng.uniform(lo, hi, (n, 3)) / 0.03) * 0.03).astype(
+        np.float32)
+    inside = (centre + rng.normal(size=(n, 3)) * 0.3 * (hi - lo)).astype(
+        np.float32)
+    towards = (centre + rng.uniform(-0.5, 0.5, (n, 3)) * (hi - lo)
+               - eye_np).astype(np.float32)
+    cases = {  # name: (origins, dirs, GridConfig keywords, clip)
+        "axis-aligned from cell corners": (on_cells, axes, {}, True),
+        "zero components from the eye": (
+            np.broadcast_to(eye_np, (n, 3)), zero, {}, True),
+        "max_search_iters 40": (np.broadcast_to(eye_np, (n, 3)), towards,
+                                dict(max_search_iters=40), True),
+        "max_faces_per_cell 4": (np.broadcast_to(eye_np, (n, 3)), towards,
+                                 dict(max_faces_per_cell=4), True),
+        "inside, clip_backward_hits on": (inside, zero, {}, True),
+        "inside, clip_backward_hits off": (inside, zero, {}, False),
+    }
+    # Cases of one configuration run as one call of each version (the
+    # plain march's time is mostly its steps, not its rays).
+    groups = {}
+    for name, (o, d, kw, clip) in cases.items():
+        groups.setdefault((tuple(sorted(kw.items())), clip), []).append(
+            (name, o, d))
+    runs = [(grid, data.positions, data.faces, dict(kw), clip, members)
+            for (kw, clip), members in groups.items()]
+    pos, faces, o, d = collision_scene()
+    cp, cf = torch.from_numpy(pos).to(dev), torch.from_numpy(faces).to(dev)
+    runs.append((build_grid(cp, cf), cp, cf, {}, True,
+                 [("collision scene", o, d)]))
+    for g, p, f, kw, clip, members in runs:
+        cfg = GridConfig(**kw)
+        o = np.concatenate([m[1] for m in members]).astype(np.float32)
+        d = np.concatenate([m[2] for m in members]).astype(np.float32)
+        args = grid_march.march_args(
+            g, p, f, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            cfg, TraceConfig(clip_backward_hits=clip))
+        tally = {}
+        km = grid_march._march_cuda(*args)
+        pm = grid_march._march_plain(*args, tally=tally)
+        closest_err(km, pm, "kernel M (" + ", ".join(m[0] for m in members)
+                    + ")")
+        first = 0
+        for name, mo, _ in members:
+            part = slice(first, first + mo.shape[0])
+            first = part.stop
+            t, steps = pm[0][part], tally["ray_steps"][part]
+            print(f"  {name}: {mo.shape[0]} rays, "
+                  f"{int((t < flt_max).sum())} hits "
+                  f"({int((t < 0).sum())} at a negative t), longest march "
+                  f"{int(steps.max())} steps, "
+                  f"{int((steps == cfg.max_search_iters).sum())} rays take "
+                  f"all {cfg.max_search_iters}")
+        if members[0][0] == "collision scene":
+            face = grid_march.slot_hit(g, *km).face
+            check(int(face[0]) == 1, "kernel M: the collision case's ray "
+                  "does not report the far face")
+
+
+def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
+              api_size=C2_SIZE, suzanne_faces=C2_SUZANNE,
+              cli_size=GRID_CLI_SIZE, cli_faces=C2_SUZANNE, frames=3):
+    """Phases 38-41: the GRID backend on the bench frame's scene
+    (``data``, ``eye``, ``orient``, ``rays`` of ``size``²), config 2's
+    scene through `Scene.create(RenderConfig(accel=GRID))` and the render
+    CLI's ``--accel grid``.  Returns kernel M's record (launches of this
+    path only) and the GRID frame's milliseconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch.accel.grid import HashGrid, build_grid
+    from raytracercuda_torch.accel.stats import grid_stats
+    from raytracercuda_torch.apps import render_cli
+    from raytracercuda_torch.config import AccelKind, RenderConfig
+    from raytracercuda_torch.trace import bruteforce, grid_march, pipeline
+    from raytracercuda_torch.trace.frame import FrameRenderer
+    from raytracercuda_torch.trace.shadow import (build_shadow_grid,
+                                                  occlusion_grid)
+
+    flt_max = float(3.4028234663852886e38)
+    launches = 0
+
+    def reset():
+        grid_march.reset_launch_counts()
+        bruteforce.reset_launch_counts()
+
+    def read(where: str) -> None:
+        """Add the launches of M since `reset` to this path's; M must have
+        launched."""
+        nonlocal launches
+        sync_device(dev)
+        got = grid_march.launch_counts["grid_march"]
+        check(got > 0, f"GRID path ({where}): kernel M never launched")
+        launches += got
+
+    plain_all = {grid_march: {"_march_cuda": grid_march._march_plain},
+                 bruteforce: {"_brute_cuda": bruteforce._brute_plain}}
+    config = RenderConfig(accel=AccelKind.GRID)
+    gc, tc = config.grid, config.trace
+
+    # 38. The build on the card, held bitwise against the CPU's.
+    build_ms = time_cuda(lambda: build_grid(data.positions, data.faces, gc),
+                         3)
+    grid = build_grid(data.positions, data.faces, gc)
+    host = build_grid(data.positions.cpu(), data.faces.cpu(), gc)
+    check(torch.equal(grid.cell_start.cpu(), host.cell_start)
+          and torch.equal(grid.entries.cpu(), host.entries),
+          "build_grid on the card differs from the CPU's")
+    st = grid_stats(grid)
+    per = st["faces_per_live_cell"]
+    print(f"GRID build: {data.num_faces} faces -> {st['live_cells']} of "
+          f"{st['cells']} buckets live, {st['entries']} entries, faces per "
+          f"live bucket mean {per['mean']}, p50 {per['p50']}, p99 "
+          f"{per['p99']}, max {per['max']}; {build_ms:.4f} ms on {card}; "
+          "cell_start and entries bitwise equal to the CPU build")
+    clock.done("38 (GRID build)")
+
+    # 39. M through the FrameRenderer's GRID route (M, then shadows by E),
+    # against the same frame on the plain versions; M's inputs recorded,
+    # and the plain march's output and work captured in that frame.
+    n = size * size
+    renderer = FrameRenderer(data, grid, config, size, size)
+    reset()
+    rec = Recorder(grid_march, ["_march_cuda"])
+    try:
+        frame = renderer.render(eye, orient, rays)
+        read("the GRID frame")
+    finally:
+        rec.restore()
+    check(bruteforce.launch_counts["brute"] > 0,
+          "GRID frame: kernel E (shadows) never launched")
+    m_args = rec.calls["_march_cuda"][-1]
+    captured = {}
+
+    def plain_march(*args):
+        tally = {}
+        out, ms = time_once(lambda: grid_march._march_plain(*args,
+                                                            tally=tally))
+        captured.update(out=out, ms=ms, tally=tally)
+        return out
+
+    with PlainOnCard({**plain_all, grid_march: {"_march_cuda": plain_march}}):
+        plain_frame = renderer.render(eye, orient, rays)
+        sync_device(dev)
+    worst = u8_diff(frame, plain_frame)
+    check(worst <= 1, f"GRID frame vs plain frame: u8 diff {worst}")
+    km = grid_march._march_cuda(*m_args)
+    hits, _ = closest_err(km, captured["out"], "kernel M (the GRID frame)")
+    tally = captured["tally"]
+    steps, tests = tally["ray_steps"], tally["ray_tests"].double()
+    print(f"kernel M matches plain on the GRID frame's {n} rays: slots "
+          f"equal, t/u/v bit-equal; {hits} hit ({hits / n:.4f}), longest "
+          f"march {int(steps.max())} steps "
+          f"({int((steps == gc.max_search_iters).sum())} rays take all "
+          f"{gc.max_search_iters}), ray-triangle tests a ray "
+          f"mean {float(tests.mean()):.1f}, p99 "
+          f"{float(torch.quantile(tests, 0.99)):.0f}, max "
+          f"{int(tests.max())}; {tally['steps']} steps, {tally['tests']} "
+          f"tests in all; frame max u8 diff {worst} to the plain path")
+    # A bundle with scattered origins through `trace_hit`.
+    bo, bd = scattered_bundle(dev, data.positions.amin(dim=0),
+                              data.positions.amax(dim=0), BUNDLE_RAYS, 5)
+    reset()
+    bundle_hit = pipeline.trace_hit(data, grid, bo, bd, config)
+    read("the bundle")
+    b_args = grid_march.march_args(grid, data.positions, data.faces, bo, bd,
+                                   gc, tc)
+    pb = grid_march._march_plain(*b_args)
+    b_hits, _ = closest_err(grid_march._march_cuda(*b_args), pb,
+                            "kernel M (the bundle)")
+    check(torch.equal(bundle_hit.face, grid_march.slot_hit(grid, *pb).face),
+          "trace_hit's GRID faces on the bundle differ from plain")
+    print(f"kernel M on the {BUNDLE_RAYS}-ray bundle through trace_hit: "
+          f"equal to plain, {b_hits} hits")
+    print("kernel M on synthetic cases, each equal to plain:")
+    grid_cases(dev, data, grid, eye)
+    clock.done("39 (M vs plain)")
+
+    # 40. The public API on GRID: config 2's scene, Camera.trace_scene (M),
+    # equal to the plain path; hit pixels beside BRUTE's; the render CLI's
+    # parity and lambert routes with --accel grid, PNGs equal to plain.
+    scene2, cam, target, eye2, orient2 = config2_scene(
+        dev, api_size, suzanne_faces, accel=AccelKind.GRID)
+    check(isinstance(scene2.accel, HashGrid), "Scene.create(GRID) built "
+          f"{type(scene2.accel).__name__}")
+    reset()
+    check(cam.trace_scene(eye2, orient2, scene2, target) == 0,
+          "trace_scene on GRID")
+    read("Camera.trace_scene")
+    api_frame = target.buffer.clone()
+    with PlainOnCard(plain_all):
+        check(cam.trace_scene(eye2, orient2, scene2, target) == 0,
+              "trace_scene on GRID, plain versions")
+        sync_device(dev)
+    check(torch.equal(api_frame, target.buffer),
+          "GRID API frame differs from the plain path's")
+    brute2, bcam, btarget, _, _ = config2_scene(dev, api_size, suzanne_faces)
+    check(bcam.trace_scene(eye2, orient2, brute2, btarget) == 0,
+          "trace_scene on BRUTE")
+    check(btarget.unlock() == 0, "unlock")
+    bg = 255 << 8
+    g2 = scene2.accel
+    kept = torch.bincount(g2.entries[:int(g2.cell_start[-1])].long(),
+                          minlength=scene2.data().num_faces)[-2:].tolist()
+    st2 = grid_stats(g2)
+    print(f"Scene.create(GRID) on config 2's scene: {api_size}x{api_size} "
+          f"frame equal to the plain path's, {int((api_frame != bg).sum())} "
+          f"pixels hit against BRUTE's {int((btarget.buffer != bg).sum())} "
+          f"(the quad's two faces keep {kept} of their cells: "
+          f"max_cells_per_face truncates them, as in the JAX package); "
+          f"{st2['live_cells']} live buckets, {st2['entries']} entries")
+    cli_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_textured_obj(tmp, cli_faces, 64)
+        common = ["--accel", "grid", "--size", str(cli_size), "--frames",
+                  str(frames), "--orbit", "15"]
+        for shading in ("parity", "lambert"):
+            reset()
+            check(render_cli.main([path, *common, "--shading", shading, "-o",
+                                   os.path.join(tmp, shading)]) == 0,
+                  f"render CLI --accel grid ({shading}) failed")
+            read(f"render CLI {shading}")
+            cli_launches[shading] = grid_march.launch_counts["grid_march"]
+            with PlainOnCard(plain_all):
+                check(render_cli.main([path, *common, "--shading", shading,
+                                       "-o", os.path.join(tmp, shading + "_p")
+                                       ]) == 0,
+                      f"render CLI --accel grid ({shading}, plain) failed")
+            for f in range(frames):
+                png = f"frame_{f:04d}.png"
+                k = read_png(os.path.join(tmp, shading, png))
+                check(np.array_equal(k, read_png(
+                    os.path.join(tmp, shading + "_p", png))),
+                    f"render CLI --accel grid {shading} {png} differs from "
+                    "the plain path's")
+                check(bool((k != k[0, 0]).any()),
+                      f"render CLI --accel grid {shading}: nothing in view")
+        try:
+            render_cli.main([path, *common, "--shading", "lambert-shadow",
+                             "-o", os.path.join(tmp, "shadow")])
+            fail("render CLI --accel grid lambert-shadow did not raise")
+        except NotImplementedError:
+            pass
+    print(f"render CLI --accel grid at {cli_size}x{cli_size}, {frames} "
+          f"frames each: parity and lambert PNGs equal to the plain path's, "
+          f"launches of M {cli_launches}; lambert-shadow raises, as the JAX "
+          "package's route does on a grid")
+    clock.done("40 (public API on GRID)")
+
+    # 41. Times and bound.
+    fn = lambda: grid_march._march_cuda(*m_args)  # noqa: E731
+    m_ms = time_cuda(fn, 20)
+    m_device_ms, _, recorded = device_ms(fn, 20, ("march_kernel",))
+    frame_ms = time_cuda(lambda: renderer.render(eye, orient, rays), 10)
+    api_ms = time_cuda(lambda: cam.trace_scene(eye2, orient2, scene2,
+                                               target), 20)
+    check(target.unlock() == 0, "unlock")
+    # occlusion_grid (plain PyTorch) on the GRID frame's shadow rays, by
+    # the FrameRenderer's rule, against kernel E's any hit.
+    light = renderer.light
+    sgrid_ms = time_cuda(lambda: build_shadow_grid(data.positions,
+                                                   data.faces, light), 3)
+    sgrid = build_shadow_grid(data.positions, data.faces, light)
+    hit = grid_march.slot_hit(grid, *km)
+    dirs, origin = m_args[6], m_args[5]
+    p = origin + dirs * torch.clamp(hit.t, max=1e6)[:, None]
+    so = (torch.where(hit.hit_mask[:, None], p, origin)
+          + light * renderer.shadow_eps).contiguous()
+    occ = occlusion_grid(sgrid, so, hit.hit_mask, trace_cfg=tc)
+    want = bruteforce.any_hit_brute(data.positions, data.faces, so,
+                                    light.expand(so.shape).contiguous(),
+                                    flt_max, tc) & hit.hit_mask
+    check(torch.equal(occ, want), "occlusion_grid differs from kernel E's "
+          f"any hit on {int((occ != want).sum())} rays")
+    occ_ms = time_cuda(lambda: occlusion_grid(sgrid, so, hit.hit_mask,
+                                              trace_cfg=tc), 5)
+    # The bound: the plain march's work on the frame's rays; the bytes of
+    # the rays, the outputs, and the buckets' offsets and rows read.
+    ops = tally["tests"] * MT_OPS + tally["steps"] * GRID_STEP_OPS
+    moved = (nbytes(m_args[5], m_args[6], *km) + tally["buckets_read"] * 8
+             + tally["rows_read"] * 48)
+    floor_ns = {"L1": chase_ns(dev, CHASE_L1_ROWS),
+                "L2": chase_ns(dev, grid.num_cells)}
+    far = int(steps.max())
+    record = kernel_record("grid_march", GRID_SOURCE,
+                           "raytracercuda_tpu/trace/grid_march.py:51",
+                           launches, 0.0, m_ms, captured["ms"],
+                           bound(ops, moved), device_ms=m_device_ms)
+    print(f"kernel M: {m_ms:.4f} ms a launch by events, "
+          f"{ms_text(m_device_ms)} on the card (profiler, {recorded} of 20 "
+          f"launches recorded), plain {captured['ms']:.1f} ms on the card "
+          f"(one run, counting its work); bound {record['bound_ms']:.6f} ms "
+          f"by {record['bound_by']} ({ops} operations: {tally['tests']} "
+          f"ray-triangle tests, {tally['steps']} steps; {moved} bytes: "
+          f"{tally['buckets_read']} buckets, {tally['rows_read']} rows); "
+          f"chain floor "
+          + ", ".join(f"{far * GRID_STEP_LOADS * ns / 1e6:.6f} ms at "
+                      f"{ns:.1f} ns a load ({where}-resident chase)"
+                      for where, ns in floor_ns.items())
+          + f" ({far} steps x {GRID_STEP_LOADS} dependent loads); "
+          f"{launches} launches on this path")
+    print(f"GRID frame at {size}x{size} (M, shadows by E): "
+          f"{frame_ms:.4f} ms/frame, {n / frame_ms * 1e3:.6g} rays/s (W*H "
+          f"per frame); Camera.trace_scene on GRID at {api_size}x{api_size} "
+          f"{api_ms:.4f} ms a frame; build_grid {build_ms:.4f} ms; "
+          f"build_shadow_grid {sgrid_ms:.4f} ms, occlusion_grid "
+          f"{occ_ms:.4f} ms on the frame's {int(hit.hit_mask.sum())} shadow "
+          f"rays (plain PyTorch; masks equal to kernel E's); on {card}")
+    clock.done("41 (GRID times)")
+    return record, frame_ms
+
+
 def main() -> None:
     import argparse
 
@@ -3372,8 +3783,12 @@ def main() -> None:
                                          rays, parent=args.parent)
     for k in bvh_kernels:  # the CLI's and fly's launches of K and L
         k["launches"] += app[k["name"]]
+    grid_kernel, grid_frame_ms = grid_path(dev, clock, card, data, eye,
+                                           orient, rays)
     print(f"frames at {SIZE}x{SIZE} on {card}: BVH route (L, shadows by E) "
           f"{bvh_frame_ms:.4f} ms, {px / bvh_frame_ms * 1e3:.6g} rays/s; "
+          f"GRID route (M, shadows by E) {grid_frame_ms:.4f} ms, "
+          f"{px / grid_frame_ms * 1e3:.6g} rays/s; "
           f"CLUSTER bench frame (A, B) {frame_ms:.4f} ms, "
           f"{px / frame_ms * 1e3:.6g} rays/s (W*H per frame)")
 
@@ -3421,7 +3836,7 @@ def main() -> None:
                       "raytracercuda_tpu/trace/pallas_brute.py:36",
                       **{**c2["brute"],
                          "launches": c2["brute"]["launches"] + app["brute"]}),
-        *c5_kernels, *c1_kernels, *bvh_kernels,
+        *c5_kernels, *c1_kernels, *bvh_kernels, grid_kernel,
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["primary"]["launches"] += app["primary"]  # the CLI's parity route

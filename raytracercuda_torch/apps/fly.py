@@ -23,8 +23,7 @@ Events fire at the START of their frame (same as an SDL poll).
 
 `main` renders on the card unless ``--device cpu`` is given.  Its
 ``--accel`` defaults to ``bvh``, as the JAX package's does (kernel L
-traces its frames); ``grid`` raises `NotImplementedError` until the GRID
-slice of the port.
+traces its frames; ``grid`` traces them through kernel M's march).
 """
 
 from __future__ import annotations

@@ -23,8 +23,9 @@ Routes, by ``--shading`` and ``--accel``:
   * otherwise `render_rgb` and `pack_shaded` (shadows through kernel K's
     any-hit walk on BVH and WAVEFRONT).
 
-``--accel grid`` raises `Scene`'s `NotImplementedError`: GRID comes with a
-later slice of the port.
+With ``--accel grid`` every route traces through kernel M's march;
+``lambert-shadow`` raises `NotImplementedError` there, as the JAX
+package's route fails on a grid (`render_rgb` has no GRID shadows).
 """
 
 from __future__ import annotations

@@ -124,25 +124,6 @@ __device__ __forceinline__ int skip_link(const Node& r) {
   return __float_as_int(r.hi.w);
 }
 
-// A row of the triangle table: v0xyz e1x | e1yz e2xy | e2z and padding.
-struct Tri {
-  float4 a, b, c;
-};
-
-__device__ __forceinline__ Tri load_tri(const float4* __restrict__ rows,
-                                        int row) {
-  return Tri{__ldg(rows + 3 * row), __ldg(rows + 3 * row + 1),
-             __ldg(rows + 3 * row + 2)};
-}
-
-__device__ __forceinline__ float tri_mt(const Tri& w, float ox, float oy,
-                                        float oz, float dx, float dy,
-                                        float dz, bool use_eps, float t_eps,
-                                        float& u, float& v) {
-  return oracle_mt(w.a.x, w.a.y, w.a.z, w.a.w, w.b.x, w.b.y, w.b.z, w.b.w,
-                   w.c.x, ox, oy, oz, dx, dy, dz, use_eps, t_eps, u, v);
-}
-
 // A leaf's a-link a < 0 as (first, count): enc = -a - 2, first = enc //
 // 64 and count = enc % 64 with floor division, as the JAX package divides.
 // A Karras leaf that the collapse left internal has a = -1: first = -1,

@@ -1,6 +1,7 @@
 // The oracle's Moller-Trumbore test (`ops/math.tri_intersect`), shared by
-// kernel E (brute.cu) and kernels K and L (bvh.cu): the NaN miss rule, no
-// |det| threshold, and with use_eps t < t_eps clipped.  Built with
+// kernel E (brute.cu), kernels K and L (bvh.cu) and kernel M (grid.cu): the
+// NaN miss rule, no |det| threshold, and with use_eps t < t_eps clipped.
+// K, L and M read a triangle as a 48-byte row v0 | e1 | e2 (`Tri`).  Built with
 // -fmad=false and IEEE division, each expression rounds as the plain
 // PyTorch versions' separate operations do.
 #pragma once
@@ -43,6 +44,25 @@ __device__ __forceinline__ float oracle_mt(float v0x, float v0y, float v0z,
   const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
   if (isnan(t) || (use_eps && t < t_eps)) return kFltMax;
   return t;
+}
+
+// A row of the triangle table: v0xyz e1x | e1yz e2xy | e2z and padding.
+struct Tri {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ Tri load_tri(const float4* __restrict__ rows,
+                                        int row) {
+  return Tri{__ldg(rows + 3 * row), __ldg(rows + 3 * row + 1),
+             __ldg(rows + 3 * row + 2)};
+}
+
+__device__ __forceinline__ float tri_mt(const Tri& w, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, bool use_eps, float t_eps,
+                                        float& u, float& v) {
+  return oracle_mt(w.a.x, w.a.y, w.a.z, w.a.w, w.b.x, w.b.y, w.b.z, w.b.w,
+                   w.c.x, ox, oy, oz, dx, dy, dz, use_eps, t_eps, u, v);
 }
 
 }  // namespace

@@ -5,10 +5,10 @@ uvs, albedo, textures, eye and orientation (counterpart of
 Which face each ray hits is discrete, so the gradient is taken in two
 parts:
 
-  1. traversal (kernel C on CLUSTER, L or K on BVH, E on BRUTE) and the
-     shadow test (kernel H, K or E) run under ``torch.no_grad()`` on
-     detached tensors; only the integer face ids and the shadow mask go
-     on;
+  1. traversal (kernel C on CLUSTER, L or K on BVH, M on GRID, E on
+     BRUTE) and the shadow test (kernel H, K or E) run under
+     ``torch.no_grad()`` on detached tensors; only the integer face ids
+     and the shadow mask go on;
   2. t, u and v are re-derived from the hit face alone with live
      parameters, and shading interpolates, samples and lights them, so
      autograd reaches every continuous input.
@@ -238,7 +238,8 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
                         frame_hw) -> torch.Tensor:
     """Discrete directional-light occlusion mask from a traversal `Hit`,
     without gradients: kernel E on BRUTE, kernel K's any-hit walk on BVH
-    and WAVEFRONT (``t_max`` FLT_MAX), kernel H over the swept-beam lists
+    and WAVEFRONT (``t_max`` FLT_MAX; none on GRID, as in the JAX
+    package), kernel H over the swept-beam lists
     on CLUSTER (a frame the tile does not divide is edge-padded and
     cropped; rays that are not a frame go in groups of one tile's count,
     in their given order).
@@ -249,8 +250,13 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
     tc = config.trace
     brute = config.accel == AccelKind.BRUTE or accel is None
     if config.accel == AccelKind.GRID and not brute:
+        # The JAX package hands a hash grid to the LBVH's any-hit walk
+        # (raytracercuda_tpu/diff/render_grad.py:408-416), which fails on
+        # it; the port keeps that behaviour rather than add shadows there.
         raise NotImplementedError(
-            f"shadows on {config.accel} wait for the GRID slice of the port")
+            "render_rgb has no shadows on a GRID structure: the JAX "
+            "package's _occlusion_from_hit sends it to any_hit_bvh "
+            "(raytracercuda_tpu/diff/render_grad.py:408-416), which fails")
     with torch.no_grad():
         origin, dirs, l = origin.detach(), dirs.detach(), l.detach()
         hit_mask = hit_nd.hit_mask

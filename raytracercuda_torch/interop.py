@@ -1,9 +1,11 @@
 """Scene state carried across from the JAX package.
 
-The JAX package's `SceneData`, `ClusterSet` and `Bvh` hold jax arrays; their
-fields converted to numpy (``np.asarray``) become the port's tensors
-here, on any device.  Integer index tables widen to int64, the port's
-index type.  Nothing here imports JAX.
+The JAX package's `SceneData`, `ClusterSet`, `Bvh`, `HashGrid` and
+`ShadowGrid` hold jax arrays; their fields converted to numpy
+(``np.asarray``) become the port's tensors here, on any device.  Integer
+index tables widen to int64, the port's index type, except where the
+port's own structures keep int32 (the LBVH's packed links, the grids' CSR
+tables).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ import torch
 
 from .accel.bvh import Bvh
 from .accel.clusters import ClusterSet, edge_rows
+from .accel.grid import HashGrid
 from .device import resolve_device
 from .models.scene import SceneData
+from .trace.shadow import ShadowGrid
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -79,3 +83,32 @@ def bvh_from_numpy(node_min, node_max, hit_link, skip_link, is_leaf,
                packed_nodes=_tensor(packed_nodes, device, np.float32),
                packed_links=_tensor(packed_links, device, np.int32),
                packed_tris=_tensor(packed_tris, device, np.float32))
+
+
+def hash_grid_from_numpy(cell_start, entries, cell_res, num_cells: int, *,
+                         device: torch.device | str | None = None
+                         ) -> HashGrid:
+    """A port `HashGrid` from a JAX `HashGrid`'s CSR offsets, entries and
+    cell size, on ``device`` (the card when None): both tables int32."""
+    device = resolve_device(device)
+    return HashGrid(cell_start=_tensor(cell_start, device, np.int32),
+                    entries=_tensor(entries, device, np.int32),
+                    cell_res=_tensor(cell_res, device, np.float32),
+                    num_cells=int(num_cells))
+
+
+def shadow_grid_from_numpy(u_axis, v_axis, l_axis, uv_min, inv_cell,
+                           cell_start, entry_tris, res: int, *,
+                           device: torch.device | str | None = None
+                           ) -> ShadowGrid:
+    """A port `ShadowGrid` from the fields of a JAX `ShadowGrid`, on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
+    return ShadowGrid(u_axis=_tensor(u_axis, device, np.float32),
+                      v_axis=_tensor(v_axis, device, np.float32),
+                      l_axis=_tensor(l_axis, device, np.float32),
+                      uv_min=_tensor(uv_min, device, np.float32),
+                      inv_cell=_tensor(inv_cell, device, np.float32),
+                      cell_start=_tensor(cell_start, device, np.int32),
+                      entry_tris=_tensor(entry_tris, device, np.float32),
+                      res=int(res))

@@ -4,7 +4,7 @@ API's ``march`` (counterpart of `raytracercuda_tpu/models/scene.py`).
 Every mesh is concatenated into single SoA tensors with a global face
 table, rows ``(i0, i1, i2, mesh_id)``.  The `Scene` builds the LBVH for
 BVH and WAVEFRONT (the default structure), the cluster set for CLUSTER,
-or none for BRUTE; GRID comes with a later slice of the port.
+the hash grid for GRID, or none for BRUTE.
 """
 
 from __future__ import annotations
@@ -42,8 +42,23 @@ class SceneData(NamedTuple):
         return self.faces.shape[0]
 
     @property
+    def num_vertices(self) -> int:
+        return self.positions.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.positions.device
+
+    def face_vertices(self, face_ids):
+        """The three corner positions of ``face_ids``: three ``[..., 3]``
+        tensors."""
+        f = self.faces[face_ids]
+        return (self.positions[f[..., 0]], self.positions[f[..., 1]],
+                self.positions[f[..., 2]])
+
+    def aabb(self):
+        """The scene's box: per-axis min and max of the positions."""
+        return self.positions.amin(dim=0), self.positions.amax(dim=0)
 
 
 class Material:
@@ -138,11 +153,6 @@ class Scene:
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
                  device: torch.device | str | None = None):
-        if config.accel is AccelKind.GRID:
-            raise NotImplementedError(
-                f"{config.accel} waits for the GRID slice of the port "
-                "(accel/grid.py, trace/grid_march.py); the port builds BVH, "
-                "WAVEFRONT, CLUSTER and BRUTE")
         self.config = config
         self.device = resolve_device(device)
         self._meshes: list[Mesh] = []
@@ -183,7 +193,8 @@ class Scene:
 
     def update_gpu_scene(self):
         """Rebuild the structure over the flattened scene: the LBVH (BVH
-        and WAVEFRONT), the cluster set, or None for BRUTE."""
+        and WAVEFRONT), the cluster set, the hash grid, or None for
+        BRUTE."""
         data = self.data()
         if self.config.accel in (AccelKind.BVH, AccelKind.WAVEFRONT):
             from ..accel.bvh import build_bvh
@@ -195,6 +206,11 @@ class Scene:
 
             self._accel = build_clusters(data.positions, data.faces,
                                          self.config.cluster)
+        elif self.config.accel is AccelKind.GRID:
+            from ..accel.grid import build_grid
+
+            self._accel = build_grid(data.positions, data.faces,
+                                     self.config.grid)
         return self._accel
 
     @property

@@ -23,6 +23,17 @@ def pack_rgb(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (_to_u8(r * 255.0) << 16) | (_to_u8(g * 255.0) << 8) | _to_u8(b * 255.0)
 
 
+def pack_rgb_vec(v: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` float RGB -> packed ``0x00RRGGBB`` (int64)."""
+    return pack_rgb(v[..., 0], v[..., 1], v[..., 2])
+
+
+def pack_gray(r: torch.Tensor) -> torch.Tensor:
+    """One float channel -> packed gray ``0x00RRGGBB`` (int64)."""
+    ru = _to_u8(r * 255.0)
+    return (ru << 16) | (ru << 8) | ru
+
+
 def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
     """Packed colour -> float ``[...,3]`` RGB in [0,1]."""
     p = packed.to(torch.int64)
@@ -43,6 +54,22 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack(
         [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add: the
+    product and the sum in float64, where the product of two float32
+    values is exact."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def dot_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dot product over a trailing axis of 3 as XLA on the CPU
+    computes the JAX package's three-term sums and matrix-vector products:
+    ``fma(a2, b2, fma(a1, b1, a0 * b0))``.  Where a rounding decides a
+    discrete result (a cell, an overlap), the port computes it so."""
+    return fma32(a[..., 2], b[..., 2],
+                 fma32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -82,3 +109,29 @@ def box_ray_intersect(bmin, bmax, orig, inv_dir):
     dist = torch.clamp(t_near, min=0.0)
     dist = torch.where(t_far >= t_near, dist, float(FLT_MAX))
     return torch.where(t_far < 0.0, float(FLT_MAX), dist)
+
+
+def box_ray_intersect_no_zero(bmin, bmax, orig, inv_dir):
+    """Slab test returning the exit distance where the entry distance is
+    behind the origin or infinite (`bmBoxRayIntersectNoZero`,
+    `CudaComon.cuh:174-187`): how the grid march steps through its cell.
+    A NaN slab product (0 * inf) gives a NaN, as the JAX package's
+    NaN-propagating min/max do."""
+    t_min = (bmin - orig) * inv_dir
+    t_max = (bmax - orig) * inv_dir
+    t_near = torch.amax(torch.minimum(t_min, t_max), dim=-1)
+    t_far = torch.amin(torch.maximum(t_min, t_max), dim=-1)
+    return torch.where(torch.isinf(t_near) | (t_near < 0.0), t_far, t_near)
+
+
+def aabb_overlap(amin, amax, bmin, bmax):
+    """Axis-aligned box overlap, touching boxes included (`bmAABBOverlap`,
+    `CudaComon.cuh:189-212`)."""
+    sep = torch.any(amin > bmax, dim=-1) | torch.any(amax < bmin, dim=-1)
+    return ~sep
+
+
+def validate_aabb(bmin, bmax):
+    """True where the box is valid: not every extent negative
+    (`bmValidateAABB`, `CudaComon.cuh:214-228`)."""
+    return ~torch.all((bmax - bmin) < 0.0, dim=-1)

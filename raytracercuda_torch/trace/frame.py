@@ -14,12 +14,12 @@ call:
      texture), packs ``0x00RRGGBB`` and untiles into row-major order.
 
 Shade blocks are built once per (scene, clusters) pair.  On any other
-structure (BVH, WAVEFRONT, or none for BRUTE; JAX `_frame_xla`) it traces
-with `pipeline.trace_hit` (kernel L or K on BVH), tests shadows with
-`any_hit_brute` (kernel E) from origins offset by ``light * shadow_eps``,
-and shades through the per-face rows of `shade.build_face_tables`.  The
-tensors' device picks the kernels: CUDA kernels on a GPU, their plain
-PyTorch versions on the CPU.
+structure (BVH, GRID, WAVEFRONT, or none for BRUTE; JAX `_frame_xla`) it
+traces with `pipeline.trace_hit` (kernel L or K on BVH, M on GRID), tests
+shadows with `any_hit_brute` (kernel E) from origins offset by ``light *
+shadow_eps``, and shades through the per-face rows of
+`shade.build_face_tables`.  The tensors' device picks the kernels: CUDA
+kernels on a GPU, their plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations

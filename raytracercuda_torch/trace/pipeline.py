@@ -17,10 +17,9 @@ framebuffer (counterpart of `raytracercuda_tpu/trace/pipeline.py`).
     (`beam.trace_beam`, with ``use_beam``), and any other frame or bundle
     through kernel K's per-ray walk (`traverse.trace_bvh`), as the
     reference does: no edge-padding here;
+  * GRID traces every frame and bundle through kernel M's march
+    (`grid_march.trace_grid`);
   * WAVEFRONT traces through `wavefront.trace_wavefront` (plain PyTorch).
-
-GRID raises `NotImplementedError` naming the slice of the port that
-brings it.
 """
 
 from __future__ import annotations
@@ -98,15 +97,18 @@ def trace_hit(
 
         return trace_bvh(accel, scene.positions, scene.faces, origin,
                          direction, config.bvh, tc)
+    if kind == AccelKind.GRID:
+        from .grid_march import trace_grid
+
+        return trace_grid(accel, scene.positions, scene.faces, origin,
+                          direction, config.grid, tc)
     if kind == AccelKind.WAVEFRONT:
         from .wavefront import trace_wavefront
 
         return trace_wavefront(accel, scene.positions, scene.faces, origin,
                                direction, config.bvh, tc)
     if kind != AccelKind.CLUSTER:
-        raise NotImplementedError(
-            f"{kind} waits for the GRID slice of the port (accel/grid.py, "
-            "trace/grid_march.py)")
+        raise ValueError(f"unknown accel kind {kind}")
     from .sweep import segment_blocks, trace_dense
 
     tp = tc.dense_tile_px

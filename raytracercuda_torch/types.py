@@ -12,9 +12,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 # The reference's miss sentinel (`CudaComon.cuh:143,147`).  A numpy scalar,
 # as in the JAX package, so that it mixes with tensors of any device.
 FLT_MAX = np.float32(3.4028234663852886e38)
+
+
+class Rays(NamedTuple):
+    """A bundle of rays: ``origin`` and ``direction`` float32 ``[..., 3]``
+    (the direction need not be normalized)."""
+
+    origin: torch.Tensor
+    direction: torch.Tensor
 
 
 class Hit(NamedTuple):
@@ -28,3 +38,14 @@ class Hit(NamedTuple):
     @property
     def hit_mask(self) -> torch.Tensor:
         return self.face >= 0
+
+
+def miss_hit(shape, device: torch.device | str | None = None) -> Hit:
+    """An all-miss `Hit` of the given batch shape, on ``device`` (the card
+    when None)."""
+    device = resolve_device(device)
+    return Hit(t=torch.full(shape, float(FLT_MAX), dtype=torch.float32,
+                            device=device),
+               u=torch.zeros(shape, dtype=torch.float32, device=device),
+               v=torch.zeros(shape, dtype=torch.float32, device=device),
+               face=torch.full(shape, -1, dtype=torch.int32, device=device))

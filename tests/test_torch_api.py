@@ -213,8 +213,9 @@ def test_scene_backends_and_meshes():
         lb = trt.Scene.create(trt.RenderConfig(accel=kind), "cpu")
         lb.add_mesh(b)
         assert lb.accel.num_faces == 1 and bool(lb.accel.is_leaf[0])
-    with pytest.raises(NotImplementedError, match="GRID slice"):
-        trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.GRID), "cpu")
+    g = trt.Scene.create(trt.RenderConfig(accel=trt.AccelKind.GRID), "cpu")
+    g.add_mesh(b)
+    assert int(g.accel.cell_start[-1]) >= 1 and g.accel.num_cells == 65536
 
 
 # ---------------------------------------------------------------------------

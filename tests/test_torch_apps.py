@@ -147,9 +147,19 @@ def test_render_cli_backends_and_errors(model, tmp_path, capsys):
         frame = read_png(out / "frame_0000.png")
         assert frame.shape == (16, 16, 3)
         assert (frame != frame[0, 0]).any()  # the model is in view
-    with pytest.raises(NotImplementedError, match="GRID slice"):
-        tcli.main([model, "--accel", "grid", "-o", str(tmp_path),
-                   "--device", "cpu"])
+    for shading in ("parity", "lambert"):  # through kernel M's march
+        out = tmp_path / f"grid_{shading}"
+        assert tcli.main([model, "--accel", "grid", "--shading", shading,
+                          "--size", "16", "-o", str(out),
+                          "--device", "cpu"]) == 0
+        frame = read_png(out / "frame_0000.png")
+        assert frame.shape == (16, 16, 3)
+        assert (frame != frame[0, 0]).any()
+    # No shadows on GRID, as in the JAX package (`render_rgb`).
+    with pytest.raises(NotImplementedError, match="GRID"):
+        tcli.main([model, "--accel", "grid", "--shading", "lambert-shadow",
+                   "--size", "16", "-o", str(tmp_path), "--device", "cpu"])
+    assert trt.RenderTarget.get() is None
     assert tcli.main([str(tmp_path / "none.obj"), "-o", str(tmp_path),
                       "--device", "cpu"]) == 1
     assert "model not found" in capsys.readouterr().err
@@ -280,9 +290,13 @@ def test_fly_main(model, tmp_path):
     assert frame.shape == (16, 16, 3)
     assert (frame != frame[0, 0]).any()  # the model is in view
     assert trt.RenderTarget.get() is None
-    with pytest.raises(NotImplementedError, match="GRID slice"):
-        tfly.main(["--model", model, "--script", str(script), "--accel",
-                   "grid", "--out", str(out), "--device", "cpu"])
+    grid_out = tmp_path / "grid"
+    assert tfly.main(["--model", model, "--script", str(script), "--accel",
+                      "grid", "--frames", "3", "--size", "16", "--out",
+                      str(grid_out), "--device", "cpu"]) == 0
+    assert sorted(os.listdir(grid_out)) == [f"fly_{i:04d}.png"
+                                            for i in range(3)]
+    assert (read_png(grid_out / "fly_0002.png") != frame[0, 0]).any()
 
 
 # ---------------------------------------------------------------------------

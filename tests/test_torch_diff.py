@@ -322,11 +322,15 @@ def test_frame_hw_mismatch_raises():
 def test_unported_routes_raise():
     """`render_rgb` on BVH with shadows, with ``frame_hw`` (kernel L's plain
     version) and without (kernel K's), equals JAX's: the BVH routes that
-    raised until the LBVH was ported.  GRID still raises."""
+    raised until the LBVH was ported.  Shadows on GRID raise, in the JAX
+    package (its any-hit walk gets a hash grid) and in the port, which
+    keeps that fault."""
+    from raytracercuda_tpu.accel.grid import build_grid as jax_grid
     from raytracercuda_tpu.accel.bvh import build_bvh as jax_bvh
     from raytracercuda_tpu.config import RenderConfig as JaxRenderConfig
 
     from raytracercuda_torch.accel.bvh import build_bvh
+    from raytracercuda_torch.accel.grid import build_grid
 
     s = setup()
     side = s["side"]
@@ -341,9 +345,18 @@ def test_unported_routes_raise():
         got = trg.render_rgb(s["ts"], tb, *torch_args(s), tcfg, **kw)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
         assert (np.abs(want - want[0]).max(axis=1) > 0.1).mean() > 0.1
-    with pytest.raises(NotImplementedError, match="GRID slice"):
-        trg.render_rgb(s["ts"], s["tc"], *torch_args(s),
-                       TorchRenderConfig(accel=TorchAccelKind.GRID),
+    tcfg = TorchRenderConfig(accel=TorchAccelKind.GRID)
+    jcfg = JaxRenderConfig(accel=jax_accel_kind.GRID)
+    with pytest.raises(NotImplementedError,
+                       match="render_grad.py:408-416"):
+        trg.render_rgb(s["ts"], build_grid(s["ts"].positions, s["ts"].faces,
+                                           tcfg.grid),
+                       *torch_args(s), tcfg, with_shadows=True,
+                       frame_hw=(side, side))
+    with pytest.raises(AttributeError, match="packed_tris"):
+        jrg.render_rgb(s["js"], jax_grid(s["js"].positions, s["js"].faces,
+                                         jcfg.grid),
+                       *jax_args(s), jcfg, with_shadows=True,
                        frame_hw=(side, side))
 
 
