@@ -183,26 +183,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      dependent load's latency, measured by `rt_chase` in a table L1 holds
      and in one of the tree's size), K on node rows in walk order and in
      the build's order (equal outputs), L's time by kernel (walk, test,
-     epilogue) and L at 1, 2, 4 and 8 queue entries a work item; with
-     ``--parent DIR`` (an unpacked parent commit) it builds DIR's kernels
-     and times its K and L in turns with this tree's on the same inputs
-     (parent, this, this, parent), holding their outputs equal;
+     epilogue) and L at 1, 2, 4 and 8 queue entries a work item;
  38. builds the hash grid of the bench frame's scene on the card with
      `build_grid` (timed), requires ``cell_start`` and ``entries`` bitwise
      equal to the same build on the CPU, and prints its live buckets,
      entries and faces per live bucket (`grid_stats`);
  39. renders the bench frame through the `FrameRenderer`'s GRID route
-     (kernel M's march, then shadows by E), requiring M and E launched,
-     within 1 per u8 channel of the same frame on the plain versions;
-     holds M against its plain version on that frame's rays (the plain
-     march run once, inside the plain frame, counting its work), on 2,048
-     scattered rays through `trace_hit` and on synthetic cases (the hash
-     collision of `tests/test_grid.py:112` with axis-aligned rays from
-     cell boundaries, axis-aligned and zero-component directions,
-     ``max_search_iters`` 40, ``max_faces_per_cell`` 4, origins inside
-     the mesh with ``clip_backward_hits`` on and off): slots equal, t/u/v
-     bit-equal; prints the hit share, the longest march and the tests per
-     ray (mean, p99, max);
+     (kernel M's march on pixel patches from the staged eye, then shadows
+     by E), requiring M and E launched, within 1 per u8 channel of the
+     same frame on the plain versions; holds M against its plain version
+     on that frame's rays with the route's hints and without them (the
+     plain march run once, inside the plain frame, counting its work), on
+     2,048 scattered rays through `trace_hit` (blocks of consecutive rays,
+     the general test) and on synthetic cases (the hash collision of
+     `tests/test_grid.py:112` with axis-aligned rays from cell boundaries,
+     axis-aligned and zero-component directions, ``max_search_iters`` 40,
+     ``max_faces_per_cell`` 4, origins inside the mesh with
+     ``clip_backward_hits`` on and off; the cases from the eye also with
+     the hints): slots equal, t/u/v bit-equal; prints the hit share, the
+     longest march, the tests per ray (mean, p99, max) and the plain
+     march's count of M's work: the lane use of one thread a ray on row
+     and pixel-patch warps and of the shared schedule, and the rows read
+     when each distinct bucket of a block's step is read once;
  40. builds config 2's scene through `Scene.create(RenderConfig(accel=
      GRID))` and traces its 256x256 frame through `Camera.trace_scene`
      (M): equal to the plain path's frame, its hit pixels printed beside
@@ -211,12 +213,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      equal to the same runs on the plain versions) and requires its
      lambert-shadow route to raise, as the JAX package's does;
  41. times M by events over 20 launches and by the profiler's device
-     time, the GRID frame over 10 frames, `Camera.trace_scene` on GRID
-     over 20, `build_shadow_grid` and `occlusion_grid` (plain PyTorch; its
-     masks held equal to kernel E's any hit) on the GRID frame's shadow
-     rays, and prints M's bound (its tests and steps, from the plain
-     march's count) and chain floor (the longest march's steps x two
-     dependent loads x `rt_chase`'s latency);
+     time on the GRID frame's rays (also on its pixel patches without the
+     staged eye, and without either hint, each equal), the GRID frame
+     over 10 frames, `Camera.trace_scene` on GRID over 20,
+     `build_shadow_grid` and `occlusion_grid` (plain PyTorch; its masks
+     held equal to kernel E's any hit) on the GRID frame's shadow rays,
+     and prints M's bound (its
+     tests and steps, from the plain march's count), its work counters
+     and its chain floor (the longest march's steps x two dependent loads
+     x `rt_chase`'s latency); with ``--parent DIR`` (an unpacked parent
+     commit) it builds DIR's kernels and times DIR's M in turns with this
+     tree's on the same rays (parent, this, this, parent), by events and
+     on the card, holding their outputs equal;
  30. prints the BVH and GRID routes' frames beside the CLUSTER bench
      frame (rays/s), and each kernel's time beside its bound: the larger
      of its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s,
@@ -1196,12 +1204,12 @@ def serial_anyhit_tests(lists, light, o_tiles, active, blocks, t_eps):
     return tests, int(occluded.sum())
 
 
-def kernel_registers(log: str) -> dict:
-    """Registers per thread of each kernel, from the build's ``ptxas -v``
-    output: ``{name<template args>: registers}``."""
+def kernel_usage(log: str) -> dict:
+    """Each kernel's ``ptxas -v`` usage line from the build's output:
+    ``{name<template args>: "Used N registers, ..."}``."""
     import re
 
-    regs, name = {}, None
+    used, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -1212,11 +1220,28 @@ def kernel_registers(log: str) -> dict:
                 "<" + ", ".join(("true" if v == "1" else "false")
                                 if t == "b" else v for t, v in args) + ">"
                 if args else "")) if k else m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            regs[name] = int(m.group(1))
+        if "Used " in line and name:
+            used[name] = line
             name = None
-    return regs
+    return used
+
+
+def kernel_registers(log: str) -> dict:
+    """Registers per thread of each kernel (`kernel_usage`):
+    ``{name<template args>: registers}``."""
+    import re
+
+    return {k: int(re.search(r"Used (\d+) registers", v).group(1))
+            for k, v in kernel_usage(log).items()}
+
+
+def kernel_shared(log: str) -> dict:
+    """Static shared memory a block of each kernel (`kernel_usage`), in
+    bytes (0 where ptxas prints none)."""
+    import re
+
+    return {k: int(m.group(1)) if (m := re.search(r"(\d+) bytes smem", v))
+            else 0 for k, v in kernel_usage(log).items()}
 
 
 #: What each entry of a `k_sweep` holds.
@@ -2739,58 +2764,30 @@ def parent_library(tree: str):
     return mod.load_library()
 
 
-def parent_bvh_fns(lib):
-    """The parent's kernels K (closest, any hit) and L, called as this
-    tree's `_walk_closest_cuda`, `_walk_any_cuda` and `_beam_cuda`: the
-    first design's C entries, which read `Bvh.packed_nodes`,
-    `packed_links` and `packed_tris` directly."""
+def parent_grid_fn(lib):
+    """The parent's kernel M, called as this tree's `_march_cuda` (the
+    hints dropped): the first design's C entry, one thread a ray over
+    `march_rows`, which the parent builds the same way."""
     import torch
 
     from raytracercuda_torch.ops.cuda_build import raw_stream
 
-    def tree(bvh):
-        return (bvh.packed_nodes.data_ptr(), bvh.packed_links.data_ptr(),
-                bvh.packed_tris.data_ptr(), bvh.packed_tris.shape[0])
-
-    def eps(t_eps):
-        return int(t_eps is not None), 0.0 if t_eps is None else float(t_eps)
-
-    def closest(bvh, origin, direction, max_iters, t_eps):
+    def march(rows, cell_start, num_cells, cell_res, pinch, origin,
+              direction, max_iters, max_faces, t_eps, *hints):
         n, dev = direction.shape[0], direction.device
         out = torch.empty((3, n), device=dev)
         slot = torch.empty(n, dtype=torch.int32, device=dev)
-        err = lib.rt_walk_closest(*tree(bvh), origin.data_ptr(),
-                                  direction.data_ptr(), n, max_iters,
-                                  *eps(t_eps), out[0].data_ptr(),
-                                  out[1].data_ptr(), out[2].data_ptr(),
-                                  slot.data_ptr(), raw_stream(dev))
-        check(err == 0, f"parent's K failed: CUDA error {err}")
+        err = lib.rt_grid_march(
+            cell_start.data_ptr(), num_cells, rows.data_ptr(), rows.shape[0],
+            origin.data_ptr(), direction.data_ptr(), n, cell_res, pinch,
+            max_iters, max_faces, int(t_eps is not None),
+            0.0 if t_eps is None else float(t_eps), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), slot.data_ptr(),
+            raw_stream(dev))
+        check(err == 0, f"parent's M failed: CUDA error {err}")
         return out[0], out[1], out[2], slot
 
-    def any_hit(bvh, origin, direction, t_max, max_iters, t_eps):
-        n, dev = direction.shape[0], direction.device
-        occ = torch.empty(n, dtype=torch.bool, device=dev)
-        err = lib.rt_walk_any(*tree(bvh), origin.data_ptr(),
-                              direction.data_ptr(), t_max.data_ptr(), n,
-                              max_iters, float(t_eps), occ.data_ptr(),
-                              raw_stream(dev))
-        check(err == 0, f"parent's K (any hit) failed: CUDA error {err}")
-        return occ
-
-    def beam_fn(bvh, eye, dirs, planes, height, width, tile_px, queue,
-                k_leaf, steps, t_eps, tiles_per_chunk):
-        n, dev = dirs.shape[0], dirs.device
-        out = torch.empty((3, n), device=dev)
-        slot = torch.empty(n, dtype=torch.int32, device=dev)
-        err = lib.rt_beam(*tree(bvh), eye.data_ptr(), dirs.data_ptr(),
-                          planes.data_ptr(), height, width, tile_px, queue,
-                          k_leaf, steps, *eps(t_eps), out[0].data_ptr(),
-                          out[1].data_ptr(), out[2].data_ptr(),
-                          slot.data_ptr(), raw_stream(dev))
-        check(err == 0, f"parent's L failed: CUDA error {err}")
-        return out[0], out[1], out[2], slot
-
-    return closest, any_hit, beam_fn
+    return march
 
 
 def beam_work(stats, num_slots: int, size: int, tp: int, queue: int,
@@ -2843,14 +2840,12 @@ def beam_work(stats, num_slots: int, size: int, tp: int, queue: int,
 
 def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
              wf_size=WAVEFRONT_SIZE, api_size=C2_SIZE,
-             suzanne_faces=C2_SUZANNE, parent=None):
+             suzanne_faces=C2_SUZANNE):
     """Phases 31-37: the LBVH backend on the bench frame's scene (``data``,
     ``eye``, ``orient``, ``rays`` of ``size``²) and on config 2's scene
-    through `Scene.create()` with no config.  ``parent``: the directory of
-    an unpacked parent commit, whose kernels K and L phase 37 times in
-    turns with this tree's.  Returns the kernels' records (K closest, K
-    any hit, L; launches of this path only) and the BVH frame's
-    milliseconds."""
+    through `Scene.create()` with no config.  Returns the kernels' records
+    (K closest, K any hit, L; launches of this path only) and the BVH
+    frame's milliseconds."""
     import numpy as np
     import torch
 
@@ -3201,31 +3196,6 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
                   f"{by[2]:.4f} ms")
     finally:
         beam.BEAM_CHUNK = chunk
-    if parent is not None:
-        p_closest, p_any, p_beam = parent_bvh_fns(parent_library(parent))
-        for name, new_fn, old_fn, args, kernels in (
-                ("K closest", traverse._walk_closest_cuda, p_closest,
-                 k_args, ("walk_kernel",)),
-                ("K any hit", traverse._walk_any_cuda, p_any, a_args,
-                 ("walk_kernel",)),
-                ("L", beam._beam_cuda, p_beam, l_args,
-                 BEAM_KERNELS + ("beam_kernel",))):
-            got, want = new_fn(*args), old_fn(*args)
-            if name == "K any hit":
-                occlusion_err(got, want, f"kernel {name} against the parent")
-            else:
-                closest_err(got, want, f"kernel {name} against the parent")
-            turns = [time_cuda(lambda: f(*args), 20)
-                     for f in (old_fn, new_fn, new_fn, old_fn)]
-            dev_new = device_ms(lambda: new_fn(*args), 20, kernels)[0]
-            dev_old = device_ms(lambda: old_fn(*args), 20, kernels)[0]
-            print(f"kernel {name} against the parent ({parent}), equal "
-                  f"outputs; by events parent, this, this, parent: "
-                  + ", ".join(f"{t:.4f}" for t in turns)
-                  + f" ms; on the card this {ms_text(dev_new)}, parent "
-                  f"{ms_text(dev_old)}")
-    else:
-        print("parent's kernels K and L: not timed (no --parent)")
     print(f"wavefront {wf_size}x{wf_size} (plain PyTorch): {wf_ms:.1f} ms; "
           f"BVH build {build_ms:.4f} ms; on {card}")
     clock.done("37 (BVH kernel times)")
@@ -3248,6 +3218,20 @@ GRID_STEP_LOADS = 2
 # frame at 512x512 on the card).
 GRID_CASE_RAYS = 512
 GRID_CLI_SIZE = 128
+
+
+def grid_work_text(tally) -> str:
+    """The plain march's count of kernel M's work (`grid_march._tally_done`)
+    for the log: lane use of one thread a ray on warps of consecutive rays
+    and of 8x4 pixel patches, of the shared schedule, and rows read."""
+    use = tally["serial_lane_use"]
+    rows = tally["shared_rows"]
+    return ("kernel M's work: lane use with one thread a ray "
+            + ", ".join(f"{k} warps {v:.4f}" for k, v in use.items())
+            + f", with a block's rays sharing each bucket's rows "
+            f"{tally['shared_lane_use']:.4f}; rows read one a test "
+            f"{tally['tests']}, each distinct bucket once a block-step "
+            + ", ".join(f"{k} blocks {v}" for k, v in rows.items()))
 
 
 def collision_scene():
@@ -3279,7 +3263,9 @@ def grid_cases(dev, data, grid, eye) -> None:
     (slots equal, t/u/v bit-equal) on the collision scene, and on the bench
     scene's grid with axis-aligned and zero-component directions, rays
     that exhaust ``max_search_iters``, ``max_faces_per_cell`` = 4, and
-    origins inside the mesh with ``clip_backward_hits`` on and off."""
+    origins inside the mesh with ``clip_backward_hits`` on and off; the
+    cases whose rays leave the eye also with the hints (a ragged frame and
+    the staged eye terms)."""
     import numpy as np
     import torch
 
@@ -3328,27 +3314,41 @@ def grid_cases(dev, data, grid, eye) -> None:
                  [("collision scene", o, d)]))
     for g, p, f, kw, clip, members in runs:
         cfg = GridConfig(**kw)
+        tc = TraceConfig(clip_backward_hits=clip)
         o = np.concatenate([m[1] for m in members]).astype(np.float32)
         d = np.concatenate([m[2] for m in members]).astype(np.float32)
         args = grid_march.march_args(
             g, p, f, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
-            cfg, TraceConfig(clip_backward_hits=clip))
+            cfg, tc)
         tally = {}
         km = grid_march._march_cuda(*args)
         pm = grid_march._march_plain(*args, tally=tally)
         closest_err(km, pm, "kernel M (" + ", ".join(m[0] for m in members)
                     + ")")
         first = 0
-        for name, mo, _ in members:
+        for name, mo, md in members:
             part = slice(first, first + mo.shape[0])
             first = part.stop
             t, steps = pm[0][part], tally["ray_steps"][part]
+            hinted = ""
+            if np.array_equal(mo, np.broadcast_to(eye_np, mo.shape)):
+                # From the eye: again as a ragged frame (8x4 patches half
+                # outside it) from the staged eye terms.
+                frame = (mo.shape[0] // 4, 4)
+                ho, hd = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                          for x in (mo, md))
+                hm = grid_march._march_cuda(*grid_march.march_args(
+                    g, p, f, ho, hd, cfg, tc, frame, eye))
+                closest_err(hm, tuple(x[part] for x in pm),
+                            f"kernel M ({name}, frame {frame}, staged eye)")
+                hinted = (f"; equal as a {frame[0]}x{frame[1]} frame from "
+                          "the staged eye")
             print(f"  {name}: {mo.shape[0]} rays, "
                   f"{int((t < flt_max).sum())} hits "
                   f"({int((t < 0).sum())} at a negative t), longest march "
                   f"{int(steps.max())} steps, "
                   f"{int((steps == cfg.max_search_iters).sum())} rays take "
-                  f"all {cfg.max_search_iters}")
+                  f"all {cfg.max_search_iters}{hinted}")
         if members[0][0] == "collision scene":
             face = grid_march.slot_hit(g, *km).face
             check(int(face[0]) == 1, "kernel M: the collision case's ray "
@@ -3357,12 +3357,15 @@ def grid_cases(dev, data, grid, eye) -> None:
 
 def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
               api_size=C2_SIZE, suzanne_faces=C2_SUZANNE,
-              cli_size=GRID_CLI_SIZE, cli_faces=C2_SUZANNE, frames=3):
+              cli_size=GRID_CLI_SIZE, cli_faces=C2_SUZANNE, frames=3,
+              parent=None):
     """Phases 38-41: the GRID backend on the bench frame's scene
     (``data``, ``eye``, ``orient``, ``rays`` of ``size``²), config 2's
     scene through `Scene.create(RenderConfig(accel=GRID))` and the render
-    CLI's ``--accel grid``.  Returns kernel M's record (launches of this
-    path only) and the GRID frame's milliseconds."""
+    CLI's ``--accel grid``.  ``parent``: the directory of an unpacked
+    parent commit, whose kernel M phase 41 times in turns with this
+    tree's.  Returns kernel M's record (launches of this path only) and
+    the GRID frame's milliseconds."""
     import tempfile
 
     import numpy as np
@@ -3430,6 +3433,8 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     check(bruteforce.launch_counts["brute"] > 0,
           "GRID frame: kernel E (shadows) never launched")
     m_args = rec.calls["_march_cuda"][-1]
+    check(m_args[10] == (size, size) and m_args[11] is not None,
+          "the GRID frame's route gave kernel M no frame or eye")
     captured = {}
 
     def plain_march(*args):
@@ -3445,18 +3450,23 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     worst = u8_diff(frame, plain_frame)
     check(worst <= 1, f"GRID frame vs plain frame: u8 diff {worst}")
     km = grid_march._march_cuda(*m_args)
-    hits, _ = closest_err(km, captured["out"], "kernel M (the GRID frame)")
+    hits, _ = closest_err(km, captured["out"],
+                          "kernel M (the GRID frame: patches, staged eye)")
+    closest_err(grid_march._march_cuda(*m_args[:10]), captured["out"],
+                "kernel M (the GRID frame without hints)")
     tally = captured["tally"]
     steps, tests = tally["ray_steps"], tally["ray_tests"].double()
-    print(f"kernel M matches plain on the GRID frame's {n} rays: slots "
-          f"equal, t/u/v bit-equal; {hits} hit ({hits / n:.4f}), longest "
-          f"march {int(steps.max())} steps "
+    print(f"kernel M matches plain on the GRID frame's {n} rays, on "
+          f"{size}x{size} pixel patches from the staged eye and without "
+          f"the hints: slots equal, t/u/v bit-equal; {hits} hit "
+          f"({hits / n:.4f}), longest march {int(steps.max())} steps "
           f"({int((steps == gc.max_search_iters).sum())} rays take all "
           f"{gc.max_search_iters}), ray-triangle tests a ray "
           f"mean {float(tests.mean()):.1f}, p99 "
           f"{float(torch.quantile(tests, 0.99)):.0f}, max "
           f"{int(tests.max())}; {tally['steps']} steps, {tally['tests']} "
           f"tests in all; frame max u8 diff {worst} to the plain path")
+    print(grid_work_text(tally))
     # A bundle with scattered origins through `trace_hit`.
     bo, bd = scattered_bundle(dev, data.positions.amin(dim=0),
                               data.positions.amax(dim=0), BUNDLE_RAYS, 5)
@@ -3547,10 +3557,40 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
           "package's route does on a grid")
     clock.done("40 (public API on GRID)")
 
-    # 41. Times and bound.
+    # 41. Times and bound: M with the route's hints, on the patches
+    # without the staged eye, without either hint, and in turns with the
+    # parent's M.
     fn = lambda: grid_march._march_cuda(*m_args)  # noqa: E731
     m_ms = time_cuda(fn, 20)
     m_device_ms, _, recorded = device_ms(fn, 20, ("march_kernel",))
+    variants = {}
+    for name, args in (("pixel patches, the general test", m_args[:11]),
+                       ("blocks of consecutive rays, the general test",
+                        m_args[:10])):
+        vf = lambda a=args: grid_march._march_cuda(*a)  # noqa: E731
+        closest_err(vf(), km, f"kernel M ({name})")
+        variants[name] = (time_cuda(vf, 20),
+                          device_ms(vf, 20, ("march_kernel",))[0])
+    print(f"kernel M on the GRID frame, ms a launch by events and on the "
+          f"card, outputs equal: pixel patches from the staged eye (the "
+          f"route's hints) {m_ms:.4f}, {ms_text(m_device_ms)}; "
+          + "; ".join(f"{name} {ev:.4f}, {ms_text(dv)}"
+                      for name, (ev, dv) in variants.items()))
+    if parent is not None:
+        old_fn = parent_grid_fn(parent_library(parent))
+        closest_err(fn(), old_fn(*m_args), "kernel M against the parent")
+        turns = [time_cuda(lambda: f(*m_args), 20)
+                 for f in (old_fn, grid_march._march_cuda,
+                           grid_march._march_cuda, old_fn)]
+        dev_old = device_ms(lambda: old_fn(*m_args), 20,
+                            ("march_kernel",))[0]
+        print(f"kernel M against the parent ({parent}) on the GRID frame's "
+              f"rays, equal outputs; by events parent, this, this, parent: "
+              + ", ".join(f"{t:.4f}" for t in turns)
+              + f" ms; on the card this {ms_text(m_device_ms)}, parent "
+              f"{ms_text(dev_old)}")
+    else:
+        print("parent's kernel M: not timed (no --parent)")
     frame_ms = time_cuda(lambda: renderer.render(eye, orient, rays), 10)
     api_ms = time_cuda(lambda: cam.trace_scene(eye2, orient2, scene2,
                                                target), 20)
@@ -3598,7 +3638,7 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
                       f"{ns:.1f} ns a load ({where}-resident chase)"
                       for where, ns in floor_ns.items())
           + f" ({far} steps x {GRID_STEP_LOADS} dependent loads); "
-          f"{launches} launches on this path")
+          f"{launches} launches on this path; {grid_work_text(tally)}")
     print(f"GRID frame at {size}x{size} (M, shadows by E): "
           f"{frame_ms:.4f} ms/frame, {n / frame_ms * 1e3:.6g} rays/s (W*H "
           f"per frame); Camera.trace_scene on GRID at {api_size}x{api_size} "
@@ -3617,8 +3657,8 @@ def main() -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="DIR",
-                        help="an unpacked parent commit: time its kernels K "
-                        "and L in turns with this tree's (phase 37)")
+                        help="an unpacked parent commit: time its kernel M "
+                        "in turns with this tree's (phase 41)")
     args = parser.parse_args()
     clock = PhaseClock()
     # 1. Device.
@@ -3659,6 +3699,9 @@ def main() -> None:
     print(f"build: {secs:.2f} s -> {os.path.relpath(path, REPO)}")
     print("registers per thread: "
           f"{kernel_registers(log.getvalue()) or 'not printed (built before)'}")
+    print("kernel M's shared memory a block (bytes): "
+          + str({k: v for k, v in kernel_shared(log.getvalue()).items()
+                 if k.startswith("march_kernel")}))
     cuda_build.load_library()
 
     # The bench frame's scene and camera (bench.py's framing).
@@ -3780,11 +3823,11 @@ def main() -> None:
     c1_kernels, c1_clear = fill_path(dev, clock, card)
     app = app_path(dev, clock, card)
     bvh_kernels, bvh_frame_ms = bvh_path(dev, clock, card, data, eye, orient,
-                                         rays, parent=args.parent)
+                                         rays)
     for k in bvh_kernels:  # the CLI's and fly's launches of K and L
         k["launches"] += app[k["name"]]
     grid_kernel, grid_frame_ms = grid_path(dev, clock, card, data, eye,
-                                           orient, rays)
+                                           orient, rays, parent=args.parent)
     print(f"frames at {SIZE}x{SIZE} on {card}: BVH route (L, shadows by E) "
           f"{bvh_frame_ms:.4f} ms, {px / bvh_frame_ms * 1e3:.6g} rays/s; "
           f"GRID route (M, shadows by E) {grid_frame_ms:.4f} ms, "

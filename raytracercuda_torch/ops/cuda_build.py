@@ -124,8 +124,8 @@ SIGNATURES = {
     "rt_beam": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                 _F, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     "rt_chase": (_P, _I, _I, _P, _P),
-    "rt_grid_march": (_P, _I, _P, _I, _P, _P, _I, _F, _F, _I, _I, _I, _F,
-                      _P, _P, _P, _P, _P),
+    "rt_grid_march": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _F, _F,
+                      _I, _I, _I, _F, _P, _P, _P, _P, _P),
 }
 
 

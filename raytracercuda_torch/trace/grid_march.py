@@ -12,13 +12,19 @@ epsilon, and stop where the new point is not finite.  Like the
 reference's, the march inherits the hash's collisions: a far cell that
 shares the bucket can surface a genuine but not the closest hit.
 
-Kernel M (`csrc/grid.cu:march_kernel`) runs one thread per ray over
-`march_rows`, a v0 | e1 | e2 row per CSR entry built once per (grid,
-scene).  `trace_grid` runs the plain PyTorch version for tensors on the
-CPU and launches kernel M for tensors on a GPU; there is no fallback from
-one to the other.  The plain version compacts the marching rays every
-step and tests their buckets' faces ``MARCH_CHUNK`` at a time, with one
-host sync a step.
+Kernel M (`csrc/grid.cu:march_kernel`) marches a block's 32 rays together:
+at each step the rays that share a bucket read its rows once, 32 at a
+time, one a lane, over `march_rows` (a v0 | e1 | e2 row per CSR entry,
+built once per (grid, scene)), the rounds dealt to the block's two warps.
+Two optional hints, which never change the result: ``frame_hw`` makes the
+32 rays an 8x4 pixel patch of a row-major frame (neighbouring pixels share
+more buckets), and ``common_origin`` (every ray leaves it; checked) lets
+the test read `eye_rows`, the triangles' eye terms staged once per (grid,
+scene, eye).  `trace_grid` runs the plain PyTorch version for tensors on
+the CPU and launches kernel M for tensors on a GPU; there is no fallback
+from one to the other.  The plain version ignores the hints; it compacts the
+marching rays every step and tests their buckets' faces ``MARCH_CHUNK`` at
+a time, with one host sync a step.
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ from .traverse import _rays
 
 #: Faces of a bucket the plain version tests at once.
 MARCH_CHUNK = 64
+
+#: Kernel M's 32 rays of a block on a frame: a patch of PATCH_W columns by
+#: PATCH_H rows.
+PATCH_W, PATCH_H = 8, 4
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"grid_march": 0}
@@ -87,6 +97,61 @@ def march_rows(grid: HashGrid, positions: torch.Tensor,
     return rows
 
 
+#: The staged eye terms: ``{id(rows): (a weak reference to rows, the
+#: eye's bits, table)}``; an entry leaves with its rows.
+_EYE_ROWS: dict = {}
+
+
+def eye_rows(rows: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:
+    """Kernel M's rows for rays that all leave ``eye`` (``[3]``): ``[E',
+    16]`` float32 on the rows' device, one per `march_rows` row, e1 | e2 |
+    tvec | qvec | tq | three zeros, with tvec = eye - v0, qvec = tvec x e1
+    and tq = e2 . qvec (summed left to right): the terms of the oracle's
+    test that depend on the triangle and the origin alone, each product
+    and sum rounded once, in the oracle's order (`csrc/mt.cuh:oracle_mt`),
+    so a test that reads them gives its t, u and v bit for bit.  Built
+    once per (``rows``, the eye's float32 bits), whatever tensor holds the
+    eye; ``rows`` is itself rebuilt, as a new tensor, with its grid or
+    scene."""
+    e = eye.to(device=rows.device, dtype=torch.float32)
+    bits = tuple(e.view(torch.int32).tolist())
+    key = id(rows)
+    hit = _EYE_ROWS.get(key)
+    if hit is not None and hit[0]() is rows and hit[1] == bits:
+        return hit[2]
+    e1, e2 = rows[:, 3:6], rows[:, 6:9]
+    tv = e - rows[:, 0:3]
+    qv = torch.stack([tv[:, 1] * e1[:, 2] - tv[:, 2] * e1[:, 1],
+                      tv[:, 2] * e1[:, 0] - tv[:, 0] * e1[:, 2],
+                      tv[:, 0] * e1[:, 1] - tv[:, 1] * e1[:, 0]], dim=1)
+    tq = e2[:, 0] * qv[:, 0] + e2[:, 1] * qv[:, 1] + e2[:, 2] * qv[:, 2]
+    table = torch.cat([e1, e2, tv, qv, tq[:, None],
+                       torch.zeros_like(e1)], dim=1).contiguous()
+    _EYE_ROWS[key] = (weakref.ref(rows, lambda _: _EYE_ROWS.pop(key, None)),
+                      bits, table)
+    return table
+
+
+def num_blocks(num_rays: int, frame_hw=None) -> int:
+    """Kernel M's blocks for ``num_rays`` rays (`block_of_rays`)."""
+    if frame_hw is None:
+        return -(-num_rays // 32)
+    return -(-frame_hw[0] // PATCH_H) * -(-frame_hw[1] // PATCH_W)
+
+
+def block_of_rays(num_rays: int, frame_hw=None,
+                  device=None) -> torch.Tensor:
+    """Kernel M's block of each ray, ``[num_rays]`` int64: 32 consecutive
+    rays a block, or with ``frame_hw`` ``(H, W)`` (row-major rays) the
+    ``PATCH_W`` x ``PATCH_H`` pixel patch, patches row-major."""
+    i = torch.arange(num_rays, device=device)
+    if frame_hw is None:
+        return i // 32
+    width = frame_hw[1]
+    y, x = i // width, i % width
+    return (y // PATCH_H) * -(-width // PATCH_W) + x // PATCH_W
+
+
 def _row_mt(rows, o, d, t_eps):
     """The oracle's test of rays ``o``, ``d`` (``[..., 3]``) against
     `march_rows` rows (``[..., 12]``), broadcast: t/u/v."""
@@ -96,10 +161,16 @@ def _row_mt(rows, o, d, t_eps):
 
 
 def _tally_step(tally, rays, buckets, count, num_rays: int,
-                num_cells: int) -> None:
-    """Add a step of ``rays`` to ``tally`` (when given), with no host sync:
-    each ray's ``ray_steps`` and ``ray_tests`` (``[num_rays]``) and the
-    boolean ``touched_buckets``."""
+                num_cells: int, frame_hw=None) -> None:
+    """Add a step of the marching ``rays`` to ``tally`` (when given), with
+    no host sync: each ray's ``ray_steps`` and ``ray_tests``
+    (``[num_rays]``), the boolean ``touched_buckets``, and the work of
+    kernel M's blocks of 32 rays (`block_of_rays`: ``"row"``, and
+    ``"patch"`` with ``frame_hw``) under two schedules.  With one thread a
+    ray, a warp's step lasts its largest bucket (``serial_rounds``); a
+    block that reads each distinct bucket once (``shared_rows``) tests it
+    in rounds of 32 rows for each of its rays (``shared_rounds``, the same
+    for either shape)."""
     if tally is None:
         return
     dev = rays.device
@@ -108,34 +179,73 @@ def _tally_step(tally, rays, buckets, count, num_rays: int,
                                            device=dev))
     touched = tally.setdefault("touched_buckets", torch.zeros(
         num_cells, dtype=torch.bool, device=dev))
+    c = torch.clamp(count, min=0)
     tally["ray_steps"][rays] += 1
-    tally["ray_tests"][rays] += torch.clamp(count, min=0)
+    tally["ray_tests"][rays] += c
     touched[buckets] = True
+    if "blocks" not in tally:
+        shapes = {"row": None, **({} if frame_hw is None
+                                  else {"patch": tuple(frame_hw)})}
+        tally["blocks"] = {k: (block_of_rays(num_rays, hw, dev),
+                               num_blocks(num_rays, hw))
+                           for k, hw in shapes.items()}
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        tally["shared_rounds"] = zero.clone()
+        tally["serial_rounds"] = {k: zero.clone() for k in shapes}
+        tally["shared_rows"] = {k: zero.clone() for k in shapes}
+    tally["shared_rounds"] += (c + 31).div(32, rounding_mode="floor").sum()
+    for name, (blocks, n_blocks) in tally["blocks"].items():
+        b = blocks[rays]
+        longest = torch.zeros(n_blocks, dtype=torch.int64, device=dev)
+        longest.scatter_reduce_(0, b, c, "amax")
+        tally["serial_rounds"][name] += longest.sum()
+        keys, order = torch.sort(b * num_cells + buckets)
+        first = torch.ones_like(keys, dtype=torch.bool)
+        first[1:] = keys[1:] != keys[:-1]
+        tally["shared_rows"][name] += (c[order] * first).sum()
 
 
 def _tally_done(tally, cell_start, max_faces: int) -> None:
-    """Sum a march's ``tally``: its ``steps`` and ``tests``, and the
+    """Sum a march's ``tally``: its ``steps`` and ``tests``, the
     ``buckets_read`` and ``rows_read`` (a visited bucket's first
-    ``max_faces`` rows)."""
+    ``max_faces`` rows), and, for each block shape, the share of test
+    slots that do work with one thread a ray (``serial_lane_use``: tests
+    over 32 x ``serial_rounds``) and the rows a block's step reads when it
+    reads each distinct bucket once (``shared_rows``, against ``tests``
+    read by ray); ``shared_lane_use``, tests over 32 x
+    ``shared_rounds``."""
     if tally is None or "ray_steps" not in tally:
         return
     b = torch.nonzero(tally["touched_buckets"]).squeeze(1)
     count = torch.clamp(cell_start[b + 1].long() - cell_start[b].long(),
                         min=0, max=max_faces)
-    tally.update(steps=int(tally["ray_steps"].sum()),
-                 tests=int(tally["ray_tests"].sum()),
-                 buckets_read=int(b.numel()), rows_read=int(count.sum()))
+    tests = int(tally["ray_tests"].sum())
+
+    def use(rounds):
+        rounds = int(rounds)
+        return tests / (32 * rounds) if rounds else 0.0
+
+    tally.update(steps=int(tally["ray_steps"].sum()), tests=tests,
+                 buckets_read=int(b.numel()), rows_read=int(count.sum()),
+                 serial_lane_use={k: use(v) for k, v in
+                                  tally["serial_rounds"].items()},
+                 shared_lane_use=use(tally["shared_rounds"]),
+                 shared_rows={k: int(v) for k, v in
+                              tally["shared_rows"].items()})
 
 
 def _march_plain(rows, cell_start, num_cells: int, cell_res: float,
                  pinch: float, origin, direction, max_iters: int,
-                 max_faces: int, t_eps, tally=None):
+                 max_faces: int, t_eps, frame_hw=None, common_origin=None,
+                 tally=None):
     """Plain version of kernel M: ``(t, u, v, slot)`` ``[R]`` for
     row-major ``[R, 3]`` rays, ``slot`` the winner's CSR entry (0 on a
     miss).  Each step compacts the rays still marching (sorted by their
     bucket's face count, so that each chunk of ``MARCH_CHUNK`` faces takes
-    a prefix of them) and reads their counts in one host sync.  With a
-    ``tally`` dict, counts the work (`_tally_step`, `_tally_done`)."""
+    a prefix of them) and reads their counts in one host sync.  The hints
+    ``frame_hw`` and ``common_origin`` change nothing here.  With a
+    ``tally`` dict, counts the work (`_tally_step`, `_tally_done`; its
+    pixel patches from ``frame_hw``)."""
     num_rays = direction.shape[0]
     dev = direction.device
     num_rows = rows.shape[0]
@@ -170,7 +280,7 @@ def _march_plain(rows, cell_start, num_cells: int, cell_res: float,
         order = torch.argsort(key, descending=True, stable=True)[:n_live]
         live, cp, h = live[order], cp[order], h[order]
         start, count = start[order], count[order]
-        _tally_step(tally, live, h, count, num_rays, num_cells)
+        _tally_step(tally, live, h, count, num_rays, num_cells, frame_hw)
         for base, n in zip(bases, per_chunk):
             if n == 0:
                 break
@@ -202,8 +312,11 @@ def _march_plain(rows, cell_start, num_cells: int, cell_res: float,
 
 def _march_cuda(rows, cell_start, num_cells: int, cell_res: float,
                 pinch: float, origin, direction, max_iters: int,
-                max_faces: int, t_eps):
-    """Launch kernel M; outputs as in `_march_plain`."""
+                max_faces: int, t_eps, frame_hw=None, common_origin=None):
+    """Launch kernel M; outputs as in `_march_plain`.  With
+    ``common_origin`` (every ray's origin, as `march_args` checks) the
+    kernel marches from it and reads `eye_rows`; with ``frame_hw`` a
+    block's 32 rays are a pixel patch."""
     num_rays = direction.shape[0]
     dev = direction.device
     _check_cuda("origin", origin, dev, torch.float32, (num_rays, 3))
@@ -211,14 +324,25 @@ def _march_cuda(rows, cell_start, num_cells: int, cell_res: float,
     _check_cuda("cell_start", cell_start, dev, torch.int32,
                 (num_cells + 1,))
     _check_cuda("rows", rows, dev, torch.float32, (rows.shape[0], 12))
+    height, width = (0, 0) if frame_hw is None else frame_hw
+    if frame_hw is not None and height * width != num_rays:
+        raise ValueError(f"frame_hw {tuple(frame_hw)} does not hold "
+                         f"{num_rays} rays")
+    staged, source, stride = 0, origin, 3
+    if common_origin is not None:
+        _check_cuda("common_origin", common_origin, dev, torch.float32,
+                    (3,))
+        table = eye_rows(rows, common_origin)
+        staged, source, stride = table.data_ptr(), common_origin, 0
     out = torch.empty((3, num_rays), dtype=torch.float32, device=dev)
     slot = torch.empty(num_rays, dtype=torch.int32, device=dev)
     err = kernel_fn("rt_grid_march")(
-        cell_start.data_ptr(), num_cells, rows.data_ptr(), rows.shape[0],
-        origin.data_ptr(), direction.data_ptr(), num_rays, float(cell_res),
-        float(pinch), max_iters, max_faces, *_eps_args(t_eps),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        slot.data_ptr(), raw_stream(dev))
+        cell_start.data_ptr(), num_cells, rows.data_ptr(), staged,
+        rows.shape[0], source.data_ptr(), stride, direction.data_ptr(),
+        num_rays, height, width, float(cell_res), float(pinch), max_iters,
+        max_faces, *_eps_args(t_eps), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), slot.data_ptr(),
+        raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel M launch failed: CUDA error {err}")
     launch_counts["grid_march"] += 1
@@ -226,16 +350,34 @@ def _march_cuda(rows, cell_start, num_cells: int, cell_res: float,
 
 
 def march_args(grid: HashGrid, positions, faces, origin, direction,
-               cfg: GridConfig, trace_cfg: TraceConfig) -> tuple:
+               cfg: GridConfig, trace_cfg: TraceConfig, frame_hw=None,
+               common_origin=None) -> tuple:
     """The arguments of `_march_plain` and `_march_cuda` for `trace_grid`'s
-    inputs (``origin`` ``[R, 3]`` or ``[3]``)."""
+    inputs (``origin`` ``[R, 3]`` or ``[3]``), the hints last: ``frame_hw``
+    ``(H, W)`` with H x W = R, and ``common_origin`` ``[3]`` float32 on the
+    rays' device.  Raises ValueError where a hint does not hold, on either
+    device: ``common_origin`` must equal every origin bit for bit (one host
+    sync)."""
     origin, direction = _rays(origin, direction)
+    num_rays = direction.shape[0]
+    if frame_hw is not None:
+        frame_hw = (int(frame_hw[0]), int(frame_hw[1]))
+        if frame_hw[0] * frame_hw[1] != num_rays:
+            raise ValueError(f"frame_hw {frame_hw} does not hold {num_rays} "
+                             "rays")
+    if common_origin is not None:
+        common_origin = common_origin.to(device=direction.device,
+                                         dtype=torch.float32).contiguous()
+        if tuple(common_origin.shape) != (3,) or not torch.equal(
+                origin.view(torch.int32),
+                common_origin.view(torch.int32).expand(origin.shape)):
+            raise ValueError("common_origin is not every ray's origin")
     res = np.float32(grid.cell_res.item())
     pinch = res * np.float32(cfg.pinch_epsilon_frac)
     return (march_rows(grid, positions, faces), grid.cell_start,
             grid.num_cells, float(res), float(pinch), origin, direction,
             cfg.max_search_iters, cfg.max_faces_per_cell,
-            t_eps_of(trace_cfg))
+            t_eps_of(trace_cfg), frame_hw, common_origin)
 
 
 def slot_hit(grid: HashGrid, t, u, v, slot) -> Hit:
@@ -254,10 +396,16 @@ def trace_grid(
     direction: torch.Tensor,
     cfg: GridConfig = GridConfig(),
     trace_cfg: TraceConfig = TraceConfig(),
+    *,
+    frame_hw: tuple[int, int] | None = None,
+    common_origin: torch.Tensor | None = None,
 ) -> Hit:
     """Closest hit, as the march finds it, for ``[R, 3]`` rays over the hash
-    grid of ``positions``/``faces``; ``origin`` is ``[R, 3]`` or ``[3]``."""
+    grid of ``positions``/``faces``; ``origin`` is ``[R, 3]`` or ``[3]``.
+    Hints for kernel M, which leave the `Hit` as it is: ``frame_hw`` ``(H,
+    W)`` when the rays are a row-major frame, ``common_origin`` ``[3]``
+    when every ray leaves it; ValueError where a hint does not hold."""
     args = march_args(grid, positions, faces, origin, direction, cfg,
-                      trace_cfg)
+                      trace_cfg, frame_hw, common_origin)
     run = _pick(args[6], _march_plain, _march_cuda)
     return slot_hit(grid, *run(*args))

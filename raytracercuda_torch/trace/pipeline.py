@@ -18,7 +18,8 @@ framebuffer (counterpart of `raytracercuda_tpu/trace/pipeline.py`).
     through kernel K's per-ray walk (`traverse.trace_bvh`), as the
     reference does: no edge-padding here;
   * GRID traces every frame and bundle through kernel M's march
-    (`grid_march.trace_grid`);
+    (`grid_march.trace_grid`), a pinhole frame on pixel-patch warps with
+    the eye's terms staged;
   * WAVEFRONT traces through `wavefront.trace_wavefront` (plain PyTorch).
 """
 
@@ -73,7 +74,8 @@ def trace_hit(
 ) -> Hit:
     """Closest hit of row-major rays over the configured structure.
     ``frame_hw`` + ``common_origin`` mark a pinhole frame, which the
-    CLUSTER route traces as pixel tiles and the BVH route as tile beams."""
+    CLUSTER route traces as pixel tiles, the BVH route as tile beams and
+    the GRID route on pixel-patch warps from the staged eye."""
     kind = config.accel
     tc = config.trace
     if kind == AccelKind.BRUTE or accel is None:
@@ -101,7 +103,8 @@ def trace_hit(
         from .grid_march import trace_grid
 
         return trace_grid(accel, scene.positions, scene.faces, origin,
-                          direction, config.grid, tc)
+                          direction, config.grid, tc, frame_hw=frame_hw,
+                          common_origin=common_origin)
     if kind == AccelKind.WAVEFRONT:
         from .wavefront import trace_wavefront
 

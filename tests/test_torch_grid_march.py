@@ -1,6 +1,6 @@
 """The port's grid march (`raytracercuda_torch.trace.grid_march`, kernel M's
-plain version) against the JAX package's `trace_grid`, and kernel M's
-loop replayed per ray, on the CPU.
+plain version) against the JAX package's `trace_grid`, and the march
+replayed one ray at a time, on the CPU.
 
 Tolerances, stated per check:
 
@@ -10,11 +10,13 @@ Tolerances, stated per check:
   * `box_ray_intersect_no_zero`: bitwise equal to JAX's (one subtraction
     and one product a slab, nothing to contract), and NaN exactly where
     JAX's is (a zero direction component times a zero offset);
-  * `march_serial`, a per-ray serial transcription of kernel M's loop
-    (`csrc/grid.cu:march_kernel`) in numpy float32 scalars: bit-equal to
+  * `march_serial`, the march one ray at a time with its bucket's faces
+    in series (a transcription of `Hash.cu`'s per-ray loop and of
+    `csrc/mt.cuh`'s test) in numpy float32 scalars: bit-equal to
     `_march_plain` (slots equal, t/u/v bitwise).  Kernel M runs only on
     the card (`chip_smoke.py` phase 39 holds it against `_march_plain`
-    there); this holds its design to the plain version here.
+    there); `test_torch_grid_march_split.py` replays its warp-shared
+    schedule against both here.
 """
 
 import numpy as np
@@ -237,9 +239,12 @@ def nan_max(a, b):
 
 
 def march_serial(rows, cell_start, num_cells, cell_res, pinch, origin,
-                 direction, max_iters, max_faces, t_eps):
-    """Kernel M's loop (`csrc/grid.cu:march_kernel`), one ray at a time:
-    ``(t, u, v, slot)`` numpy arrays, as `_march_plain` returns them."""
+                 direction, max_iters, max_faces, t_eps, frame_hw=None,
+                 common_origin=None):
+    """Kernel M's march, one ray at a time with its bucket's faces in
+    series: ``(t, u, v, slot)`` numpy arrays, as `_march_plain` returns
+    them (a ray's result depends on no other ray, so the warp hints of
+    `march_args` change nothing)."""
     rows = rows.numpy()
     cs = cell_start.numpy().astype(np.int64)
     res, pinch = F32(cell_res), F32(pinch)
