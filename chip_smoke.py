@@ -235,8 +235,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      (`torch.full`, `index_add_`), their device times and G's
      `torch.zeros` + `index_add_`.
 
-Phases 31-37 and then 38-41 run after phase 28, before phase 29.  Any
-failure exits non-zero.  ``--parent DIR`` is the only option; the run
+ 42. builds the edge table of config 4's scene (525,657 edges) and takes
+     the step of ``sum(img * w)`` through `render_rgb_silhouette` at
+     1024x1024 over (positions, eye, orient): its image bit-equal to
+     `render_rgb`'s; C for the frame, C's epilogue over F's sweep for the
+     boundary probes and G launched; prints the edges, silhouette edges,
+     live samples and probe rays; requires `boundary_vjp`'s terms finite
+     and nonzero and the probes' sweep bit-equal (t, u, v, slot) to its
+     plain version; times the forward, the step, `render_rgb_vjp`'s step
+     and `boundary_vjp` alone by events;
+ 43. the finite-difference check of `tests/test_torch_silhouette.py` on the
+     card: the 9x9 flat triangle on BRUTE (kernel E), 2,048 samples an
+     edge, Simpson's rule against the 64x box-filtered image, rtol 0.12;
+ 44. brings up the process group at world size 1 over NCCL
+     (`parallel/mesh.initialize_distributed`, a free localhost port) and
+     holds `render_sharded`, `progressive_step_sharded` (two steps,
+     shadows) and one Adam step of `make_train_step` on config 4 at
+     1024x1024 bit-equal to the unsharded calls (the Adam step against
+     `torch.optim.Adam` on `render_rgb`'s gradient in one process, both
+     under `torch.use_deterministic_algorithms(True)`, so G sorts);
+ 45. holds `render_bounces_sharded` on config 5 at 1920x1080 bit-equal to
+     `render_bounces`;
+ 46. holds `trace_ring_sharded` on the bench frame's 512x512 primary rays
+     bit-equal to `bounce_sweep.trace_rays`, and prints each sharded
+     call's time beside its unsharded call's (events);
+ 47. spawns two ranks on the one card over gloo (which carries CUDA
+     tensors in all-reduce and all-gather, not in send and receive): the
+     config-4 render, two progressive steps and config 5's bounces
+     bit-equal to the unsharded calls on both ranks, one Adam step's
+     params equal on both ranks and within 1e-6 of their largest entry of
+     one process's, the loss within 1e-6 relative; prints rank 0's times.
+
+Phases 42-47 run after phase 13, before phase 14; phases 31-37 and then
+38-41 after phase 28, before phase 29.  Any failure exits non-zero.  ``--parent DIR`` is the only option; the run
 needs none.  The last two lines of standard output are a JSON object of
 the kernels' counts, errors, times and bounds (A-J, the LBVH kernels K,
 closest and any hit, and L, and the grid march M; every sweep's, D's,
@@ -803,9 +834,10 @@ def config4_scene(dev, armadillo_faces, f16_faces):
 
 
 def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
-              f16_faces=C4_F16):
+              f16_faces=C4_F16, c4=None):
     """Phases 7-13: config 4's progressive step and grad step through
-    kernels C, H and G.  Returns the three kernels' JSON records."""
+    kernels C, H and G (``c4``: the scene of `config4_scene`, built here
+    when None).  Returns the three kernels' JSON records."""
     import numpy as np
     import torch
 
@@ -820,8 +852,9 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
             torch.cuda.synchronize()
 
     # 7. The config-4 scene.
-    config, data, accel, eye, orient = config4_scene(dev, armadillo_faces,
-                                                     f16_faces)
+    if c4 is None:
+        c4 = config4_scene(dev, armadillo_faces, f16_faces)
+    config, data, accel, eye, orient = c4
     n = size * size
     hw = (size, size)
     print(f"config 4: {data.num_faces} faces -> {accel.num_clusters} "
@@ -3650,6 +3683,516 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
     return record, frame_ms
 
 
+SIL_FD_SS = 64  # the supersampling of the finite-difference check (phase 43)
+SIL_FD_SAMPLES = 2048  # edge samples of that check, as in the JAX test
+
+
+def silhouette_path(dev, clock, card, c4, size=C4_SIZE, fd_ss=SIL_FD_SS):
+    """Phases 42-43: `render_rgb_silhouette` on config 4's scene (CLUSTER:
+    C for the frame, C's epilogue over F's sweep for the boundary probes, G
+    in the backward) and the finite-difference check of the 9x9 flat
+    triangle on BRUTE (kernel E).  Returns ``{record name: launches}``."""
+    import numpy as np
+    import torch
+
+    from raytracercuda_torch import interop
+    from raytracercuda_torch.config import AccelKind, DiffConfig, RenderConfig
+    from raytracercuda_torch.diff import edge_grad, render_grad, scatter
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.trace import bounce_sweep, bruteforce, sweep
+
+    config, data, accel, eye, orient = c4
+    n, hw = size * size, (size, size)
+    t = time.perf_counter()
+    edges = edge_grad.build_edge_table(data.faces)
+    table_s = time.perf_counter() - t
+    ev, ef = (torch.from_numpy(x).to(dev) for x in edges)
+    rays = camera_ray_grid(size, size, device=dev)
+    w = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.2, 1.0, (n, 3)).astype(np.float32)).to(dev)
+
+    def step(silhouette=True):
+        """The loss sum(img * w) and its gradients for the positions, the
+        eye and the orientation: through `render_rgb_silhouette`, or
+        through `render_rgb_vjp` (no boundary term)."""
+        p, e, o = (x.detach().clone().requires_grad_()
+                   for x in (data.positions, eye, orient))
+        sc = data._replace(positions=p)
+        if silhouette:
+            img = render_grad.render_rgb_silhouette(sc, accel, e, o, config,
+                                                    size, size,
+                                                    edge_table=(ev, ef))
+        else:
+            img = render_grad.render_rgb_vjp(sc, accel, rays, e, o, config,
+                                             frame_hw=hw)
+        (img * w).sum().backward()
+        return img.detach(), p.grad, e.grad, o.grad
+
+    # 42. The forward's bits, the launches, the probes' sweep against plain.
+    with torch.no_grad():
+        ref = render_grad.render_rgb(data, accel, rays, eye, orient, config,
+                                     frame_hw=hw)
+    step()  # warm-up
+    sync_device(dev)
+    rec = Recorder(bounce_sweep, ["_closest_rays_cuda"])
+    try:
+        sweep.reset_launch_counts()
+        scatter.reset_launch_counts()
+        img, gp, ge, go = step()
+        sync_device(dev)
+        launches = {**sweep.launch_counts, **scatter.launch_counts}
+    finally:
+        rec.restore()
+    print(f"silhouette step launches: {launches}")
+    check(bits_equal(img, ref), "render_rgb_silhouette's image is not "
+          "render_rgb's bit for bit")
+    # G runs once: the row gather's backward (the textures take no grad).
+    check(launches["primary"] > 0 and launches["closest_rays"] > 0
+          and launches["scatter_add"] >= 1,
+          f"silhouette step: launches {launches}")
+    s = edge_grad.edge_samples(data.positions, data.faces, ev, ef, eye,
+                               orient, size, size, 1.0,
+                               config.diff.edge_samples)
+    live = int(s.live.sum())
+    print(f"config 4 at {size}x{size}: {ev.shape[0]} edges (table {table_s:.2f}"
+          f" s on the host), {int(s.silhouette.sum())} silhouette edges, "
+          f"{live} live samples of {s.live.numel()} "
+          f"(K = {config.diff.edge_samples}), {2 * live} probe rays traced")
+    d_pos, d_eye, d_orient = edge_grad.boundary_vjp(
+        w, data, accel, ev, ef, eye, orient, config, size, size,
+        num_samples=config.diff.edge_samples,
+        offset_px=config.diff.edge_offset_px)
+    flags = {name: (bool(torch.isfinite(x).all()), bool((x != 0).any()))
+             for name, x in (("positions", d_pos), ("eye", d_eye),
+                             ("orient", d_orient))}
+    print(f"boundary term (finite, nonzero): {flags}; max |d_pos| "
+          f"{float(d_pos.abs().max()):.6g}, d_eye {d_eye.tolist()}")
+    check(all(f and z for f, z in flags.values()),
+          f"boundary term not finite and nonzero: {flags}")
+    check(all(bool(torch.isfinite(x).all()) for x in (gp, ge, go)),
+          "silhouette step gradients not finite")
+    args = rec.calls["_closest_rays_cuda"][-1]
+    k = sweep._closest_rays_cuda(*args)
+    p = sweep._closest_rays_plain(*args)
+    sync_device(dev)
+    hits, _ = closest_err(k, p, "C's epilogue over F's sweep (probes)")
+    probes = int(args[3].sum())
+    check(probes == 2 * live, f"probe sweep: {probes} active rays, "
+          f"{2 * live} probes")
+    print(f"probe sweep (C's epilogue over F's sweep) matches plain bit for "
+          f"bit: {probes} probe rays in {args[3].shape[0]} groups, {hits} "
+          f"hit")
+
+    fwd_ms = time_cuda(lambda: render_grad.render_rgb_silhouette(
+        data, accel, eye, orient, config, size, size, edge_table=(ev, ef)), 5)
+    step_ms = time_cuda(step, 3)
+    vjp_ms = time_cuda(lambda: step(False), 3)
+    term_ms = time_cuda(lambda: edge_grad.boundary_vjp(
+        w, data, accel, ev, ef, eye, orient, config, size, size), 3)
+    print(f"on {card}: render_rgb_silhouette forward {fwd_ms:.4f} ms, "
+          f"forward+backward {step_ms:.4f} ms; render_rgb_vjp "
+          f"forward+backward {vjp_ms:.4f} ms; boundary_vjp alone "
+          f"{term_ms:.4f} ms (events; config 4, {size}x{size})")
+    clock.done("42 (silhouette term)")
+
+    # 43. Finite differences of the flat triangle on BRUTE (kernel E).
+    tri = interop.scene_from_numpy(
+        positions=np.array([[-2.0, -2.0, 3.0], [2.0, -2.0, 3.4],
+                            [0.0, 2.5, 3.2]], np.float32),
+        faces=np.array([[0, 1, 2, 0]], np.int32),
+        attrs={1: np.array([[0.0, 0.0, -1.0]] * 3, np.float32)},
+        mesh_material=np.zeros(1, np.int32),
+        albedo=np.array([[0.8, 0.6, 0.4]], np.float32),
+        texture_id=np.array([-1], np.int32),
+        textures=np.zeros((1, 1, 1, 3), np.float32), device=dev)
+    brute = RenderConfig(accel=AccelKind.BRUTE, diff=DiffConfig(
+        silhouette=True, edge_samples=SIL_FD_SAMPLES, edge_offset_px=0.02))
+    e0, o0 = torch.zeros(3, device=dev), torch.eye(3, device=dev)
+    fw = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.2, 1.0, (81, 3)).astype(np.float32)).to(dev)
+    fine = camera_ray_grid(9 * fd_ss, 9 * fd_ss, device=dev)
+    bruteforce.reset_launch_counts()
+    for axis in (0, 1):
+        shift = torch.zeros(3, device=dev)
+        shift[axis] = 1.0
+
+        def grad(dx):
+            d = torch.tensor(dx, device=dev, requires_grad=True)
+            out = render_grad.render_rgb_silhouette(
+                tri._replace(positions=tri.positions + shift * d), None, e0,
+                o0, brute, 9, 9)
+            (out * fw).sum().backward()
+            return float(d.grad)
+
+        def box(dx):
+            with torch.no_grad():
+                out = render_grad.render_rgb(
+                    tri._replace(positions=tri.positions + shift * dx), None,
+                    fine, e0, o0, brute)
+            return out.reshape(9, fd_ss, 9, fd_ss, 3).mean(dim=(1, 3)) \
+                .reshape(81, 3)
+
+        eps = 0.1
+        a0 = grad(0.0)
+        simpson = (grad(-eps) + 4.0 * a0 + grad(eps)) / 6.0
+        fd = float(((box(eps) - box(-eps)) * fw).sum()) / (2 * eps)
+        print(f"flat triangle, axis {axis}: boundary gradient {a0:.6g}, "
+              f"Simpson {simpson:.6g}, finite difference of the {fd_ss}x "
+              f"box-filtered image {fd:.6g}")
+        check(abs(fd) > 0.05 and a0 != 0.0, "finite-difference fixture weak")
+        check(abs(simpson - fd) <= 0.12 * abs(fd),
+              f"axis {axis}: Simpson {simpson} vs finite difference {fd}")
+    e_launches = bruteforce.launch_counts["brute"]
+    check(e_launches > 0, "kernel E never launched in the FD check")
+    clock.done("43 (silhouette finite differences)")
+    return {"primary": launches["primary"],
+            "scatter_add": launches["scatter_add"], "brute": e_launches}
+
+
+def dist_path(dev, clock, card, c4, bench, size=C4_SIZE,
+              c5_meshes=C5_MESHES, c5_hw=(C5_HEIGHT, C5_WIDTH),
+              c4_faces=(C4_ARMADILLO, C4_F16)):
+    """Phases 44-47: the distributed layer at world size 1 over NCCL, each
+    sharded call against its unsharded call (bit-equal) and timed beside
+    it: config 4's render, progressive and Adam steps, config 5's bounces,
+    the primitive ring on the bench frame's rays; then two ranks on the
+    one card over gloo (``c4`` is `config4_scene` of ``c4_faces``, which
+    the ranks build again).  Returns ``{record name: launches}``."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from raytracercuda_torch.diff import render_grad, scatter
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.parallel import mesh as pmesh
+    from raytracercuda_torch.parallel import ring, shard
+    from raytracercuda_torch.trace import bounce_sweep, sweep
+    from raytracercuda_torch.trace.bounce import render_bounces
+    from raytracercuda_torch.trace.pipeline import rotate_rays
+    from raytracercuda_torch.trace.progressive import (init_progressive,
+                                                       progressive_step)
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    check(pmesh.initialize_distributed(
+        init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+        backend="nccl"), "initialize_distributed returned False")
+    counts = {}
+
+    def counted(fn):
+        sweep.reset_launch_counts()
+        scatter.reset_launch_counts()
+        out = fn()
+        sync_device(dev)
+        for key, v in {**sweep.launch_counts,
+                       **scatter.launch_counts}.items():
+            counts[key] = counts.get(key, 0) + v
+        return out
+
+    try:
+        mesh = pmesh.make_ray_mesh(1)
+        backend = dist.get_backend()
+        print(f"process group: backend {backend}, world "
+              f"{dist.get_world_size()}, mesh {mesh}")
+        config, data, accel, eye, orient = c4
+        n, hw = size * size, (size, size)
+        rays = camera_ray_grid(size, size, device=dev)
+        zero = torch.zeros((n, 3), device=dev)
+
+        # 44. Config 4: render, progressive step, Adam step.
+        with torch.no_grad():
+            got = counted(lambda: shard.render_sharded(
+                data, accel, rays, eye, orient, config, mesh, frame_hw=hw))
+            frame_ref = render_grad.render_rgb(data, accel, rays, eye,
+                                               orient, config, frame_hw=hw)
+        check(bits_equal(got, frame_ref),
+              "render_sharded differs from render_rgb")
+
+        def prog_sharded(st):
+            return shard.progressive_step_sharded(
+                st, data, accel, eye, orient, size, size, config, mesh,
+                with_shadows=True)
+
+        def prog(st):
+            return progressive_step(st, data, accel, eye, orient, size, size,
+                                    config, with_shadows=True)
+
+        with torch.no_grad():
+            a = b = init_progressive(n, device=dev)
+            for _ in range(2):
+                a = counted(lambda: prog_sharded(a))
+                b = prog(b)
+            check(bits_equal(a.accum, b.accum) and a.count == b.count == 2,
+                  "progressive_step_sharded differs from progressive_step")
+            st = init_progressive(n, device=dev)
+            ms = {"progressive": (time_cuda(lambda: prog_sharded(st), 5),
+                                  time_cuda(lambda: prog(st), 5))}
+
+        params = {"positions": data.positions, "textures": data.textures}
+        train, opt = shard.make_train_step(config, mesh, frame_hw=hw)
+        state0 = opt.init(params)
+
+        def single():
+            """One process: `torch.optim.Adam` (lr 1e-2) on `render_rgb`'s
+            gradient of the same loss."""
+            leaves = [x.detach().clone().requires_grad_()
+                      for x in params.values()]
+            adam = torch.optim.Adam(leaves, lr=1e-2)
+            out = render_grad.render_rgb(
+                data._replace(positions=leaves[0], textures=leaves[1]),
+                accel, rays, eye, orient, config, frame_hw=hw)
+            loss = torch.sum((out - zero) ** 2) / (n * 3)
+            loss.backward()
+            adam.step()
+            return [x.detach() for x in leaves], loss.detach()
+
+        def sharded():
+            return train(params, state0, data, accel, rays, eye, orient, zero)
+
+        # G's sorted route makes both backward passes bitwise repeatable.
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            new, _, loss = counted(sharded)
+            ref, ref_loss = single()
+            sync_device(dev)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        for (name, x), y in zip(new.items(), ref):
+            check(bits_equal(x, y), f"train step: {name} after one Adam step "
+                  f"differs from one process's ({int((x != y).sum())} "
+                  f"entries)")
+        check(bits_equal(loss, ref_loss), f"train step loss {float(loss)} "
+              f"vs {float(ref_loss)}")
+        check(not torch.equal(new["positions"], data.positions),
+              "train step moved no vertex")
+        ms["train step"] = (time_cuda(sharded, 5), time_cuda(single, 5))
+        print(f"config 4 at {size}x{size}: render_sharded, "
+              f"progressive_step_sharded (2 steps, shadows) and the Adam "
+              f"step of make_train_step (positions, textures; loss "
+              f"{float(loss):.6g}) bit-equal to the unsharded calls")
+        clock.done("44 (sharded config 4)")
+
+        # 45. Config 5's bounces.
+        c5_config, c5_data, c5_accel, c5_eye = config5_scene(dev, c5_meshes)
+        height, width = c5_hw
+        dirs = rotate_rays(camera_ray_grid(width, height, device=dev),
+                           torch.eye(3, device=dev))
+
+        def bounces_sharded():
+            return shard.render_bounces_sharded(
+                c5_accel, c5_data, c5_eye, dirs, height, width, c5_config,
+                mesh)
+
+        def bounces():
+            return render_bounces(c5_accel, c5_data, c5_eye, dirs, height,
+                                  width, c5_config)
+
+        got = counted(bounces_sharded)
+        bounce_ref = bounces()
+        check(bits_equal(got, bounce_ref),
+              "render_bounces_sharded differs from render_bounces")
+        ms["bounces"] = (time_cuda(bounces_sharded, 3), time_cuda(bounces, 3))
+        print(f"config 5 at {width}x{height}: render_bounces_sharded "
+              f"bit-equal to render_bounces")
+        clock.done("45 (sharded config 5)")
+
+        # 46. The primitive ring on the bench frame's primary rays.
+        b_data, b_accel, b_eye, b_orient, b_rays = bench
+        b_dirs = rotate_rays(b_rays, b_orient)
+        origin = b_eye[None, :].expand(b_dirs.shape)
+        padded = ring.pad_clusters_for_ring(b_accel, mesh.size())
+
+        def ring_trace():
+            return ring.trace_ring_sharded(padded, origin, b_dirs, mesh)
+
+        def replicated():
+            return bounce_sweep.trace_rays(b_accel, sweep.segment_blocks(
+                b_accel), origin, b_dirs)
+
+        got = counted(ring_trace)
+        want = replicated()
+        check(torch.equal(got.face, want.face) and all(
+            bits_equal(getattr(got, f), getattr(want, f)) for f in "tuv"),
+            "trace_ring_sharded differs from trace_rays")
+        check(bool((want.face >= 0).any()), "ring: no ray hit")
+        ms["ring"] = (time_cuda(ring_trace, 5), time_cuda(replicated, 5))
+        print(f"bench frame's {b_dirs.shape[0]} primary rays: "
+              f"trace_ring_sharded bit-equal to trace_rays "
+              f"({int((want.face >= 0).sum())} hits)")
+        for name, (sharded_ms, plain_ms) in ms.items():
+            print(f"on {card}, world size 1 over {backend}: {name} sharded "
+                  f"{sharded_ms:.4f} ms, unsharded {plain_ms:.4f} ms "
+                  f"(events), the layer's overhead "
+                  f"{sharded_ms - plain_ms:+.4f} ms")
+        print(f"distributed launches (the checked runs): {counts}")
+        check(counts["primary"] > 0 and counts["occlusion_rows"] > 0
+              and counts["scatter_sorted"] > 0 and counts["general_shade"] > 0
+              and counts["closest_rays"] > 0,
+              f"distributed layer: launches {counts}")
+        clock.done("46 (ring, timing)")
+
+        # 47. Two ranks on the one card over gloo (all-reduce and
+        # all-gather carry CUDA tensors; send and receive do not, so the
+        # ring's two ranks run in the CPU tests only).
+        two = two_rank_run(dev.type, size, c4_faces, c5_meshes, c5_hw)
+        for r, got in enumerate(two):
+            for name, want in (("frame", frame_ref), ("progressive", b.accum),
+                               ("bounces", bounce_ref)):
+                check(bits_equal(got[name], want.cpu()), f"two ranks, rank "
+                      f"{r}: {name} differs from the unsharded call")
+        for name, x in two[0]["params"].items():
+            check(bits_equal(x, two[1]["params"][name]),
+                  f"two ranks: the ranks' {name} differ after the step")
+        errs = {}
+        for (name, x), y in zip(two[0]["params"].items(), ref):
+            y = y.cpu()
+            errs[name] = float((x - y).abs().max())
+            check(errs[name] <= 1e-6 * float(y.abs().max()),
+                  f"two ranks: {name} after one Adam step {errs[name]} from "
+                  f"one process's")
+        loss2, loss1 = float(two[0]["loss"]), float(ref_loss)
+        check(abs(loss2 - loss1) <= 1e-6 * abs(loss1),
+              f"two ranks: loss {loss2} vs {loss1}")
+        print(f"two ranks on one card over gloo: render_sharded (config 4), "
+              f"progressive_step_sharded (2 steps) and render_bounces_sharded "
+              f"(config 5) bit-equal to the unsharded calls on both ranks; "
+              f"the Adam step's params equal on both ranks, max abs diff "
+              f"from one process's {errs}, loss {loss2:.9g} vs {loss1:.9g}")
+        for name, ms_two in two[0]["ms"].items():
+            print(f"on {card}, two ranks over gloo on the one card: {name} "
+                  f"{ms_two:.4f} ms (events, rank 0; world size 1 over "
+                  f"{backend}: {ms[name][0]:.4f} ms)")
+        for got in two:
+            for key, v in got["counts"].items():
+                counts[key] = counts.get(key, 0) + v
+        clock.done("47 (two ranks on one card)")
+    finally:
+        dist.destroy_process_group()
+    return {"primary": counts["primary"],
+            "scatter_add": counts["scatter_add"] + counts["scatter_sorted"],
+            "occlusion_rows": counts["occlusion_rows"],
+            "primary_shade": counts["primary_shade"],
+            "occlusion": counts["occlusion"],
+            "general_shade": counts["general_shade"]}
+
+
+TWO_RANK_TIMEOUT = 300  # seconds for phase 47's two processes
+
+
+def two_rank_worker(rank, world, directory, device, size, c4_faces,
+                    c5_meshes, c5_hw):
+    """One rank of phase 47 on card 0 (``device`` "cuda") over gloo: config
+    4's sharded render, two progressive steps and one Adam step, and config
+    5's bounces; saves them (on the CPU), their event times and the launch
+    counts."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from raytracercuda_torch.diff import scatter
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.ops import cuda_build
+    from raytracercuda_torch.parallel import mesh as pmesh
+    from raytracercuda_torch.parallel import shard
+    from raytracercuda_torch.trace import sweep
+    from raytracercuda_torch.trace.pipeline import rotate_rays
+    from raytracercuda_torch.trace.progressive import init_progressive
+
+    dev = torch.device(device, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        cuda_build.load_library()
+    check(pmesh.initialize_distributed(
+        init_method="file://" + os.path.join(directory, "store"),
+        world_size=world, rank=rank, backend="gloo"),
+        "initialize_distributed returned False")
+    try:
+        mesh = pmesh.make_ray_mesh(world)
+        config, data, accel, eye, orient = config4_scene(dev, *c4_faces)
+        n, hw = size * size, (size, size)
+        rays = camera_ray_grid(size, size, device=dev)
+        zero = torch.zeros((n, 3), device=dev)
+        params = {"positions": data.positions, "textures": data.textures}
+        train, opt = shard.make_train_step(config, mesh, frame_hw=hw)
+        state0 = opt.init(params)
+        c5_config, c5_data, c5_accel, c5_eye = config5_scene(dev, c5_meshes)
+        height, width = c5_hw
+        dirs = rotate_rays(camera_ray_grid(width, height, device=dev),
+                           torch.eye(3, device=dev))
+        calls = {
+            "render": lambda: shard.render_sharded(
+                data, accel, rays, eye, orient, config, mesh, frame_hw=hw),
+            "progressive": lambda st: shard.progressive_step_sharded(
+                st, data, accel, eye, orient, size, size, config, mesh,
+                with_shadows=True),
+            "train step": lambda: train(params, state0, data, accel, rays,
+                                        eye, orient, zero),
+            "bounces": lambda: shard.render_bounces_sharded(
+                c5_accel, c5_data, c5_eye, dirs, height, width, c5_config,
+                mesh),
+        }
+        sweep.reset_launch_counts()
+        scatter.reset_launch_counts()
+        with torch.no_grad():
+            frame = calls["render"]()
+            st = init_progressive(n, device=dev)
+            for _ in range(2):
+                st = calls["progressive"](st)
+            bounces = calls["bounces"]()
+        new, _, loss = calls["train step"]()
+        sync_device(dev)
+        counts = {**sweep.launch_counts, **scatter.launch_counts}
+        ms = {}
+        if dev.type == "cuda":  # (a rehearsal on the CPU times nothing)
+            st0 = init_progressive(n, device=dev)
+            with torch.no_grad():
+                ms["progressive"] = time_cuda(
+                    lambda: calls["progressive"](st0), 3)
+                ms["bounces"] = time_cuda(calls["bounces"], 3)
+            ms["train step"] = time_cuda(calls["train step"], 3)
+        torch.save({"frame": frame.cpu(), "progressive": st.accum.cpu(),
+                    "bounces": bounces.cpu(), "loss": loss.cpu(),
+                    "params": {k: v.cpu() for k, v in new.items()},
+                    "counts": counts, "ms": ms},
+                   os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_run(device, size, c4_faces, c5_meshes, c5_hw) -> list:
+    """Phase 47's two ranks (`two_rank_worker`) as spawned processes on the
+    one card; each rank's results, in rank order.  Fails if a rank fails
+    or the two outlast `TWO_RANK_TIMEOUT`."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as directory:
+        ctx = mp.start_processes(
+            two_rank_worker,
+            args=(2, directory, device, size, c4_faces, c5_meshes, c5_hw),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    fail(f"phase 47's two ranks took over {TWO_RANK_TIMEOUT} "
+                         "s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        return [torch.load(os.path.join(directory, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+
+
+
+
 def main() -> None:
     import argparse
 
@@ -3817,7 +4360,13 @@ def main() -> None:
 
     clock.done("6 (frame timing)")
 
-    c4_kernels = diff_path(dev, clock, card)
+    c4 = config4_scene(dev, C4_ARMADILLO, C4_F16)
+    c4_kernels = diff_path(dev, clock, card, c4=c4)
+    # Phases 42-46: the silhouette term and the distributed layer.
+    slice_launches = [silhouette_path(dev, clock, card, c4),
+                      dist_path(dev, clock, card, c4,
+                                (data, scene.accel, eye, orient, rays))]
+    del c4
     c2 = api_path(dev, clock, card)
     c5_kernels, c5_ab = bounce_path(dev, clock, card)
     c1_kernels, c1_clear = fill_path(dev, clock, card)
@@ -3883,6 +4432,9 @@ def main() -> None:
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["primary"]["launches"] += app["primary"]  # the CLI's parity route
+    for extra in slice_launches:  # phases 42-46
+        for name, count in extra.items():
+            by_name[name]["launches"] += count
     print(f"kernels against their bounds on {card}:")
     for k in kernels:
         library = k["library_ms"]

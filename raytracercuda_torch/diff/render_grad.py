@@ -18,9 +18,12 @@ ray; when the cluster set carries ``face_rank`` and the ray count is a
 multiple of 256, it builds the row table in slot order and gathers
 through `diff.scatter.gather_rows_tiled`, whose backward is kernel G.
 
-Gradients are exact for interior pixels only: silhouette (coverage)
-terms are not modelled.  The silhouette-aware VJP
-(`render_rgb_silhouette`) comes with a later slice of the port.
+These gradients are exact for interior pixels only: silhouette
+(coverage) terms are not modelled.  `render_rgb_silhouette` renders the
+same image and adds, when ``config.diff.silhouette`` is set, the
+edge-sampling boundary term of `diff/edge_grad.py` to the gradients of
+the positions, the eye and the orientation (the derivative of the
+box-filtered image; JAX: `render_grad.py:525-627`).
 """
 
 from __future__ import annotations
@@ -362,11 +365,14 @@ def render_rgb(scene, accel, initial_rays: torch.Tensor, eye: torch.Tensor,
 
 class _RenderVJP(torch.autograd.Function):
     """`render_rgb` whose backward differentiates only the fixed-id render:
-    it never sees the clusters or the traversal."""
+    it never sees the clusters or the traversal.  ``opts`` is ``(accel,
+    config, shading, with_shadows, light_dir, frame_hw)``, and for
+    `render_rgb_silhouette` also ``(edge_vids, edge_faces, width, height,
+    zoom)``: the backward then adds the boundary term."""
 
     @staticmethod
     def forward(ctx, opts, scene, *leaves):
-        accel, config, shading, with_shadows, light_dir, frame_hw = opts
+        accel, config, shading, with_shadows, light_dir, frame_hw = opts[:6]
         initial_rays, eye, orient = leaves[-3:]
         face_ids, shadow_mask = _discrete(scene, accel, initial_rays, eye,
                                           orient, config, shading,
@@ -380,7 +386,7 @@ class _RenderVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        accel, config, shading, _, light_dir, frame_hw = ctx.opts
+        accel, config, shading, _, light_dir, frame_hw = ctx.opts[:6]
         leaves = [x.detach().requires_grad_(need)
                   for x, need in zip(ctx.saved_tensors,
                                      ctx.needs_input_grad[2:])]
@@ -393,8 +399,25 @@ class _RenderVJP(torch.autograd.Function):
             wanted = [x for x in leaves if x.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, g,
                                              allow_unused=True))
-        return (None, None, *(next(grads) if x.requires_grad else None
-                              for x in leaves))
+        grads = [next(grads) if x.requires_grad else None for x in leaves]
+        edges = ctx.opts[6] if len(ctx.opts) > 6 else None
+        if (edges is not None and config.diff.silhouette
+                and any(leaves[i].requires_grad for i in (0, -2, -1))):
+            # The boundary term reaches the positions, the eye and the
+            # orientation (leaves 0, -2 and -1).
+            from .edge_grad import boundary_vjp
+
+            edge_vids, edge_faces, width, height, zoom = edges
+            terms = boundary_vjp(
+                g, scene, accel, edge_vids, edge_faces, leaves[-2],
+                leaves[-1], config, width, height, zoom=zoom,
+                num_samples=config.diff.edge_samples,
+                offset_px=config.diff.edge_offset_px, shading=shading,
+                light_dir=light_dir)
+            for i, term in zip((0, -2, -1), terms):
+                if leaves[i].requires_grad:
+                    grads[i] = term if grads[i] is None else grads[i] + term
+        return (None, None, *grads)
 
 
 def _scene_leaves(scene) -> list:
@@ -424,6 +447,36 @@ def render_rgb_vjp(scene, accel, initial_rays, eye, orient,
             None if frame_hw is None else tuple(frame_hw))
     return _RenderVJP.apply(opts, scene, *_scene_leaves(scene), initial_rays,
                             eye, orient)
+
+
+def render_rgb_silhouette(scene, accel, eye, orient, config: RenderConfig,
+                          width: int, height: int, zoom: float = 1.0,
+                          shading: str = "lambert",
+                          light_dir=(0.4, 0.8, -0.45),
+                          edge_table=None) -> torch.Tensor:
+    """Pinhole render ``[H*W, 3]`` whose backward pass includes the
+    silhouette (coverage) boundary term.
+
+    The forward pass is `render_rgb(..., frame_hw=(height, width))`
+    without shadows on `camera_ray_grid`'s rays, bit for bit; the
+    backward is `render_rgb_vjp`'s fixed-id VJP plus, when
+    ``config.diff.silhouette`` is set, `edge_grad.boundary_vjp`'s terms
+    for the positions, the eye and the orientation.  ``edge_table`` is
+    `build_edge_table(faces)`, built on the host when None.  The boundary
+    probes ignore shadows; shadow-boundary gradients are not modelled."""
+    from ..models.camera import camera_ray_grid
+    from .edge_grad import build_edge_table
+
+    dev = scene.positions.device
+    if edge_table is None:
+        edge_table = build_edge_table(scene.faces)
+    edge_vids, edge_faces = (torch.as_tensor(t, dtype=torch.int32,
+                                             device=dev) for t in edge_table)
+    rays = camera_ray_grid(width, height, zoom=zoom, device=dev)
+    opts = (accel, config, shading, False, tuple(light_dir), (height, width),
+            (edge_vids, edge_faces, width, height, zoom))
+    return _RenderVJP.apply(opts, scene, *_scene_leaves(scene), rays, eye,
+                            orient)
 
 
 def _occlusion_nondiff(scene, accel, hit: Hit, origin, dirs, config,

@@ -138,16 +138,20 @@ def trace_rays(
     dirs: torch.Tensor,
     rays_per_group: int = 256,
     trace_cfg: TraceConfig = TraceConfig(),
+    active: torch.Tensor | None = None,
 ) -> Hit:
     """Closest hit of any row-major ray bundle, ``origins`` and ``dirs``
     ``[N, 3]`` -> `Hit` with ``[N]`` fields; ``face`` is the winner's
     original face id (int32), -1 on a miss.  The rays go in groups of
     ``rays_per_group`` through `general_tile_cull` (on unit directions)
     and C's epilogue over F's sweep; ``tri_blocks`` is
-    `segment_blocks(cs)`."""
+    `segment_blocks(cs)`.  A ray that ``active`` ``[N]`` (bool, all when
+    None) leaves out returns a miss, as in JAX's
+    `dense.trace_clusters_rays(..., active=)`."""
     n = origins.shape[0]
-    num = group_rays(torch.ones(n, dtype=torch.bool, device=dirs.device),
-                     rays_per_group)
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dirs.device)
+    num = group_rays(active, rays_per_group)
     o3 = group_rays(origins, rays_per_group).transpose(1, 2).contiguous()
     d3 = group_rays(dirs, rays_per_group).transpose(1, 2).contiguous()
     # The cone test of the cull reads unit directions.

@@ -10,9 +10,11 @@ port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pathlib
 import re
+import signal
 
 import numpy as np
 import torch
@@ -135,3 +137,19 @@ def assert_rel_close(a, b, mask, rtol: float = 1e-6) -> None:
     """``a`` and ``b`` within ``rtol`` relative where ``mask``."""
     a, b = np.asarray(a)[mask], np.asarray(b)[mask]
     np.testing.assert_allclose(a, b, rtol=rtol, atol=0)
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float):
+    """Fail the enclosed block with TimeoutError after ``seconds`` of wall
+    time (SIGALRM; the main thread of a pytest worker)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"test exceeded its limit of {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
