@@ -113,14 +113,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      hidden (as C), and on both bounces at K = 4 to 64, A and B as in
      phase 29;
  22. runs config 1 at 256x256: `clear_buffer` (kernel D), `color_gradient`
-     (kernel I) and `blob` at three times (kernel J), requiring each
-     kernel launched;
- 23. holds I equal to its plain version and to a numpy transcription of
-     `Gradient.cu`, J within 1 per u8 channel of its plain version (and
-     prints how many pixels differ), and requires two times to give two
-     frames;
- 24. times the config-1 frame (D then I), I and J beside their plain
-     versions over 200 launches (plain 100);
+     (kernel I) and `blob` at three times (kernel J; the first given as a
+     float, passed by value), requiring each kernel launched;
+ 23. at 256x256, 1920x1080 and 255x257 (`FILL_SIZES`) holds I equal to its
+     plain version and to a numpy transcription of `Gradient.cu`, J within
+     1 per u8 channel of its plain version at each time (and prints how
+     many pixels differ), J with a float time equal to J with the same
+     time in a device tensor; requires two times to give two frames, and
+     a traced `blob(..., 1.25)` to record no copy (no "Memcpy HtoD", no
+     ``cudaMemcpy*`` call, no ``aten::copy_``; where `torch.tensor([1.25],
+     device=cuda)` records one);
+ 24. times the config-1 frame (D then I) and `blob` through its entry
+     point; at 256x256 and 1920x1080, I and J (J with a float time and
+     with a device tensor) by events, by the profiler's device time and
+     with the host's cost hidden, their outputs rotated over `FILL_KEEP`
+     buffers so that a 1920x1080 frame's writes leave the L2 on average,
+     beside their plain versions and bounds; with ``--parent DIR``, DIR's
+     I and J in turns with this tree's (parent, this, this, parent), by
+     events and on the card, outputs equal;
  25. writes a textured stand-in for suzanne.obj (15,488 triangles, two
      materials, a 64x64 24-bit BMP) and loads it through `load_model`,
      requiring the native OBJ tokenizer;
@@ -267,11 +277,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      one process's, the loss within 1e-6 relative; prints rank 0's times.
 
 Phases 42-47 run after phase 13, before phase 14; phases 31-37 and then
-38-41 after phase 28, before phase 29.  Any failure exits non-zero.  ``--parent DIR`` is the only option; the run
-needs none.  The last two lines of standard output are a JSON object of
+38-41 after phase 28, before phase 29.  Any failure exits non-zero.
+``--parent DIR`` is the only option (phases 24 and 41); the run needs
+none.  The last two lines of standard output are a JSON object of
 the kernels' counts, errors, times and bounds (A-J, the LBVH kernels K,
 closest and any hit, and L, and the grid march M; every sweep's, D's,
-E's, G's, K's, L's and M's with ``device_ms``, D's and G's with
+E's, G's, I's, J's, K's, L's and M's with ``device_ms``, D's and G's with
 ``library_device_ms``, G's with ``library_zeroed_ms``; null elsewhere),
 and ``{"ok": true, "device": {...}}``.
 """
@@ -330,6 +341,11 @@ BUNDLE_RAYS = 2048
 # Config 1 (scripts/bench_configs.py:67-75): 256x256 full-frame fills.
 C1_SIZE = 256
 BLOB_TIMES = (0.0, 1.25, 2.7)
+# I and J are held against their plain versions at config 1's size, at
+# config 5's 1920x1080 and at an odd size, and timed at the first two.
+FILL_SIZES = ((C1_SIZE, C1_SIZE), (1920, 1080), (255, 257))
+# Outputs a timed fill holds (`rotating`): 8 of 16.6 MB exceed the L2.
+FILL_KEEP = 8
 # The app path: the render CLI's default size, the fly loop's frames.
 APP_SIZE = 512
 FLY_SIZE = 256
@@ -345,11 +361,13 @@ QUEUE_SPIN_CYCLES = 20_000_000
 # `csrc/brute.cu`: 45 adds, subtracts and multiplies, one division, and
 # u + v (the comparisons are not counted).
 MT_OPS = 46
-# FP32 operations per pixel of kernel I (a division and a multiply) and of
-# kernel J (`csrc/frame.cu:blob_kernel`, counting min, max, abs and sqrt
-# as one each; sin and cos run once per thread).
+# FP32 operations of kernel I a ramp position (a division and a multiply;
+# a sixth of the pixels) and of kernel J a pixel (`csrc/frame.cu:
+# blob_pixel`, counting min, max, abs and sqrt as one each) and a row (uy,
+# s * uy and c * uy); sin and cos are not counted.
 GRADIENT_OPS = 2
-BLOB_OPS = 47
+BLOB_OPS = 44
+BLOB_ROW_OPS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -462,6 +480,11 @@ def time_queued(fn, iters: int):
 def ms_text(ms) -> str:
     """A time for the log: ms to four decimals, or "not measured"."""
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def share_text(bound_ms, ms) -> str:
+    """``bound_ms`` as a share of ``ms``, or "not measured"."""
+    return "not measured" if ms is None else f"{bound_ms / ms:.2%}"
 
 
 def time_once(fn):
@@ -2301,9 +2324,85 @@ def u8_diff(a, b) -> int:
                for s in (16, 8, 0))
 
 
-def fill_path(dev, clock, card, size=C1_SIZE):
-    """Phases 22-24: config 1's full-frame fills, kernels D, I and J.
-    Returns I's and J's records and D's launches on this path."""
+def host_copies(fn) -> dict:
+    """``{name: count}`` of the copies `torch.profiler` records over one
+    call of ``fn`` (after a warm-up): the card's copies from the host
+    ("Memcpy HtoD ..."), the runtime's ``cudaMemcpy*`` calls and
+    ``aten::copy_``.  The last is a CPU operator, which the profiler
+    records even where it drops the card's copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if "HtoD" in e.key or e.key.startswith("cudaMemcpy")
+            or e.key == "aten::copy_"}
+
+
+def rotating(fn, keep: int = FILL_KEEP):
+    """``fn`` with its last ``keep`` outputs held, so that repeated calls
+    write fresh memory: a 1920x1080 frame's 16.6 MB, 8 deep, is more than
+    the 50 MB L2 holds."""
+    import collections
+
+    held = collections.deque(maxlen=keep)
+    return lambda: held.append(fn())
+
+
+def fill_times(fn, iters: int, kernel: str) -> tuple:
+    """``(events, device, host hidden)`` ms a call of a fill, its outputs
+    rotated (`rotating`): CUDA events, the profiler's time of ``kernel``,
+    and `time_queued`."""
+    run = rotating(fn)
+    return (time_cuda(run, iters), device_ms(run, iters, (kernel,))[0],
+            time_queued(run, iters))
+
+
+def times_text(t) -> str:
+    return (f"{t[0]:.4f} ms by events, device {ms_text(t[1])}, host hidden "
+            f"{ms_text(t[2])}")
+
+
+def parent_fill_fns(lib):
+    """The parent's kernels I and J, called as this tree's `_gradient_cuda`
+    and `_blob_cuda` (the time a float32 tensor on the card): the entries
+    `rt_gradient(out, size, stream)` and `rt_blob(out, w, h, time, stream)`
+    of the first designs, or `rt_blob(out, w, h, time, time_value,
+    stream)` of this tree's."""
+    import torch
+
+    from raytracercuda_torch.ops.cuda_build import raw_stream
+
+    def gradient(n, dev):
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        err = lib.rt_gradient(out.data_ptr(), n, raw_stream(dev))
+        check(err == 0, f"parent's I failed: CUDA error {err}")
+        return out
+
+    def blob(w, h, time, dev):
+        out = torch.empty(w * h, dtype=torch.int64, device=dev)
+        args = (time.data_ptr(),)
+        if len(lib.rt_blob.argtypes) == 6:
+            args += (0.0,)
+        err = lib.rt_blob(out.data_ptr(), w, h, *args, raw_stream(dev))
+        check(err == 0, f"parent's J failed: CUDA error {err}")
+        return out
+
+    return gradient, blob
+
+
+def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
+              parent=None):
+    """Phases 22-24: config 1's full-frame fills, kernels D, I and J, and
+    I and J at ``sizes`` (width, height).  ``parent``: the directory of an
+    unpacked parent commit, whose I and J phase 24 times in turns with
+    this tree's.  Returns I's and J's records and D's launches on this
+    path."""
     import torch
 
     from raytracercuda_torch.ops import blob, clear, gradient
@@ -2338,26 +2437,52 @@ def fill_path(dev, clock, card, size=C1_SIZE):
     clock.done("22 (config 1 frame)")
 
     # 23. I against its plain version and `Gradient.cu`; J against its
-    # plain version at each time.
-    check(torch.equal(frame, gradient._gradient_plain(n, dev)),
-          "kernel I differs from its plain version")
-    check(torch.equal(frame.cpu(), torch.from_numpy(gradient_reference(n))),
-          "kernel I differs from the transcription of Gradient.cu")
-    print(f"kernel I equals its plain version and Gradient.cu at "
-          f"{size}x{size}")
-    j_err, j_px = 0, 0
-    for t, k in zip(times, blobs):
-        p = blob._blob_plain(size, size, t)
-        worst = u8_diff(k, p)
-        check(worst <= 1, f"kernel J at time {float(t)}: u8 diff {worst}")
-        j_err, j_px = max(j_err, worst), j_px + int((k != p).sum())
-    print(f"kernel J matches plain at times {BLOB_TIMES}: max u8 diff "
-          f"{j_err}, {j_px} of {len(BLOB_TIMES) * n} pixels differ")
+    # plain version at each time, a float time against a device tensor's,
+    # at config 1's size (phase 22's frames), 1920x1080 and an odd size.
+    j_err = 0
+    for w, h in sizes:
+        m = w * h
+        main = (w, h) == (size, size)
+        k = frame if main else gradient._gradient_cuda(m, dev)
+        check(torch.equal(k, gradient._gradient_plain(m, dev)),
+              f"kernel I differs from its plain version at {w}x{h}")
+        check(torch.equal(k.cpu(), torch.from_numpy(gradient_reference(m))),
+              f"kernel I differs from the transcription of Gradient.cu at "
+              f"{w}x{h}")
+        worst, px = 0, 0
+        for i, (t, tt) in enumerate(zip(BLOB_TIMES, times)):
+            kf = blob._blob_cuda(w, h, t, dev)
+            kt = blobs[i] if main else blob._blob_cuda(w, h, tt, dev)
+            check(torch.equal(kf, kt), f"kernel J at {w}x{h}, time {t}: a "
+                  "float time and a device tensor's give other frames")
+            p = blob._blob_plain(w, h, tt, dev)
+            worst = max(worst, u8_diff(kf, p))
+            px += int((kf != p).sum())
+        check(worst <= 1, f"kernel J at {w}x{h}: u8 diff {worst}")
+        j_err = max(j_err, worst)
+        print(f"at {w}x{h}: kernel I equals its plain version and "
+              f"Gradient.cu; kernel J at times {BLOB_TIMES} (a float and a "
+              f"device tensor, equal frames) against plain: max u8 diff "
+              f"{worst}, {px} of {len(BLOB_TIMES) * m} pixels differ")
     check(not torch.equal(blobs[0], blobs[1]),
           "kernel J: two times give the same frame")
+    if dev.type == "cuda":  # the entry points' default device, the card
+        check(torch.equal(blob.blob(size, size, times[1]), blobs[1])
+              and torch.equal(gradient.color_gradient(size, size), frame),
+              "blob or color_gradient on the default device differs")
+    copies = host_copies(lambda: blob.blob(size, size, 1.25, dev))
+    seen = host_copies(lambda: torch.tensor([1.25], device=dev))
+    print(f"copies a call: blob(..., 1.25) {copies}; "
+          f"torch.tensor([1.25], device=cuda) {seen}")
+    check(bool(seen), "the profiler records no copy of torch.tensor(..., "
+          "device=cuda): the check below sees nothing")
+    check(not copies, f"blob with a float time copies: {copies}")
     clock.done("23 (D, I, J vs plain)")
 
-    # 24. Timing, 200 launches each (plain versions 100).
+    # 24. Timing: I and J by events, on the card and with the host hidden
+    # (J with a float time and with a device tensor), each beside its plain
+    # version and bound and, with ``parent``, the parent's I and J in
+    # turns, at config 1's size and 1920x1080.
     print(f"timing on {card}")
 
     def config1_frame():
@@ -2368,22 +2493,75 @@ def fill_path(dev, clock, card, size=C1_SIZE):
     with PlainOnCard({clear: {"_clear_cuda": clear._clear_plain},
                       gradient: {"_gradient_cuda": gradient._gradient_plain}}):
         frame_plain_ms = time_cuda(config1_frame, 100)
-    i_ms = time_cuda(lambda: gradient._gradient_cuda(n, dev), 200)
-    i_plain_ms = time_cuda(lambda: gradient._gradient_plain(n, dev), 100)
-    j_ms = time_cuda(lambda: blob._blob_cuda(size, size, times[1]), 200)
-    j_plain_ms = time_cuda(lambda: blob._blob_plain(size, size, times[1]),
-                           100)
     print(f"config 1 frame ({size}x{size}, clear then gradient): kernel "
           f"path {frame_ms:.4f} ms, plain path {frame_plain_ms:.4f} ms")
+    entry = time_cuda(lambda: blob.blob(size, size, 1.25, dev), 200)
+    print(f"blob({size}, {size}, 1.25) through the entry point: "
+          f"{entry:.4f} ms by events")
+    old_i = old_j = None
+    if parent is not None:
+        old_i, old_j = parent_fill_fns(parent_library(parent))
+    timed = {}
+    for w, h in sizes[:2]:
+        m = w * h
+        iters, plain_iters = (200, 100) if m <= n else (200, 10)
+        fi = lambda m=m: gradient._gradient_cuda(m, dev)  # noqa: E731
+        fjf = lambda w=w, h=h: blob._blob_cuda(w, h, 1.25, dev)  # noqa: E731
+        fjt = lambda w=w, h=h: blob._blob_cuda(  # noqa: E731
+            w, h, times[1], dev)
+        i_t = fill_times(fi, iters, "gradient_kernel")
+        jf_t = fill_times(fjf, iters, "blob_kernel")
+        jt_t = fill_times(fjt, iters, "blob_kernel")
+        i_plain = time_cuda(rotating(lambda m=m: gradient._gradient_plain(
+            m, dev)), plain_iters)
+        j_plain = time_cuda(rotating(lambda w=w, h=h: blob._blob_plain(
+            w, h, times[1], dev)), plain_iters)
+        i_bound = bound(GRADIENT_OPS * (m // 6), 8 * m)
+        j_bound = bound(BLOB_OPS * m + BLOB_ROW_OPS * h, 8 * m + 4)
+        timed[(w, h)] = (i_t, jt_t, i_plain, j_plain, i_bound, j_bound)
+        print(f"{w}x{h} on {card}: kernel I {times_text(i_t)} (plain "
+              f"{i_plain:.4f} ms); bound {i_bound[0]:.6f} ms by "
+              f"{i_bound[1]}, {i_bound[0] / i_t[0]:.2%} of it reached by "
+              f"events, {share_text(i_bound[0], i_t[1])} on the card, "
+              f"{share_text(i_bound[0], i_t[2])} with the host hidden")
+        print(f"{w}x{h} on {card}: kernel J, float time, {times_text(jf_t)}"
+              f"; device tensor time, {times_text(jt_t)} (plain "
+              f"{j_plain:.4f} ms); bound {j_bound[0]:.6f} ms by {j_bound[1]}"
+              f", {j_bound[0] / jt_t[0]:.2%} of it reached by events, "
+              f"{share_text(j_bound[0], jt_t[1])} on the card, "
+              f"{share_text(j_bound[0], jt_t[2])} with the host hidden "
+              f"(float time {share_text(j_bound[0], jf_t[2])})")
+        if parent is None:
+            continue
+        check(torch.equal(fi(), old_i(m, dev)),
+              f"kernel I differs from the parent's at {w}x{h}")
+        check(torch.equal(fjt(), old_j(w, h, times[1], dev)),
+              f"kernel J differs from the parent's at {w}x{h}")
+        for name, new, old, kernel in (
+                ("I", fi, lambda m=m: old_i(m, dev), "gradient_kernel"),
+                ("J", fjt, lambda w=w, h=h: old_j(w, h, times[1], dev),
+                 "blob_kernel")):
+            turns = [time_cuda(rotating(f), iters)
+                     for f in (old, new, new, old)]
+            dev_new = device_ms(rotating(new), iters, (kernel,))[0]
+            dev_old = device_ms(rotating(old), iters, (kernel,))[0]
+            print(f"{w}x{h}: kernel {name} against the parent ({parent}), "
+                  f"equal outputs; by events parent, this, this, parent: "
+                  + ", ".join(f"{t:.4f}" for t in turns)
+                  + f" ms; on the card this {ms_text(dev_new)}, parent "
+                  f"{ms_text(dev_old)}")
+    if parent is None:
+        print("parent's kernels I and J: not timed (no --parent)")
     clock.done("24 (config 1 timing)")
     src = "raytracercuda_torch/csrc/frame.cu"
+    i_t, j_t, i_plain, j_plain, i_bound, j_bound = timed[(size, size)]
     return [
         kernel_record("gradient", src, "raytracercuda_tpu/ops/gradient.py:60",
-                      launches["gradient"], 0.0, i_ms, i_plain_ms,
-                      bound(GRADIENT_OPS * n, 8 * n)),
+                      launches["gradient"], 0.0, i_t[0], i_plain, i_bound,
+                      device_ms=i_t[1]),
         kernel_record("blob", src, "raytracercuda_tpu/ops/blob.py:66",
-                      launches["blob"], float(j_err), j_ms, j_plain_ms,
-                      bound(BLOB_OPS * n, 8 * n + 4)),
+                      launches["blob"], float(j_err), j_t[0], j_plain,
+                      j_bound, device_ms=j_t[1]),
     ], launches["clear"]
 
 
@@ -2798,12 +2976,27 @@ def parent_library(tree: str):
 
 
 def parent_grid_fn(lib):
-    """The parent's kernel M, called as this tree's `_march_cuda` (the
-    hints dropped): the first design's C entry, one thread a ray over
-    `march_rows`, which the parent builds the same way."""
+    """The parent's kernel M, called as this tree's `_march_cuda`: where
+    the parent's `rt_grid_march` has this tree's signature, through
+    `_march_cuda` with the parent's entry in place of this tree's (the
+    hints kept; the staged eye rows laid out as this tree lays them out);
+    else the first design's C entry, one thread a ray over `march_rows`,
+    which the parent builds the same way (the hints dropped)."""
     import torch
 
-    from raytracercuda_torch.ops.cuda_build import raw_stream
+    from raytracercuda_torch.ops.cuda_build import SIGNATURES, raw_stream
+    from raytracercuda_torch.trace import grid_march
+
+    if len(lib.rt_grid_march.argtypes) == len(SIGNATURES["rt_grid_march"]):
+        def same_form(*args):
+            saved = grid_march.kernel_fn
+            grid_march.kernel_fn = lambda name: getattr(lib, name)
+            try:
+                return grid_march._march_cuda(*args)
+            finally:
+                grid_march.kernel_fn = saved
+
+        return same_form
 
     def march(rows, cell_start, num_cells, cell_res, pinch, origin,
               direction, max_iters, max_faces, t_eps, *hints):
@@ -4200,8 +4393,9 @@ def main() -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="DIR",
-                        help="an unpacked parent commit: time its kernel M "
-                        "in turns with this tree's (phase 41)")
+                        help="an unpacked parent commit: time its kernels "
+                        "I and J (phase 24) and M (phase 41) in turns with "
+                        "this tree's")
     args = parser.parse_args()
     clock = PhaseClock()
     # 1. Device.
@@ -4369,7 +4563,8 @@ def main() -> None:
     del c4
     c2 = api_path(dev, clock, card)
     c5_kernels, c5_ab = bounce_path(dev, clock, card)
-    c1_kernels, c1_clear = fill_path(dev, clock, card)
+    c1_kernels, c1_clear = fill_path(dev, clock, card,
+                                     parent=args.parent)
     app = app_path(dev, clock, card)
     bvh_kernels, bvh_frame_ms = bvh_path(dev, clock, card, data, eye, orient,
                                          rays)

@@ -4,9 +4,11 @@
 The reference's procedural-animation test (`Blob.cu:5-69`): a rotating
 rounded-square signed distance field, smoothstep-mixed with red over a
 vignetted white background.  The time is a runtime value: kernel J
-(`csrc/frame.cu:blob_kernel`, replacing `blob.blob`'s inline kernel) reads
-it from a one-element float32 tensor on the card, so a new time neither
-rebuilds nor syncs the host.  `blob` runs the plain PyTorch version for
+(`csrc/frame.cu:blob_kernel`, replacing `blob.blob`'s inline kernel) takes
+a float time by value, or reads a one-element float32 tensor on the card
+in place, so a new time neither rebuilds, copies nor syncs the host; both
+forms are ``float32(time)``.  The kernel computes each pixel from its row
+and column, two pixels a thread.  `blob` runs the plain PyTorch version for
 the CPU and launches kernel J on a GPU; there is no fallback from one to
 the other.
 """
@@ -68,20 +70,31 @@ def blob_values(i: torch.Tensor, w: int, h: int,
     return pack_rgb(mr, mg, mb)
 
 
-def _blob_plain(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
-    return blob_values(torch.arange(width * height, device=time.device),
+def _blob_plain(width: int, height: int, time, device) -> torch.Tensor:
+    if not isinstance(time, torch.Tensor):
+        time = torch.tensor([time], dtype=torch.float32, device=device)
+    return blob_values(torch.arange(width * height, device=device),
                        width, height, time)
 
 
-def _blob_cuda(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
-    """Launch kernel J; output as in `_blob_plain`."""
-    from ..trace.sweep import _check_cuda
-
-    dev = time.device
-    _check_cuda("time", time, dev, torch.float32, (1,))
-    out = torch.empty(width * height, dtype=torch.int64, device=dev)
-    err = kernel_fn("rt_blob")(out.data_ptr(), width, height,
-                               time.data_ptr(), raw_stream(dev))
+def _blob_cuda(width: int, height: int, time, device) -> torch.Tensor:
+    """Launch kernel J at ``time``, a float (passed by value) or a float32
+    tensor of one element on the card (read in place; the frame is made on
+    its device); output as in `_blob_plain`."""
+    if device.type != "cuda":
+        raise ValueError(f"kernel J writes a CUDA tensor, not one on {device}")
+    if isinstance(time, torch.Tensor):
+        if not time.is_cuda or time.dtype != torch.float32 \
+                or time.numel() != 1:
+            raise ValueError(f"kernel J reads a CUDA float32 time of one "
+                             f"element, got {time.dtype} "
+                             f"{tuple(time.shape)} on {time.device}")
+        ptr, value, device = time.data_ptr(), 0.0, time.device
+    else:
+        ptr, value = None, time
+    out = torch.empty(width * height, dtype=torch.int64, device=device)
+    err = kernel_fn("rt_blob")(out.data_ptr(), width, height, ptr, value,
+                               raw_stream(device))
     if err:
         raise RuntimeError(f"kernel J launch failed: CUDA error {err}")
     launch_counts["blob"] += 1
@@ -91,13 +104,13 @@ def _blob_cuda(width: int, height: int, time: torch.Tensor) -> torch.Tensor:
 def blob(width: int, height: int, time,
          device: torch.device | str | None = None) -> torch.Tensor:
     """``bmStartBlob``: the ``[width*height]`` int64 frame at ``time`` on
-    ``device`` (the card when None).  ``time`` is a float, copied to the
-    device as float32, or a tensor of one element, used in place when it
-    is float32 on the device already."""
+    ``device`` (the card when None).  ``time`` is a float, passed to the
+    kernel by value as float32, or a tensor of one element, used in place
+    when it is float32 on the device already."""
     device = resolve_device(device)
     if isinstance(time, torch.Tensor):
-        t = time.to(device=device, dtype=torch.float32).reshape(1)
+        time = time.to(device=device, dtype=torch.float32).reshape(1)
     else:
-        t = torch.tensor([float(time)], dtype=torch.float32, device=device)
+        time = float(time)
     run = _blob_plain if device.type == "cpu" else _blob_cuda
-    return run(int(width), int(height), t)
+    return run(int(width), int(height), time, device)

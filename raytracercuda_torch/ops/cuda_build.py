@@ -117,7 +117,7 @@ SIGNATURES = {
     "rt_brute": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P),
     "rt_clear": (_P, _I64, _U32, _P),
     "rt_gradient": (_P, _I64, _P),
-    "rt_blob": (_P, _I, _I, _P, _P),
+    "rt_blob": (_P, _I, _I, _P, _F, _P),
     "rt_walk_closest": (_P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
                         _P),
     "rt_walk_any": (_P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P),

@@ -6,8 +6,12 @@ linear pixel index picks one of six colour ramps (R, G, B, RG, GB, RB),
 each fading 0..255 across its band.  `color_gradient` runs its plain
 PyTorch version for the CPU and launches kernel I (`csrc/frame.cu:
 gradient_kernel`, replacing `gradient.color_gradient`'s inline kernel) on
-a GPU; there is no fallback from one to the other.  Packed pixels are
-int64 holding the u32, as in `ops/clear.py`.
+a GPU; there is no fallback from one to the other.  The kernel works
+band-major: each ramp position ``k`` of ``[0, size // 6)`` gets its colour
+once and is stored into the six bands at ``b * (size // 6) + k``, which
+gives `gradient_values`' pixels, since every value of ``i % block`` recurs
+once a band.  Packed pixels are int64 holding the u32, as in
+`ops/clear.py`.
 """
 
 from __future__ import annotations

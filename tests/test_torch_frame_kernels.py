@@ -127,8 +127,10 @@ def test_blob_time_is_a_runtime_value():
 def test_kernel_wrappers_reject_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         tgradient._gradient_cuda(64, torch.device("cpu"))
-    with pytest.raises(ValueError, match="CUDA"):
-        tblob._blob_cuda(8, 8, torch.zeros(1))
+    cpu = torch.device("cpu")
+    for time in (torch.zeros(1), 0.5):  # a device tensor, or a float
+        with pytest.raises(ValueError, match="CUDA"):
+            tblob._blob_cuda(8, 8, time, cpu)
 
 
 def test_config1_frame():
