@@ -114,23 +114,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      phase 29;
  22. runs config 1 at 256x256: `clear_buffer` (kernel D), `color_gradient`
      (kernel I) and `blob` at three times (kernel J; the first given as a
-     float, passed by value), requiring each kernel launched;
- 23. at 256x256, 1920x1080 and 255x257 (`FILL_SIZES`) holds I equal to its
-     plain version and to a numpy transcription of `Gradient.cu`, J within
-     1 per u8 channel of its plain version at each time (and prints how
-     many pixels differ), J with a float time equal to J with the same
-     time in a device tensor; requires two times to give two frames, and
-     a traced `blob(..., 1.25)` to record no copy (no "Memcpy HtoD", no
-     ``cudaMemcpy*`` call, no ``aten::copy_``; where `torch.tensor([1.25],
-     device=cuda)` records one);
+     float, passed by value), requiring each kernel launched and each frame
+     `torch.uint32`, and 0xFF00FF00 to read back;
+ 23. at 256x256, 1920x1080 and 255x257 (`FILL_SIZES`) holds D equal to its
+     plain version, I equal to its plain version and to a numpy transcription of `Gradient.cu`, J equal to its
+     plain version at each time, J with a float time equal to J with the
+     same time in a device tensor; requires two times to give two frames,
+     and a traced `blob(..., 1.25)` to record no copy (no "Memcpy HtoD",
+     no ``cudaMemcpy*`` call, no ``aten::copy_``; where
+     `torch.tensor([1.25], device=cuda)` records one);
  24. times the config-1 frame (D then I) and `blob` through its entry
-     point; at 256x256 and 1920x1080, I and J (J with a float time and
-     with a device tensor) by events, by the profiler's device time and
+     point; D at `CLEAR_TIMED` (256x256, 1920x1080, 1920x1088), and at
+     256x256 and 1920x1080 I and J (with a float time and
+     with a device tensor), by events, by the profiler's device time and
      with the host's cost hidden, their outputs rotated over `FILL_KEEP`
-     buffers so that a 1920x1080 frame's writes leave the L2 on average,
-     beside their plain versions and bounds; with ``--parent DIR``, DIR's
-     I and J in turns with this tree's (parent, this, this, parent), by
-     events and on the card, outputs equal;
+     buffers so that a 1920x1080 frame's writes leave the L2, beside their
+     plain versions and bounds at 4 bytes a pixel; with ``--parent DIR``,
+     DIR's D, I and J in turns with this tree's (parent, this, this,
+     parent), by events, on the card and with the host hidden, outputs
+     equal by value (the parent's pixels as wide as its `PIXEL_BYTES`);
  25. writes a textured stand-in for suzanne.obj (15,488 triangles, two
      materials, a 64x64 24-bit BMP) and loads it through `load_model`,
      requiring the native OBJ tokenizer;
@@ -277,7 +279,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      one process's, the loss within 1e-6 relative; prints rank 0's times.
 
 Phases 42-47 run after phase 13, before phase 14; phases 31-37 and then
-38-41 after phase 28, before phase 29.  Any failure exits non-zero.
+38-41 after phase 28, before phase 29.  Every packed frame a phase reads
+(the bench, config-1, config-2, BVH and GRID frames, `Camera.clear`'s and
+the fly loop's) must be ``torch.uint32``, 4 bytes a pixel (`frame_bits`).
+Any failure exits non-zero.
 ``--parent DIR`` is the only option (phases 24 and 41); the run needs
 none.  The last two lines of standard output are a JSON object of
 the kernels' counts, errors, times and bounds (A-J, the LBVH kernels K,
@@ -344,8 +349,11 @@ BLOB_TIMES = (0.0, 1.25, 2.7)
 # I and J are held against their plain versions at config 1's size, at
 # config 5's 1920x1080 and at an odd size, and timed at the first two.
 FILL_SIZES = ((C1_SIZE, C1_SIZE), (1920, 1080), (255, 257))
-# Outputs a timed fill holds (`rotating`): 8 of 16.6 MB exceed the L2.
-FILL_KEEP = 8
+# Outputs a timed fill holds (`rotating`): 16 of 8.3 MB exceed the L2.
+FILL_KEEP = 16
+# Kernel D's timed sizes: config 1's, 1920x1080, config 5's edge-padded
+# 1920x1088.
+CLEAR_TIMED = ((C1_SIZE, C1_SIZE), (1920, 1080), (1920, 1088))
 # The app path: the render CLI's default size, the fly loop's frames.
 APP_SIZE = 512
 FLY_SIZE = 256
@@ -1642,6 +1650,7 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
         bruteforce.reset_launch_counts()
         err_clear = cam.clear(target, CLEAR_VALUE)
         cleared = target.buffer.clone()
+        frame_bits(cleared, "config 2 Camera.clear")
         err = cam.trace_scene(eye, orient, scene, target)
         sync()
         launches = {**clear.launch_counts, **bruteforce.launch_counts}
@@ -1651,10 +1660,11 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     check(err_clear == 0 and err == 0, f"clear {err_clear}, trace {err}")
     check(launches["clear"] > 0, "kernel D never launched")
     check(launches["brute"] > 0, "kernel E never launched")
-    full = torch.full((n,), CLEAR_VALUE, dtype=torch.int64, device=dev)
+    full = torch.full((n,), CLEAR_VALUE, dtype=torch.uint32, device=dev)
     check(torch.equal(cleared, full), "kernel D: buffer differs from "
           "torch.full")
     frame = target.buffer.clone()
+    frame_bits(frame, "config 2 frame")
     miss = 255 << 8
     hit_share = float((frame != miss).float().mean())
     print(f"config 2 frame: hit share {hit_share:.4f}")
@@ -1681,7 +1691,7 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     check(torch.equal(kd, pd), "kernel D differs from its plain version")
     for m in CLEAR_SIZES:
         check(torch.equal(clear._clear_cuda(m, CLEAR_VALUE, dev),
-                          torch.full((m,), CLEAR_VALUE, dtype=torch.int64,
+                          torch.full((m,), CLEAR_VALUE, dtype=torch.uint32,
                                      device=dev)),
               f"kernel D differs from torch.full at {m} pixels")
     print(f"kernel D equals torch.full at {list(CLEAR_SIZES)} pixels")
@@ -1764,7 +1774,7 @@ def api_path(dev, clock, card, size=C2_SIZE, suzanne_faces=C2_SUZANNE):
     # D's plain version is one PyTorch call, `torch.full`: its library time.
     return {
         "clear": dict(launches=launches["clear"], err=0.0, ms=d_ms,
-                      plain_ms=d_plain_ms, bound_ms_by=bound(0, 8 * n),
+                      plain_ms=d_plain_ms, bound_ms_by=bound(0, 4 * n),
                       library_ms=d_plain_ms, device_ms=d_device_ms,
                       library_device_ms=d_plain_device_ms),
         "brute": dict(launches=launches["brute"], err=e_err, ms=e_ms,
@@ -2306,20 +2316,34 @@ def split_sweep_cases(dev, accel, data, eye, config) -> tuple:
 
 def gradient_reference(size: int):
     """numpy transcription of `Gradient.cu:5-41`: float32 arithmetic as the
-    CUDA kernel computes it, packed pixels as int64."""
+    CUDA kernel computes it, packed pixels as uint32."""
     import numpy as np
 
     i = np.arange(size)
     block = size // 6
     c = (np.float32(255) * ((i % block).astype(np.float32)
-                            / np.float32(block))).astype(np.int64)
+                            / np.float32(block))).astype(np.uint32)
     bands = [c << 16, c << 8, c, (c << 16) | (c << 8), (c << 8) | c,
              (c << 16) | c]
-    return np.select([i // block == k for k in range(6)], bands, 0)
+    return np.select([i // block == k for k in range(6)], bands,
+                     np.uint32(0))
+
+
+def frame_bits(frame, name: str):
+    """Hold ``frame`` to the port's framebuffer type, ``torch.uint32`` at 4
+    bytes a pixel, and return its int32 bits (a view): the card has no
+    shifts, masks or reductions on uint32."""
+    import torch
+
+    check(frame.dtype == torch.uint32 and frame.element_size() == 4,
+          f"{name}: the frame is {frame.dtype}, not torch.uint32")
+    return frame.view(torch.int32)
 
 
 def u8_diff(a, b) -> int:
-    """The largest difference of one u8 channel between packed frames."""
+    """The largest difference of one u8 channel between packed frames
+    (each held to `frame_bits`)."""
+    a, b = frame_bits(a, "u8_diff"), frame_bits(b, "u8_diff")
     return max(int((((a >> s) & 0xFF) - ((b >> s) & 0xFF)).abs().max())
                for s in (16, 8, 0))
 
@@ -2346,8 +2370,8 @@ def host_copies(fn) -> dict:
 
 def rotating(fn, keep: int = FILL_KEEP):
     """``fn`` with its last ``keep`` outputs held, so that repeated calls
-    write fresh memory: a 1920x1080 frame's 16.6 MB, 8 deep, is more than
-    the 50 MB L2 holds."""
+    write fresh memory: a 1920x1080 frame's 8.3 MB, 16 deep, is more than
+    twice what the 50 MB L2 holds."""
     import collections
 
     held = collections.deque(maxlen=keep)
@@ -2368,41 +2392,61 @@ def times_text(t) -> str:
             f"{ms_text(t[2])}")
 
 
-def parent_fill_fns(lib):
-    """The parent's kernels I and J, called as this tree's `_gradient_cuda`
-    and `_blob_cuda` (the time a float32 tensor on the card): the entries
-    `rt_gradient(out, size, stream)` and `rt_blob(out, w, h, time, stream)`
-    of the first designs, or `rt_blob(out, w, h, time, time_value,
-    stream)` of this tree's."""
+def same_values(new, old) -> bool:
+    """This tree's uint32 frame and a parent's (int64 or uint32) hold the
+    same pixel values."""
+    import torch
+
+    return torch.equal(new.to(torch.int64), old.to(torch.int64))
+
+
+def parent_fill_fns(parent_build):
+    """The parent's kernels D, I and J, called as this tree's `_clear_cuda`,
+    `_gradient_cuda` and `_blob_cuda` (the time a float32 tensor on the
+    card), through the entries `rt_clear(out, n, value, stream)`,
+    `rt_gradient(out, size, stream)` and `rt_blob(out, w, h, time,
+    time_value, stream)` of the parent's library.  ``parent_build`` is the
+    parent's `ops/cuda_build` module: its frames are uint32 where it states
+    `PIXEL_BYTES = 4`, else int64 (the 8-byte pixels before it); compare
+    them with this tree's by value (`same_values`)."""
     import torch
 
     from raytracercuda_torch.ops.cuda_build import raw_stream
 
+    lib = parent_build.load_library()
+    wide = getattr(parent_build, "PIXEL_BYTES", 8) == 8
+    dtype = torch.int64 if wide else torch.uint32
+
+    def clear(n, dev):
+        out = torch.empty(n, dtype=dtype, device=dev)
+        err = lib.rt_clear(out.data_ptr(), n, CLEAR_VALUE, raw_stream(dev))
+        check(err == 0, f"parent's D failed: CUDA error {err}")
+        return out
+
     def gradient(n, dev):
-        out = torch.empty(n, dtype=torch.int64, device=dev)
+        out = torch.empty(n, dtype=dtype, device=dev)
         err = lib.rt_gradient(out.data_ptr(), n, raw_stream(dev))
         check(err == 0, f"parent's I failed: CUDA error {err}")
         return out
 
     def blob(w, h, time, dev):
-        out = torch.empty(w * h, dtype=torch.int64, device=dev)
-        args = (time.data_ptr(),)
-        if len(lib.rt_blob.argtypes) == 6:
-            args += (0.0,)
-        err = lib.rt_blob(out.data_ptr(), w, h, *args, raw_stream(dev))
+        out = torch.empty(w * h, dtype=dtype, device=dev)
+        err = lib.rt_blob(out.data_ptr(), w, h, time.data_ptr(), 0.0,
+                          raw_stream(dev))
         check(err == 0, f"parent's J failed: CUDA error {err}")
         return out
 
-    return gradient, blob
+    return clear, gradient, blob
 
 
 def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
               parent=None):
     """Phases 22-24: config 1's full-frame fills, kernels D, I and J, and
-    I and J at ``sizes`` (width, height).  ``parent``: the directory of an
-    unpacked parent commit, whose I and J phase 24 times in turns with
-    this tree's.  Returns I's and J's records and D's launches on this
-    path."""
+    D, I and J at ``sizes`` (width, height).  ``parent``: the directory of
+    an unpacked parent commit, whose D, I and J phase 24 times in turns
+    with this tree's.  Returns I's and J's records and D's launches on
+    this path."""
+    import numpy as np
     import torch
 
     from raytracercuda_torch.ops import blob, clear, gradient
@@ -2431,39 +2475,46 @@ def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
     check(launches["gradient"] > 0, "kernel I never launched")
     check(launches["blob"] == len(BLOB_TIMES), "kernel J launched "
           f"{launches['blob']} times, not {len(BLOB_TIMES)}")
+    for name, f in [("clear_buffer", cleared), ("color_gradient", frame),
+                    *(("blob", b) for b in blobs)]:
+        frame_bits(f, f"config 1 {name}")
+        check(f.shape == (n,), f"config 1 {name}: shape {tuple(f.shape)}")
     check(torch.equal(cleared, torch.full((n,), CLEAR_VALUE,
-                                          dtype=torch.int64, device=dev)),
+                                          dtype=torch.uint32, device=dev)),
           "kernel D: buffer differs from torch.full")
+    check(int(cleared[:1].to(torch.int64)) == CLEAR_VALUE,
+          "kernel D: 0xFF00FF00 does not read back")
     clock.done("22 (config 1 frame)")
 
-    # 23. I against its plain version and `Gradient.cu`; J against its
-    # plain version at each time, a float time against a device tensor's,
-    # at config 1's size (phase 22's frames), 1920x1080 and an odd size.
-    j_err = 0
+    # 23. D and I bit-equal to their plain versions (I also to
+    # `Gradient.cu`), J bit-equal to its plain version at
+    # each time, a float time against a device tensor's, at config 1's
+    # size (phase 22's frames), 1920x1080 and an odd size.
     for w, h in sizes:
         m = w * h
         main = (w, h) == (size, size)
+        check(torch.equal(cleared if main else clear._clear_cuda(
+            m, CLEAR_VALUE, dev), clear._clear_plain(m, CLEAR_VALUE, dev)),
+            f"kernel D differs from its plain version at {w}x{h}")
+        plain = gradient._gradient_plain(m, dev)
         k = frame if main else gradient._gradient_cuda(m, dev)
-        check(torch.equal(k, gradient._gradient_plain(m, dev)),
+        check(torch.equal(k, plain),
               f"kernel I differs from its plain version at {w}x{h}")
-        check(torch.equal(k.cpu(), torch.from_numpy(gradient_reference(m))),
+        check(np.array_equal(k.cpu().numpy(), gradient_reference(m)),
               f"kernel I differs from the transcription of Gradient.cu at "
               f"{w}x{h}")
-        worst, px = 0, 0
         for i, (t, tt) in enumerate(zip(BLOB_TIMES, times)):
             kf = blob._blob_cuda(w, h, t, dev)
             kt = blobs[i] if main else blob._blob_cuda(w, h, tt, dev)
             check(torch.equal(kf, kt), f"kernel J at {w}x{h}, time {t}: a "
                   "float time and a device tensor's give other frames")
             p = blob._blob_plain(w, h, tt, dev)
-            worst = max(worst, u8_diff(kf, p))
-            px += int((kf != p).sum())
-        check(worst <= 1, f"kernel J at {w}x{h}: u8 diff {worst}")
-        j_err = max(j_err, worst)
-        print(f"at {w}x{h}: kernel I equals its plain version and "
-              f"Gradient.cu; kernel J at times {BLOB_TIMES} (a float and a "
-              f"device tensor, equal frames) against plain: max u8 diff "
-              f"{worst}, {px} of {len(BLOB_TIMES) * m} pixels differ")
+            check(torch.equal(kf, p), f"kernel J at {w}x{h}, time {t}: "
+                  f"{int((kf != p).sum())} pixels differ from plain, u8 "
+                  f"diff {u8_diff(kf, p)}")
+        print(f"at {w}x{h}: kernel D equals its plain version; kernel I "
+              f"equals its plain version and Gradient.cu; kernel J at times {BLOB_TIMES} (a float "
+              f"and a device tensor, equal frames) equals its plain version")
     check(not torch.equal(blobs[0], blobs[1]),
           "kernel J: two times give the same frame")
     if dev.type == "cuda":  # the entry points' default device, the card
@@ -2479,10 +2530,11 @@ def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
     check(not copies, f"blob with a float time copies: {copies}")
     clock.done("23 (D, I, J vs plain)")
 
-    # 24. Timing: I and J by events, on the card and with the host hidden
-    # (J with a float time and with a device tensor), each beside its plain
-    # version and bound and, with ``parent``, the parent's I and J in
-    # turns, at config 1's size and 1920x1080.
+    # 24. Timing: D, I and J by events, on the card and with the host
+    # hidden (J with a float time and with a device tensor), each beside its plain version and
+    # bound at 4 bytes a pixel and, with ``parent``, the parent's in turns
+    # (outputs compared by value), at config 1's size and 1920x1080 (D
+    # also at config 5's edge-padded 1920x1088).
     print(f"timing on {card}")
 
     def config1_frame():
@@ -2498,9 +2550,44 @@ def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
     entry = time_cuda(lambda: blob.blob(size, size, 1.25, dev), 200)
     print(f"blob({size}, {size}, 1.25) through the entry point: "
           f"{entry:.4f} ms by events")
-    old_i = old_j = None
-    if parent is not None:
-        old_i, old_j = parent_fill_fns(parent_library(parent))
+    old = parent_fill_fns(parent_build(parent)) if parent else None
+
+    def in_turns(name, w, h, new, old_fn, kernel, iters):
+        """The parent's ``old_fn`` and this tree's ``new`` in turns, their
+        outputs equal by value."""
+        check(same_values(new(), old_fn()), f"kernel {name} differs from "
+              f"the parent's at {w}x{h}")
+        turns = [time_cuda(rotating(f), iters)
+                 for f in (old_fn, new, new, old_fn)]
+        dev_new = device_ms(rotating(new), iters, (kernel,))[0]
+        dev_old = device_ms(rotating(old_fn), iters, (kernel,))[0]
+        q_new = time_queued(rotating(new), iters)
+        q_old = time_queued(rotating(old_fn), iters)
+        print(f"{w}x{h}: kernel {name} against the parent ({parent}), equal "
+              f"values; by events parent, this, this, parent: "
+              + ", ".join(f"{t:.4f}" for t in turns)
+              + f" ms; on the card this {ms_text(dev_new)}, parent "
+              f"{ms_text(dev_old)}; host hidden this {ms_text(q_new)}, "
+              f"parent {ms_text(q_old)}")
+
+    def report(name, w, h, t, plain_ms, bnd):
+        print(f"{w}x{h} on {card}: kernel {name} {times_text(t)} (plain "
+              f"{plain_ms:.4f} ms); bound {bnd[0]:.6f} ms by {bnd[1]}, "
+              f"{bnd[0] / t[0]:.2%} of it reached by events, "
+              f"{share_text(bnd[0], t[1])} on the card, "
+              f"{share_text(bnd[0], t[2])} with the host hidden")
+
+    for w, h in CLEAR_TIMED:
+        m = w * h
+        iters = 200 if m <= n else 100
+        fd = lambda m=m: clear._clear_cuda(m, CLEAR_VALUE, dev)  # noqa: E731
+        d_t = fill_times(fd, iters, "clear_kernel")
+        d_plain = time_cuda(rotating(lambda m=m: clear._clear_plain(
+            m, CLEAR_VALUE, dev)), iters)
+        report("D", w, h, d_t, d_plain, bound(0, 4 * m))
+        if old:
+            in_turns("D", w, h, fd, lambda m=m: old[0](m, dev),
+                     "clear_kernel", iters)
     timed = {}
     for w, h in sizes[:2]:
         m = w * h
@@ -2516,14 +2603,10 @@ def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
             m, dev)), plain_iters)
         j_plain = time_cuda(rotating(lambda w=w, h=h: blob._blob_plain(
             w, h, times[1], dev)), plain_iters)
-        i_bound = bound(GRADIENT_OPS * (m // 6), 8 * m)
-        j_bound = bound(BLOB_OPS * m + BLOB_ROW_OPS * h, 8 * m + 4)
+        i_bound = bound(GRADIENT_OPS * (m // 6), 4 * m)
+        j_bound = bound(BLOB_OPS * m + BLOB_ROW_OPS * h, 4 * m + 4)
         timed[(w, h)] = (i_t, jt_t, i_plain, j_plain, i_bound, j_bound)
-        print(f"{w}x{h} on {card}: kernel I {times_text(i_t)} (plain "
-              f"{i_plain:.4f} ms); bound {i_bound[0]:.6f} ms by "
-              f"{i_bound[1]}, {i_bound[0] / i_t[0]:.2%} of it reached by "
-              f"events, {share_text(i_bound[0], i_t[1])} on the card, "
-              f"{share_text(i_bound[0], i_t[2])} with the host hidden")
+        report("I", w, h, i_t, i_plain, i_bound)
         print(f"{w}x{h} on {card}: kernel J, float time, {times_text(jf_t)}"
               f"; device tensor time, {times_text(jt_t)} (plain "
               f"{j_plain:.4f} ms); bound {j_bound[0]:.6f} ms by {j_bound[1]}"
@@ -2531,27 +2614,14 @@ def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
               f"{share_text(j_bound[0], jt_t[1])} on the card, "
               f"{share_text(j_bound[0], jt_t[2])} with the host hidden "
               f"(float time {share_text(j_bound[0], jf_t[2])})")
-        if parent is None:
-            continue
-        check(torch.equal(fi(), old_i(m, dev)),
-              f"kernel I differs from the parent's at {w}x{h}")
-        check(torch.equal(fjt(), old_j(w, h, times[1], dev)),
-              f"kernel J differs from the parent's at {w}x{h}")
-        for name, new, old, kernel in (
-                ("I", fi, lambda m=m: old_i(m, dev), "gradient_kernel"),
-                ("J", fjt, lambda w=w, h=h: old_j(w, h, times[1], dev),
-                 "blob_kernel")):
-            turns = [time_cuda(rotating(f), iters)
-                     for f in (old, new, new, old)]
-            dev_new = device_ms(rotating(new), iters, (kernel,))[0]
-            dev_old = device_ms(rotating(old), iters, (kernel,))[0]
-            print(f"{w}x{h}: kernel {name} against the parent ({parent}), "
-                  f"equal outputs; by events parent, this, this, parent: "
-                  + ", ".join(f"{t:.4f}" for t in turns)
-                  + f" ms; on the card this {ms_text(dev_new)}, parent "
-                  f"{ms_text(dev_old)}")
+        if old:
+            in_turns("I", w, h, fi, lambda m=m: old[1](m, dev),
+                     "gradient_kernel", iters)
+            in_turns("J", w, h, fjt,
+                     lambda w=w, h=h: old[2](w, h, times[1], dev),
+                     "blob_kernel", iters)
     if parent is None:
-        print("parent's kernels I and J: not timed (no --parent)")
+        print("parent's kernels D, I and J: not timed (no --parent)")
     clock.done("24 (config 1 timing)")
     src = "raytracercuda_torch/csrc/frame.cu"
     i_t, j_t, i_plain, j_plain, i_bound, j_bound = timed[(size, size)]
@@ -2560,8 +2630,8 @@ def fill_path(dev, clock, card, size=C1_SIZE, sizes=FILL_SIZES,
                       launches["gradient"], 0.0, i_t[0], i_plain, i_bound,
                       device_ms=i_t[1]),
         kernel_record("blob", src, "raytracercuda_tpu/ops/blob.py:66",
-                      launches["blob"], float(j_err), j_t[0], j_plain,
-                      j_bound, device_ms=j_t[1]),
+                      launches["blob"], 0.0, j_t[0], j_plain, j_bound,
+                      device_ms=j_t[1]),
     ], launches["clear"]
 
 
@@ -2732,18 +2802,20 @@ def app_path(dev, clock, card, size=APP_SIZE, faces=C2_SUZANNE, frames=3,
             done = fly.run_loop(
                 scene, cam, rts, state, events, FLY_FRAMES, None,
                 on_frame=lambda f, s, i, buf: seen.append(
-                    (i, float((buf != 255 << 8).mean()))))
+                    (i, float((buf != 255 << 8).mean()), buf.dtype)))
             sync()
         finally:
             rec_e.restore()
         fly_launches = bruteforce.launch_counts["brute"]
         brute_calls_err(rec_e.calls["_brute_cuda"], "fly loop")
         print(f"fly loop: {done} frames, render targets "
-              f"{[i for i, _ in seen]}, hit shares "
-              f"{[round(s, 4) for _, s in seen]}, {fly_launches} launches "
+              f"{[i for i, _, _ in seen]}, hit shares "
+              f"{[round(s, 4) for _, s, _ in seen]}, {fly_launches} launches "
               f"of E, eye {state.pos.tolist()}")
         check(done == FLY_FRAMES, f"fly loop rendered {done} frames")
-        check([i for i, _ in seen] == [1, 2, 0, 1][:FLY_FRAMES],
+        check(all(d == np.uint32 for _, _, d in seen),
+              f"fly loop: frames of {[d for _, _, d in seen]}, not uint32")
+        check([i for i, _, _ in seen] == [1, 2, 0, 1][:FLY_FRAMES],
               "fly loop: render-target rotation")
         check(fly_launches >= FLY_FRAMES, "fly loop: kernel E not launched")
         check(not any(r.locked for r in rts), "fly loop left a target locked")
@@ -2961,10 +3033,10 @@ def chase_ns(dev, rows: int, steps: int = CHASE_STEPS) -> float:
     return time_cuda(lambda: run(steps), 3) * 1e6 / steps
 
 
-def parent_library(tree: str):
-    """The kernel library of the tree ``tree`` (an unpacked parent commit):
-    its own `ops/cuda_build.py`, loaded under another name, builds its own
-    sources into its own `_build/`."""
+def parent_build(tree: str):
+    """The `ops/cuda_build.py` module of the tree ``tree`` (an unpacked
+    parent commit), loaded under another name: its `load_library` builds
+    the parent's own sources into its own `_build/`."""
     import importlib.util
 
     path = os.path.join(tree, "raytracercuda_torch", "ops", "cuda_build.py")
@@ -2972,7 +3044,7 @@ def parent_library(tree: str):
     spec = importlib.util.spec_from_file_location("parent_cuda_build", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.load_library()
+    return mod
 
 
 def parent_grid_fn(lib):
@@ -3277,6 +3349,7 @@ def bvh_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
           "trace_scene on the default structure")
     read("beam")
     api_frame = target.buffer.clone()
+    frame_bits(api_frame, "API frame")
     with PlainOnCard(plain_all):
         check(cam.trace_scene(eye2, orient2, scene2, target) == 0,
               "trace_scene on the plain versions")
@@ -3724,6 +3797,7 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
           "trace_scene on GRID")
     read("Camera.trace_scene")
     api_frame = target.buffer.clone()
+    frame_bits(api_frame, "API frame")
     with PlainOnCard(plain_all):
         check(cam.trace_scene(eye2, orient2, scene2, target) == 0,
               "trace_scene on GRID, plain versions")
@@ -3803,7 +3877,7 @@ def grid_path(dev, clock, card, data, eye, orient, rays, size=SIZE,
           + "; ".join(f"{name} {ev:.4f}, {ms_text(dv)}"
                       for name, (ev, dv) in variants.items()))
     if parent is not None:
-        old_fn = parent_grid_fn(parent_library(parent))
+        old_fn = parent_grid_fn(parent_build(parent).load_library())
         closest_err(fn(), old_fn(*m_args), "kernel M against the parent")
         turns = [time_cuda(lambda: f(*m_args), 20)
                  for f in (old_fn, grid_march._march_cuda,
@@ -4473,6 +4547,7 @@ def main() -> None:
     check(launches["primary_shade"] > 0, "kernel A never launched")
     check(launches["occlusion"] > 0, "kernel B never launched")
     check(tuple(frame.shape) == (SIZE * SIZE,), f"frame shape {frame.shape}")
+    frame_bits(frame, "bench frame")
     a_args = rec.calls["_primary_shade_cuda"][-1]
     b_args = rec.calls["_occlusion_cuda"][-1]
     lists = a_args[0]
@@ -4515,9 +4590,7 @@ def main() -> None:
         torch.cuda.synchronize()
         plain_ms = time_cuda(lambda: renderer.render(eye, orient, rays),
                              FRAMES)
-    chan = [((frame >> s) & 0xFF) - ((plain_frame >> s) & 0xFF)
-            for s in (16, 8, 0)]
-    worst = max(int(c.abs().max()) for c in chan)
+    worst = u8_diff(frame, plain_frame)
     check(worst <= 1, f"kernel frame vs plain frame: u8 diff {worst}")
     background = (0 << 16) | (255 << 8) | 0
     n_hit_px = int((frame != background).sum())

@@ -14,29 +14,33 @@
 //   value or read from device memory (a new time neither rebuilds nor
 //   syncs the host).
 //
-// The port keeps packed pixels in int64 (torch has little uint32 support),
-// so each element is the u32 value zero-extended to 64 bits: 0xFF00FF00
-// stays 4278255360, not a negative number.
+// Packed pixels are 32 bits, the JAX package's uint32 (`ops/math.py`
+// hands them out as a torch.uint32 tensor): 0xFF00FF00 is 4278255360.
 //
-// What bounds them on the H100: the store bandwidth, 8 bytes per pixel (a
-// 256x256 frame is 512 KB, about 0.16 us at 3.35 TB/s, so at that size the
-// launch itself dominates; 1920x1080 is 16.6 MB, 4.95 us).  J's ~44 FP32
-// operations per pixel, two IEEE divisions and a square root among them,
-// come near that in issued instructions, so J spends none on index
-// arithmetic.  The designs:
-//   D stores two pixels (16 bytes) per thread per step over a grid sized
-//     to the card (`launch.cuh`).
+// What bounds them on the H100: the store bandwidth, 4 bytes per pixel (a
+// 256x256 frame is 256 KB, about 0.08 us at 3.35 TB/s, so at that size the
+// launch itself dominates; 1920x1080 is 8.3 MB, 2.48 us).  D and I run
+// near that bound; J does not: its ~44 FP32 operations per pixel, two
+// IEEE divisions and a square root among them, issue as several
+// instructions each, and at 4 bytes a pixel those, not its stores, set
+// its time (PERF.md section 6), so it spends none on index arithmetic.
+// The designs:
+//   D stores four pixels (16 bytes) per thread per step over a grid sized
+//     to the card (`launch.cuh`); the first n % 4 threads store the tail.
 //   I works band-major: a thread takes a ramp position k of [0, block),
 //     computes its colour c(k) once (the one division) and stores it into
-//     the six bands at b*block + k, so a warp writes six coalesced runs;
-//     the tail past band 5 is zero.  Indices are 32-bit below 2^31 pixels.
-//   J launches a block per (row, chunk of pixel pairs): ux and uy come from
-//     the column and row, with no integer division, and each thread stores
-//     its pair with one 16-byte store (a pair starts at an even index, so
-//     an odd width leaves one pixel a row alone); the block's first thread
-//     takes sin and cos of the time and shares them.  Both choices measured
-//     faster at 1920x1080 than two 8-byte stores and a sin and cos a thread
-//     (PERF.md section 6).
+//     the six bands at b*block + k, so a warp writes six coalesced runs of
+//     128 bytes; the tail past band 5 is zero.  (Four consecutive k a
+//     thread with 16-byte stores, where block % 4 == 0, measured no faster
+//     at 1920x1080: PERF.md section 6.)  Indices are 32-bit below 2^31
+//     pixels.
+//   J launches a block per (row, chunk of four-pixel groups): ux and uy
+//     come from the column and row, with no integer division.  A thread
+//     computes the four pixels from column 4q and stores them with one
+//     16-byte store where every row starts 16-byte aligned (w % 4 == 0),
+//     else with a 4-byte store each up to the row's end.  The block's first
+//     thread takes sin and cos of the time and shares them (measured faster
+//     than a sin and cos a thread, PERF.md section 6).
 // The wrappers take the lean host path (`cuda_build.kernel_fn`,
 // `raw_stream`), since at 256x256 the call is the cost.  The library is
 // built with -fmad=false and IEEE division and square root, and J calls
@@ -50,34 +54,37 @@
 
 namespace {
 
-// out[0, n) = value: 16-byte stores of two pixels over the pairs (`out`
-// is 16-byte aligned), the odd last pixel by the first thread.
-__global__ void clear_kernel(long long* __restrict__ out, long long n,
+// out[0, n) = value: 16-byte stores of four pixels over the quads (`out`
+// is 16-byte aligned), the last n % 4 pixels by the first threads.
+__global__ void clear_kernel(unsigned int* __restrict__ out, long long n,
                              unsigned int value) {
-  const long long v = static_cast<long long>(value);
-  const longlong2 vv = make_longlong2(v, v);
-  const long long pairs = n / 2;
-  longlong2* out2 = reinterpret_cast<longlong2*>(out);
-  for (long long i = rt::thread_index(); i < pairs; i += rt::thread_count())
-    out2[i] = vv;
-  if ((n & 1) && rt::thread_index() == 0) out[n - 1] = v;
+  const uint4 vv = make_uint4(value, value, value, value);
+  const long long quads = n / 4;
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  for (long long i = rt::thread_index(); i < quads; i += rt::thread_count())
+    out4[i] = vv;
+  if (rt::thread_index() < (n & 3)) out[4 * quads + rt::thread_index()] = value;
+}
+
+// c(k) of `Gradient.cu:8-40`: u32(255 * (float(k) / block)).
+__device__ __forceinline__ unsigned int ramp(float k, float fblock) {
+  return static_cast<unsigned int>(static_cast<int>(k / fblock * 255.0f));
 }
 
 // I (`Gradient.cu:8-40`: block = size / 6; pixel i is band i / block at
-// c = u32(255 * (float(i % block) / block)); past band 5, 0), band-major:
-// k runs over [0, block), out[b*block + k] = band b's colour of c(k).
-// `Index` is int when size < 2^31, else long long.
+// c = ramp(i % block); past band 5, 0), band-major: k runs over [0, block),
+// out[b*block + k] = band b's colour of c(k).  `Index` is int when size <
+// 2^31, else long long.
 template <typename Index>
-__global__ void gradient_kernel(long long* __restrict__ out, Index size,
+__global__ void gradient_kernel(unsigned int* __restrict__ out, Index size,
                                 Index block) {
   const float fblock = static_cast<float>(block);
   const Index first = static_cast<Index>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const Index stride = static_cast<Index>(gridDim.x) * blockDim.x;
   for (Index k = first; k < block; k += stride) {
-    const long long c = static_cast<long long>(static_cast<int>(
-        static_cast<float>(k) / fblock * 255.0f));
-    long long* p = out + k;
+    const unsigned int c = ramp(static_cast<float>(k), fblock);
+    unsigned int* p = out + k;
     p[0] = c << 16;
     p[block] = c << 8;
     p[2 * block] = c;
@@ -96,8 +103,8 @@ __device__ __forceinline__ unsigned int to_u8(float x) {
 
 // One pixel of `Blob.cu:27-58`, in `blob.py:blob_values`' operation order;
 // s_uy = s * uy and c_uy = c * uy are the row's.
-__device__ __forceinline__ long long blob_pixel(float ux, float s, float c,
-                                                float s_uy, float c_uy) {
+__device__ __forceinline__ unsigned int blob_pixel(float ux, float s, float c,
+                                                   float s_uy, float c_uy) {
   const float rx = c * ux - s_uy;
   const float ry = (s * ux + c_uy) * 2.0f;
   // Rounded square of half-size 100 (`Blob.cu:5-11`).
@@ -117,18 +124,19 @@ __device__ __forceinline__ long long blob_pixel(float ux, float s, float c,
   const float mr = bg * keep + 1.0f * f;
   const float mg = bg * keep;
   const unsigned int g = to_u8(mg);
-  return static_cast<long long>((to_u8(mr) << 16) | (g << 8) | g);
+  return (to_u8(mr) << 16) | (g << 8) | g;
 }
 
-// J: block (x, y) takes pixel pairs [x*blockDim.x, (x+1)*blockDim.x) of
-// rows y, y + gridDim.y, ...  Pixel row*w + col has ux = col - w/2 and
-// uy = row - h/2 (`blob_values`' i % w and i / w).  A pair starts at an
-// even index (`out` is 16-byte aligned) and is one 16-byte store, so a row
-// starting at an odd index (odd row, odd width) pairs from column 1; an
-// odd width leaves one pixel a row, column 0 or w - 1, to the row's first
-// thread.  The block's first thread takes sin and cos of the time
-// (`time[0]`, or `time_value` when `time` is null) and shares them.
-__global__ void blob_kernel(long long* __restrict__ out, int w, int h,
+// J: block (x, y) takes four-pixel groups [x*blockDim.x, (x+1)*blockDim.x)
+// of rows y, y + gridDim.y, ...  Pixel row*w + col has ux = col - w/2 and
+// uy = row - h/2 (`blob_values`' i % w and i / w).  Thread q computes
+// columns 4q .. 4q + 3; with kVector (w % 4 == 0: every row starts 16-byte
+// aligned, as `out` does) it stores them with one 16-byte store, else it
+// stores those below w one by one.  The block's first thread takes sin
+// and cos of the time (`time[0]`, or `time_value` when `time` is null) and
+// shares them.
+template <bool kVector>
+__global__ void blob_kernel(unsigned int* __restrict__ out, int w, int h,
                             const float* __restrict__ time,
                             float time_value) {
   __shared__ float sc[2];
@@ -138,29 +146,28 @@ __global__ void blob_kernel(long long* __restrict__ out, int w, int h,
     sc[1] = cosf(tm);
   }
   __syncthreads();
+  const int col = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (col >= w) return;
   const float s = sc[0];
   const float c = sc[1];
   const float half_w = static_cast<float>(w / 2);
   const float half_h = static_cast<float>(h / 2);
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const float ux = static_cast<float>(col) - half_w;
   for (int row = blockIdx.y; row < h; row += gridDim.y) {
-    long long* line = out + static_cast<long long>(row) * w;
+    unsigned int* line = out + static_cast<long long>(row) * w + col;
     const float uy = static_cast<float>(row) - half_h;
     const float s_uy = s * uy;
     const float c_uy = c * uy;
-    const int head = row & w & 1;  // row * w is odd
-    if (q < (w - head) / 2) {
-      const int col = head + 2 * q;
-      const long long a = blob_pixel(static_cast<float>(col) - half_w, s, c,
-                                     s_uy, c_uy);
-      const long long b = blob_pixel(static_cast<float>(col + 1) - half_w,
-                                     s, c, s_uy, c_uy);
-      *reinterpret_cast<longlong2*>(line + col) = make_longlong2(a, b);
-    }
-    if ((w & 1) && q == 0) {
-      const int col = head ? 0 : w - 1;
-      line[col] = blob_pixel(static_cast<float>(col) - half_w, s, c, s_uy,
-                             c_uy);
+    unsigned int px[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      px[j] = blob_pixel(ux + static_cast<float>(j), s, c, s_uy, c_uy);
+    if (kVector) {
+      *reinterpret_cast<uint4*>(line) = make_uint4(px[0], px[1], px[2], px[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < w) line[j] = px[j];
     }
   }
 }
@@ -172,15 +179,16 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch (0 on success).
 
 // `out` must be 16-byte aligned.
-int rt_clear(long long* out, long long n, unsigned int value, void* stream) {
+int rt_clear(unsigned int* out, long long n, unsigned int value,
+             void* stream) {
   if (n == 0) return 0;
-  clear_kernel<<<rt::card_grid(n / 2), rt::kThreads, 0,
+  clear_kernel<<<rt::card_grid(n / 4), rt::kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(out, n, value);
   return static_cast<int>(cudaGetLastError());
 }
 
 // size >= 6 (the wrapper raises below that: block would be 0).
-int rt_gradient(long long* out, long long size, void* stream) {
+int rt_gradient(unsigned int* out, long long size, void* stream) {
   if (size == 0) return 0;
   const long long block = size / 6;
   const int grid = rt::card_grid(block);
@@ -190,25 +198,26 @@ int rt_gradient(long long* out, long long size, void* stream) {
         out, static_cast<int>(size), static_cast<int>(block));
   } else {
     gradient_kernel<long long><<<grid, rt::kThreads, 0, s>>>(out, size,
-                                                              block);
+                                                             block);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // `out` must be 16-byte aligned.  The time is `time[0]` on the device, or
 // `time_value` when `time` is null.
-int rt_blob(long long* out, int w, int h, const float* time,
+int rt_blob(unsigned int* out, int w, int h, const float* time,
             float time_value, void* stream) {
   if (w <= 0 || h <= 0) return 0;
-  const int pairs = w / 2;  // most pairs a row
-  int threads = (pairs + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : threads > rt::kThreads ? rt::kThreads
-                                                       : threads;
-  const dim3 grid((pairs + threads - 1) / threads > 0
-                      ? (pairs + threads - 1) / threads : 1,
-                  h < 65535 ? h : 65535);
-  blob_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, w, h, time, time_value);
+  const int groups = (w + 3) / 4;  // four-pixel groups a row
+  int threads = (groups + 31) / 32 * 32;
+  threads = threads > rt::kThreads ? rt::kThreads : threads;
+  const dim3 grid((groups + threads - 1) / threads, h < 65535 ? h : 65535);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w % 4 == 0) {
+    blob_kernel<true><<<grid, threads, 0, s>>>(out, w, h, time, time_value);
+  } else {
+    blob_kernel<false><<<grid, threads, 0, s>>>(out, w, h, time, time_value);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

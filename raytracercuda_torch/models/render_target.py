@@ -3,8 +3,8 @@
 
 The reference maps an OpenGL buffer with lock/unlock and keeps a
 process-global current target (`RenderTarget.cpp:53-91`).  Here the
-target is an int64 tensor of packed u32 pixels on one device; lock and
-unlock keep the reference's state machine and error codes, and the
+target is a ``torch.uint32`` tensor of packed pixels on one device; lock
+and unlock keep the reference's state machine and error codes, and the
 class-level current target stands for ``RenderTarget::get()``.
 """
 
@@ -27,8 +27,8 @@ class RenderTarget:
         self.height = int(height)
         self.pitch = self.width * 4  # bytes per row, RGBA8 as in the GL TBO
         self.device = resolve_device(device)
-        self.buffer = torch.zeros(self.width * self.height, dtype=torch.int64,
-                                  device=self.device)
+        self.buffer = torch.zeros(self.width * self.height,
+                                  dtype=torch.uint32, device=self.device)
         self._locked = False
 
     @staticmethod

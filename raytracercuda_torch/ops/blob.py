@@ -8,7 +8,8 @@ vignetted white background.  The time is a runtime value: kernel J
 a float time by value, or reads a one-element float32 tensor on the card
 in place, so a new time neither rebuilds, copies nor syncs the host; both
 forms are ``float32(time)``.  The kernel computes each pixel from its row
-and column, two pixels a thread.  `blob` runs the plain PyTorch version for
+and column, four pixels a thread.  Packed pixels are uint32, as in
+`ops/math.py`.  `blob` runs the plain PyTorch version for
 the CPU and launches kernel J on a GPU; there is no fallback from one to
 the other.
 """
@@ -47,7 +48,7 @@ def _smoothstep(e0, e1, x):
 
 def blob_values(i: torch.Tensor, w: int, h: int,
                 time: torch.Tensor) -> torch.Tensor:
-    """Packed pixels (int64) for linear indices ``i`` at ``time`` (a
+    """Packed pixels (uint32) for linear indices ``i`` at ``time`` (a
     float32 tensor of one element) (`Blob.cu:27-58`)."""
     size = w * h
     i = torch.clamp(i, max=size)
@@ -92,7 +93,7 @@ def _blob_cuda(width: int, height: int, time, device) -> torch.Tensor:
         ptr, value, device = time.data_ptr(), 0.0, time.device
     else:
         ptr, value = None, time
-    out = torch.empty(width * height, dtype=torch.int64, device=device)
+    out = torch.empty(width * height, dtype=torch.uint32, device=device)
     err = kernel_fn("rt_blob")(out.data_ptr(), width, height, ptr, value,
                                raw_stream(device))
     if err:
@@ -103,7 +104,7 @@ def _blob_cuda(width: int, height: int, time, device) -> torch.Tensor:
 
 def blob(width: int, height: int, time,
          device: torch.device | str | None = None) -> torch.Tensor:
-    """``bmStartBlob``: the ``[width*height]`` int64 frame at ``time`` on
+    """``bmStartBlob``: the ``[width*height]`` uint32 frame at ``time`` on
     ``device`` (the card when None).  ``time`` is a float, passed to the
     kernel by value as float32, or a tensor of one element, used in place
     when it is float32 on the device already."""

@@ -1,12 +1,11 @@
 """Framebuffer clear, kernel D (counterpart of
 `raytracercuda_tpu/ops/clear.py`).
 
-Fills a packed framebuffer with one u32 value.  The port carries packed
-pixels in int64 (`ops/math.py`), so the value is zero-extended: 0xFF00FF00
-reads back as 0xFF00FF00.  `clear_buffer` runs its plain PyTorch version
-(`torch.full`) for the CPU and launches kernel D (`csrc/frame.cu:
-clear_kernel`, replacing `clear._clear_kernel`) on a GPU; there is no
-fallback from one to the other.
+Fills a packed ``torch.uint32`` framebuffer (`ops/math.py`) with one u32
+value: 0xFF00FF00 reads back as 0xFF00FF00.  `clear_buffer` runs its plain
+PyTorch version (`torch.full`) for the CPU and launches kernel D
+(`csrc/frame.cu:clear_kernel`, replacing `clear._clear_kernel`) on a GPU;
+there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -26,14 +25,14 @@ def reset_launch_counts() -> None:
 
 
 def _clear_plain(num_pixels: int, value: int, device) -> torch.Tensor:
-    return torch.full((num_pixels,), value, dtype=torch.int64, device=device)
+    return torch.full((num_pixels,), value, dtype=torch.uint32, device=device)
 
 
 def _clear_cuda(num_pixels: int, value: int, device) -> torch.Tensor:
     """Launch kernel D; output as in `_clear_plain`."""
     if device.type != "cuda":
         raise ValueError(f"kernel D writes a CUDA tensor, not one on {device}")
-    out = torch.empty(num_pixels, dtype=torch.int64, device=device)
+    out = torch.empty(num_pixels, dtype=torch.uint32, device=device)
     err = kernel_fn("rt_clear")(out.data_ptr(), num_pixels, value,
                                 raw_stream(device))
     if err:
@@ -44,7 +43,7 @@ def _clear_cuda(num_pixels: int, value: int, device) -> torch.Tensor:
 
 def clear_buffer(num_pixels: int, value: int,
                  device: torch.device | str | None = None) -> torch.Tensor:
-    """A ``[num_pixels]`` int64 framebuffer of the u32 ``value`` on
+    """A ``[num_pixels]`` uint32 framebuffer of the u32 ``value`` on
     ``device`` (the card when None)."""
     device = resolve_device(device)
     value = int(value) & 0xFFFFFFFF  # the JAX package's uint32 cast

@@ -128,6 +128,10 @@ SIGNATURES = {
                       _I, _I, _I, _F, _P, _P, _P, _P, _P),
 }
 
+#: Bytes a pixel of the packed frames that `rt_clear`, `rt_gradient` and
+#: `rt_blob` write: uint32, as `ops/math.py` hands frames out.
+PIXEL_BYTES = 4
+
 
 @functools.cache
 def load_library() -> ctypes.CDLL:

@@ -1,8 +1,10 @@
 """Vectorized device math on torch tensors (counterpart of
 `raytracercuda_tpu/ops/math.py`).
 
-Packed colours are carried in int64: torch has little uint32 support, and
-``0x00RRGGBB`` fits exactly.  The bit pattern equals the JAX package's u32.
+Packed ``0x00RRGGBB`` colours are ``torch.uint32``, 4 bytes a pixel, as the
+JAX package's.  torch has little uint32 arithmetic (no shifts, no indexed
+writes), so the packing is done on ``torch.int32``, which holds the same
+bits, and the result is handed out as its free ``.view(torch.uint32)``.
 """
 
 from __future__ import annotations
@@ -12,31 +14,44 @@ import torch
 from ..types import FLT_MAX
 
 
+def as_u32(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> the packed ``torch.uint32`` frame (a view)."""
+    return bits.view(torch.uint32)
+
+
+def as_bits(packed: torch.Tensor) -> torch.Tensor:
+    """A packed ``torch.uint32`` frame -> its int32 bits (a view), for the
+    arithmetic that uint32 lacks."""
+    return packed.view(torch.int32)
+
+
 def _to_u8(x: torch.Tensor) -> torch.Tensor:
     # Clip, then truncate toward zero through int32 (the CUDA reference's
-    # u32 cast of a clamped value), widened to int64 for the shifts.
-    return torch.clamp(x, 0.0, 255.0).to(torch.int32).to(torch.int64)
+    # u32 cast of a clamped value).
+    return torch.clamp(x, 0.0, 255.0).to(torch.int32)
 
 
 def pack_rgb(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """float [0,1] channels -> packed ``0x00RRGGBB`` (int64)."""
-    return (_to_u8(r * 255.0) << 16) | (_to_u8(g * 255.0) << 8) | _to_u8(b * 255.0)
+    """float [0,1] channels -> packed ``0x00RRGGBB`` (uint32)."""
+    return as_u32((_to_u8(r * 255.0) << 16) | (_to_u8(g * 255.0) << 8)
+                  | _to_u8(b * 255.0))
 
 
 def pack_rgb_vec(v: torch.Tensor) -> torch.Tensor:
-    """``[..., 3]`` float RGB -> packed ``0x00RRGGBB`` (int64)."""
+    """``[..., 3]`` float RGB -> packed ``0x00RRGGBB`` (uint32)."""
     return pack_rgb(v[..., 0], v[..., 1], v[..., 2])
 
 
 def pack_gray(r: torch.Tensor) -> torch.Tensor:
-    """One float channel -> packed gray ``0x00RRGGBB`` (int64)."""
+    """One float channel -> packed gray ``0x00RRGGBB`` (uint32)."""
     ru = _to_u8(r * 255.0)
-    return (ru << 16) | (ru << 8) | ru
+    return as_u32((ru << 16) | (ru << 8) | ru)
 
 
 def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
-    """Packed colour -> float ``[...,3]`` RGB in [0,1]."""
-    p = packed.to(torch.int64)
+    """Packed colour (uint32, or any integer tensor of the same bits) ->
+    float ``[...,3]`` RGB in [0,1]."""
+    p = as_bits(packed) if packed.dtype == torch.uint32 else packed
     r = ((p >> 16) & 0xFF).to(torch.float32) / 255.0
     g = ((p >> 8) & 0xFF).to(torch.float32) / 255.0
     b = (p & 0xFF).to(torch.float32) / 255.0

@@ -183,7 +183,7 @@ class FrameRenderer:
 
     def render(self, eye: torch.Tensor, orient: torch.Tensor,
                rays: torch.Tensor) -> torch.Tensor:
-        """Packed ``0x00RRGGBB`` row-major framebuffer ``[H*W]`` (int64)
+        """Packed ``0x00RRGGBB`` row-major framebuffer ``[H*W]`` (uint32)
         for one camera pose.  ``rays``: the pinhole ray grid
         (`camera_ray_grid`), row-major ``[H*W, 3]``; all on the scene's
         device."""

@@ -13,7 +13,7 @@ import torch
 
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.interpolate import face_interpolate
-from ..ops.math import normalize, pack_rgb
+from ..ops.math import as_u32, normalize, pack_rgb
 from ..types import Hit
 
 #: The miss colour ``255 << 8`` of the packed normal shader.
@@ -26,12 +26,12 @@ def interpolate_slot(scene, hit: Hit, slot: int) -> torch.Tensor:
 
 
 def shade_normal_packed(scene, hit: Hit) -> torch.Tensor:
-    """Bit-parity normal shading -> packed framebuffer values (int64):
+    """Bit-parity normal shading -> packed framebuffer values (uint32):
     ``|n.z * 255|`` truncated toward zero in the red channel on hits,
     ``255 << 8`` on misses (`BuildTree.cu:486-496`)."""
     n = normalize(interpolate_slot(scene, hit, VERTEX_DATA_NORMAL), eps=1e-30)
-    red = (n[..., 2] * 255.0).abs().to(torch.int64) << 16
-    return torch.where(hit.hit_mask, red, MISS_COLOR_PACKED)
+    red = (n[..., 2] * 255.0).abs().to(torch.int32) << 16
+    return as_u32(torch.where(hit.hit_mask, red, MISS_COLOR_PACKED))
 
 
 def shade_normal_rgb(scene, hit: Hit, background=(0.0, 1.0, 0.0)):
@@ -157,5 +157,5 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
 
 
 def pack_shaded(rgb: torch.Tensor) -> torch.Tensor:
-    """Float RGB ``[..., 3]`` -> packed ``0x00RRGGBB`` (int64)."""
+    """Float RGB ``[..., 3]`` -> packed ``0x00RRGGBB`` (uint32)."""
     return pack_rgb(rgb[..., 0], rgb[..., 1], rgb[..., 2])

@@ -18,6 +18,10 @@ from .device import resolve_device
 # as in the JAX package, so that it mixes with tensors of any device.
 FLT_MAX = np.float32(3.4028234663852886e38)
 
+# Sentinel for "no face" / invalid index, as in the JAX package.
+INVALID_U32 = np.uint32(0xFFFFFFFF)
+INVALID_I32 = np.int32(-1)
+
 
 class Rays(NamedTuple):
     """A bundle of rays: ``origin`` and ``direction`` float32 ``[..., 3]``

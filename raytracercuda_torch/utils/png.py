@@ -3,7 +3,7 @@
 
 The reference displays frames through a CUDA-mapped OpenGL buffer
 (`Raytracer/GLinterop.h`).  Here the framebuffer is copied to the host and
-written as a PNG.  Packed pixels may come as int64 tensors on any device
+written as a PNG.  Packed pixels may come as uint32 tensors on any device
 (the port's framebuffers) or as numpy arrays.
 """
 
@@ -19,7 +19,7 @@ import torch
 def _host_u32(packed) -> np.ndarray:
     if isinstance(packed, torch.Tensor):
         packed = packed.detach().cpu().numpy()
-    return np.asarray(packed).astype(np.uint32)
+    return np.asarray(packed, np.uint32)
 
 
 def packed_to_rgb8(packed) -> np.ndarray:

@@ -75,9 +75,10 @@ def test_clear_buffer_matches_jax(num_pixels):
     tclear.reset_launch_counts()
     got = tclear.clear_buffer(num_pixels, value, "cpu")
     assert tclear.launch_counts["clear"] == 0  # CPU: the plain version
-    assert got.dtype == torch.int64 and got.shape == (num_pixels,)
-    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
-    assert (got == 0xFF00FF00).all()  # above 2^31, still positive
+    assert got.dtype == torch.uint32 and got.shape == (num_pixels,)
+    assert got.numpy().dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got == 0xFF00FF00).all()  # above 2^31, unsigned
 
 
 def test_clear_kernel_wrapper_rejects_cpu():
@@ -185,7 +186,9 @@ def march_codes(pkg):
              cam.trace_scene(np.zeros(3), np.eye(3), None, None)]
     rt = pkg.RenderTarget.create(8, 8, **kw)
     codes.append(cam.trace_scene(np.zeros(3), np.eye(3), s, rt))
-    return codes, np.asarray(rt.image()).astype(np.int64)
+    img = np.asarray(rt.image())
+    assert img.dtype == np.uint32
+    return codes, img
 
 
 def test_march_validation_codes_match_jax():
@@ -239,7 +242,9 @@ def api_frame(pkg, scene, height, width, orient):
     assert rt.lock() == 0
     assert cam.trace_scene(EYE, orient, scene, rt) == 0
     assert rt.unlock() == 0
-    return cam, np.asarray(rt.buffer).astype(np.int64)
+    frame = np.asarray(rt.buffer)
+    assert frame.dtype == np.uint32
+    return cam, frame
 
 
 # (accel, height, width): 24x40 is a frame the 16-pixel tile does not
@@ -333,9 +338,9 @@ def test_shading_matches_jax(kind):
     thit = Hit(t=torch.from_numpy(t), u=torch.from_numpy(u),
                v=torch.from_numpy(v), face=torch.from_numpy(face))
     # The packed normal shader: equal values.
-    want = np.asarray(jshade.shade_normal_packed(js, jhit)).astype(np.int64)
+    want = np.asarray(jshade.shade_normal_packed(js, jhit))
     got = tshade.shade_normal_packed(ts, thit)
-    assert got.dtype == torch.int64
+    assert got.dtype == torch.uint32 and want.dtype == np.uint32
     np.testing.assert_array_equal(got.numpy(), want)
     # Lambert through the face tables, with a shadow mask.
     shadow = np.random.default_rng(3).random(t.shape) < 0.3
@@ -360,6 +365,7 @@ def test_shading_matches_jax(kind):
 def test_pack_shaded_matches_jax():
     rgb = np.random.default_rng(4).uniform(-0.1, 1.1, (300, 3)).astype(
         np.float32)
-    want = np.asarray(jshade.pack_shaded(jnp.asarray(rgb))).astype(np.int64)
+    want = np.asarray(jshade.pack_shaded(jnp.asarray(rgb)))
     got = tshade.pack_shaded(torch.from_numpy(rgb))
+    assert got.dtype == torch.uint32 and want.dtype == np.uint32
     np.testing.assert_array_equal(got.numpy(), want)

@@ -238,7 +238,7 @@ def fly_run(pkg, fly, proc_quad, script_path, **kw):
     n = fly.run_loop(scene, cam, rts, state, fly._load_script(script_path),
                      max_frames=10, out_dir=None,
                      on_frame=lambda f, s, i, buf: seen.append(
-                         (f, i, np.array(buf).astype(np.int64))))
+                         (f, i, np.array(buf))))
     return n, state, rts, seen
 
 
@@ -263,6 +263,7 @@ def test_run_loop_matches_jax(tmp_path):
     assert state.pan == jstate.pan
     for (f, _, got), (jf, _, want) in zip(seen, jseen):
         assert f == jf
+        assert got.dtype == want.dtype == np.uint32
         assert_u8_close(got, want)
 
 

@@ -183,7 +183,8 @@ def test_frame_renderer_matches_jax(case):
     got = FrameRenderer(ts, tacc, tcfg, side, side, shadows=shadows).render(
         torch.zeros(3), torch.from_numpy(orient),
         camera_ray_grid(side, side, device="cpu"))
-    assert got.shape == (side * side,) and got.dtype == torch.int64
+    assert got.shape == (side * side,) and got.dtype == torch.uint32
+    assert want.dtype == np.uint32
     assert (want != want[0]).any()
     assert_u8_close(got.numpy(), want)
     if shadows:  # the shadow test darkened some pixels

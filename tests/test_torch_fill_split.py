@@ -3,16 +3,15 @@
 
 The kernels run only on the card (`chip_smoke.py` phase 23 holds them
 against their plain versions there).  Here `split_gradient` replays I's
-band-major plan thread by thread: a thread takes ramp positions ``k =
+band-major plan over a grid of threads: a thread takes ramp positions ``k =
 t, t + stride, ...`` below ``block = size // 6``, computes ``c(k)`` once
 (float32 division, then a multiply) and stores the six bands at ``b *
-block + k``; threads ``t < size - 6 * block`` zero the tail.
-`split_blob` replays J's: a block takes a chunk of pixel pairs of rows
-``y, y + grid_rows, ...``; a pair starts at an even linear index (its
-16-byte store is aligned), so a row starting at an odd index pairs from
-column 1, and an odd width leaves one pixel a row, column 0 or ``w - 1``,
-to the row's first thread; ``ux`` and ``uy`` come from the column and the
-row.  Each replay must write every pixel exactly once.
+block + k``; threads ``t < size - 6 * block`` zero the tail.  `split_blob` replays J's: a block takes a chunk of four-pixel
+groups of rows ``y, y + grid_rows, ...``; thread ``q`` computes columns
+``4q .. 4q + 3`` and stores them with one 16-byte store where ``w % 4 ==
+0`` (every row start aligned), else those below ``w`` one by one; ``ux``
+and ``uy`` come from the column and the row.  Each replay must write
+every pixel exactly once, and every 16-byte store must be aligned.
 
 Tolerances, stated per check:
 
@@ -58,9 +57,9 @@ def _time_limit():
 
 
 def ramp(k, block: int) -> np.ndarray:
-    """``c(k)``: int32(float32(k) / float32(block) * 255), as int64."""
+    """``c(k)``: int32(float32(k) / float32(block) * 255), as uint32."""
     c = np.asarray(k).astype(F32) / F32(block) * F32(255)
-    return c.astype(np.int32).astype(np.int64)
+    return c.astype(np.int32).astype(np.uint32)
 
 
 def bands(c):
@@ -70,29 +69,32 @@ def bands(c):
 
 
 def split_gradient(size: int, stride: int) -> np.ndarray:
-    """Kernel I's plan over ``stride`` threads: ``[size]`` int64 pixels,
-    each written once."""
+    """Kernel I's plan over ``stride`` threads: ``[size]`` uint32 pixels,
+    each written once.  The threads' grid-stride loops run side by side:
+    step ``i`` of thread ``t`` takes ramp position ``t + i * stride``."""
     block = size // 6
-    out = np.full(size, -1, np.int64)
+    out = np.zeros(size, np.uint32)
     writes = np.zeros(size, np.int64)
-    for t in range(stride):
-        k = np.arange(t, block, stride)
-        for b, v in enumerate(bands(ramp(k, block))):
-            out[b * block + k] = v
-            writes[b * block + k] += 1
-        if t < size - 6 * block:
-            out[6 * block + t] = 0
-            writes[6 * block + t] += 1
+    steps = -(-block // stride)
+    k = (np.arange(stride)[None, :]
+         + stride * np.arange(steps)[:, None]).reshape(-1)
+    k = k[k < block]
+    for b, v in enumerate(bands(ramp(k, block))):
+        out[b * block + k] = v
+        np.add.at(writes, b * block + k, 1)
+    tail = np.arange(min(stride, size - 6 * block))  # threads t < the tail
+    out[6 * block + tail] = 0
+    writes[6 * block + tail] += 1
     assert (writes == 1).all(), "a pixel written twice or never"
     return out
 
 
 def blob_launch(w: int, h: int) -> tuple:
-    """``rt_blob``'s launch: (threads a block, chunks of pairs a row, grid
-    rows)."""
-    pairs = w // 2
-    threads = min(max((pairs + 31) // 32 * 32, 32), THREADS)
-    return threads, max(-(-pairs // threads), 1), min(h, 65535)
+    """``rt_blob``'s launch: (threads a block, chunks of four-pixel groups
+    a row, grid rows)."""
+    groups = -(-w // 4)
+    threads = min((groups + 31) // 32 * 32, THREADS)
+    return threads, -(-groups // threads), min(h, 65535)
 
 
 def blob_pixel(ux, s, c, s_uy, c_uy):
@@ -115,41 +117,42 @@ def blob_pixel(ux, s, c, s_uy, c_uy):
 
     def u8(x):
         y = np.minimum(np.maximum(x * F32(255), F32(0)), F32(255))
-        return y.astype(np.int32).astype(np.int64)
+        return y.astype(np.int32).astype(np.uint32)
 
     return (u8(mr) << 16) | (u8(mg) << 8) | u8(mg)
 
 
 def split_blob(w: int, h: int, time: float, grid_rows=None) -> np.ndarray:
-    """Kernel J's plan: ``[w*h]`` int64 pixels, each written once; pairs
-    stored at even indices.  ``grid_rows`` overrides the launch's grid
-    rows (each block then strides over rows)."""
+    """Kernel J's plan: ``[w*h]`` uint32 pixels, each written once; a
+    group's 16-byte store (``w % 4 == 0``) at a multiple of 4.
+    ``grid_rows`` overrides the launch's grid rows (each block then strides
+    over rows)."""
     threads, chunks, rows = blob_launch(w, h)
     rows = rows if grid_rows is None else grid_rows
     tm = torch.tensor([time], dtype=torch.float32)
     s = F32(torch.sin(tm).item())  # the card's sinf/cosf in the kernel
     c = F32(torch.cos(tm).item())
     half_w, half_h = F32(w // 2), F32(h // 2)
-    out = np.full(w * h, -1, np.int64)
+    out = np.zeros(w * h, np.uint32)
     writes = np.zeros(w * h, np.int64)
-    q = np.arange(chunks * threads)  # a thread's pair of its row
+    col = 4 * np.arange(chunks * threads)  # a thread's first column
+    col = col[col < w]  # the others return
+    ux = col.astype(F32) - half_w
     for y in range(rows):
         for row in range(y, h, rows):
             base = row * w
             uy = F32(row) - half_h
             s_uy, c_uy = s * uy, c * uy
-            head = row & w & 1
-            col = head + 2 * q[q < (w - head) // 2]
-            assert ((base + col) % 2 == 0).all(), "a pair is not aligned"
-            for x in (col, col + 1):
-                out[base + x] = blob_pixel(x.astype(F32) - half_w, s, c,
-                                           s_uy, c_uy)
-                writes[base + x] += 1
-            if w & 1:  # the row's unpaired pixel, by thread q = 0
-                x = np.array([0 if head else w - 1])
-                out[base + x] = blob_pixel(x.astype(F32) - half_w, s, c,
-                                           s_uy, c_uy)
-                writes[base + x] += 1
+            if w % 4 == 0:
+                assert ((base + col) % 4 == 0).all(), "a store not aligned"
+            for j in range(4):
+                px = blob_pixel(ux + F32(j), s, c, s_uy, c_uy)
+                x = col + j
+                if w % 4 == 0:
+                    assert (x < w).all()
+                keep = x < w
+                out[base + x[keep]] = px[keep]
+                writes[base + x[keep]] += 1
     assert (writes == 1).all(), "a pixel written twice or never"
     return out
 
@@ -168,9 +171,45 @@ def test_split_gradient_matches_plain(name, stride):
     got = split_gradient(size, stride)
     plain = tgradient.gradient_values(torch.arange(size), size).numpy()
     np.testing.assert_array_equal(got, plain)
-    np.testing.assert_array_equal(got, scalar_gradient(size).astype(np.int64))
+    np.testing.assert_array_equal(got, scalar_gradient(size))
     if stride == THREADS:
-        assert_u8_close(got, np.asarray(jax_gradient(w, h)).astype(np.int64))
+        want = np.asarray(jax_gradient(w, h))
+        assert got.dtype == plain.dtype == want.dtype == np.uint32
+        assert_u8_close(got, want)
+
+
+# The sizes `chip_smoke.py` holds the kernels to: config 1's 256x256,
+# 1920x1080 and an odd 255x257 (odd pixel count, no row 16-byte aligned).
+FRAME_SIZES = {"256x256": (256, 256), "1920x1080": (1920, 1080),
+               "255x257": (255, 257)}
+
+
+@pytest.mark.parametrize("grid", ["card", "one_block"])
+@pytest.mark.parametrize("name", sorted(FRAME_SIZES))
+def test_split_gradient_frame_sizes(name, grid):
+    """I's plan at the card's sizes, over one full grid of threads
+    (`card_grid`: 132 multiprocessors, 4 blocks each, at most) and over one
+    block of threads striding over the whole band: every pixel written
+    once, equal to the plain version."""
+    w, h = FRAME_SIZES[name]
+    size = w * h
+    block = size // 6
+    stride = THREADS
+    if grid == "card":
+        stride *= min(-(-block // THREADS), 132 * 4)
+    plain = tgradient.gradient_values(torch.arange(size), size).numpy()
+    np.testing.assert_array_equal(split_gradient(size, stride), plain)
+
+
+@pytest.mark.parametrize("name", sorted(FRAME_SIZES))
+def test_split_blob_frame_sizes(name):
+    """J's plan at the card's sizes: every pixel written once, equal to
+    the plain version; 16-byte stores at 256 and 1920, one by one at 255."""
+    w, h = FRAME_SIZES[name]
+    time = torch.tensor([1.25], dtype=torch.float32)
+    np.testing.assert_array_equal(
+        split_blob(w, h, 1.25),
+        tblob.blob_values(torch.arange(w * h), w, h, time).numpy())
 
 
 def test_split_gradient_block_one():
@@ -201,7 +240,7 @@ def test_split_gradient_64bit(size):
         want.append(v)
     tail = np.arange(6 * block, size)
     idx = np.concatenate(idx + [tail])
-    want = np.concatenate(want + [np.zeros(len(tail), np.int64)])
+    want = np.concatenate(want + [np.zeros(len(tail), np.uint32)])
     assert (idx >= 2**31).any() and (idx < 2**31).any()
     assert np.isin(near, idx).all()
     got = tgradient.gradient_values(torch.from_numpy(idx), size).numpy()
@@ -223,7 +262,9 @@ def test_split_blob_matches_plain(name, t):
     time = torch.tensor([t], dtype=torch.float32)
     plain = tblob.blob_values(torch.arange(w * h), w, h, time).numpy()
     np.testing.assert_array_equal(got, plain)
-    assert_u8_close(got, np.asarray(jax_blob(w, h, t)).astype(np.int64))
+    want = np.asarray(jax_blob(w, h, t))
+    assert got.dtype == plain.dtype == want.dtype == np.uint32
+    assert_u8_close(got, want)
 
 
 @pytest.mark.parametrize("grid_rows", [1, 3])
@@ -250,11 +291,13 @@ def test_split_blob_edge_in_frame():
 @pytest.mark.parametrize("w", [1, 2, 63, 64, 65, 511, 512, 513, 1920])
 def test_blob_launch_covers_pairs(w):
     """Threads a block are whole warps, at most 256, and the chunks cover
-    the most pairs a row."""
+    a row's four-pixel groups (its pixels four at a time) with no chunk
+    idle."""
     threads, chunks, rows = blob_launch(w, 7)
+    groups = -(-w // 4)
     assert threads % 32 == 0 and 32 <= threads <= THREADS
-    assert chunks * threads >= w // 2 and chunks >= 1 and rows == 7
-    assert (chunks - 1) * threads < max(w // 2, 1)
+    assert chunks * threads >= groups and chunks >= 1 and rows == 7
+    assert (chunks - 1) * threads < groups
 
 
 def test_blob_wrapper_reads_a_cuda_time():

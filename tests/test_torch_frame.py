@@ -58,8 +58,9 @@ def test_frame_matches_jax(case):
                              tcfg, SIDE, SIDE, shadows=shadows)
     got = renderer.render(torch.zeros(3), torch.from_numpy(orient),
                           camera_ray_grid(SIDE, SIDE, device="cpu"))
-    assert got.shape == (SIDE * SIDE,) and got.dtype == torch.int64
+    assert got.shape == (SIDE * SIDE,) and got.dtype == torch.uint32
     want = np.asarray(want)
+    assert want.dtype == np.uint32
     assert_u8_close(got.numpy(), want)
     assert (want != want[0]).any()  # the scene is in view
     if kind == "textured":

@@ -42,10 +42,11 @@ def test_gradient_matches_reference_and_jax(wh):
     tgradient.reset_launch_counts()
     got = tgradient.color_gradient(w, h, device="cpu")
     assert tgradient.launch_counts["gradient"] == 0  # CPU: the plain version
-    assert got.dtype == torch.int64 and got.shape == (w * h,)
+    assert got.dtype == torch.uint32 and got.shape == (w * h,)
     got = got.numpy()
-    np.testing.assert_array_equal(got, scalar_gradient(w * h).astype(np.int64))
-    want = np.asarray(jax_gradient(w, h)).astype(np.int64)
+    want = np.asarray(jax_gradient(w, h))
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, scalar_gradient(w * h))
     assert_u8_close(got, want)
     np.testing.assert_array_equal(got == 0, want == 0)
     if (w * h) % 6:
@@ -106,9 +107,11 @@ def test_blob_matches_jax_and_scalar(t, as_tensor):
     tblob.reset_launch_counts()
     got = tblob.blob(w, h, time, device="cpu")
     assert tblob.launch_counts["blob"] == 0  # CPU: the plain version
-    assert got.dtype == torch.int64 and got.shape == (w * h,)
+    assert got.dtype == torch.uint32 and got.shape == (w * h,)
     got = got.numpy()
-    assert_u8_close(got, np.asarray(jax_blob(w, h, t)).astype(np.int64))
+    want = np.asarray(jax_blob(w, h, t))
+    assert got.dtype == want.dtype == np.uint32
+    assert_u8_close(got, want)
     want = np.array([scalar_blob(i, w, h, t) for i in range(w * h)])
     assert_u8_close(got, want)
     assert len(np.unique(got)) > 10  # edge and background both in frame
@@ -138,10 +141,11 @@ def test_config1_frame():
     cleared to 0xFF00FF00, then filled by the gradient."""
     n = 256 * 256
     cleared = clear_buffer(n, 0xFF00FF00, "cpu")
-    np.testing.assert_array_equal(
-        cleared.numpy(),
-        np.asarray(jax_clear(n, jnp.uint32(0xFF00FF00))).astype(np.int64))
+    want = np.asarray(jax_clear(n, jnp.uint32(0xFF00FF00)))
+    assert cleared.numpy().dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(cleared.numpy(), want)
     frame = tgradient.color_gradient(256, 256, device="cpu").numpy()
-    np.testing.assert_array_equal(frame, scalar_gradient(n).astype(np.int64))
-    assert_u8_close(frame, np.asarray(jax_gradient(256, 256)).astype(np.int64))
+    assert frame.dtype == np.uint32
+    np.testing.assert_array_equal(frame, scalar_gradient(n))
+    assert_u8_close(frame, np.asarray(jax_gradient(256, 256)))
     assert (frame != cleared.numpy()).all()

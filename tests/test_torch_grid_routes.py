@@ -103,7 +103,8 @@ def test_frame_renderer_matches_jax(shadows):
     renderer = FrameRenderer(ts, tg, TCFG, side, side, shadows=shadows)
     got = renderer.render(torch.zeros(3), torch.from_numpy(orient),
                           camera_ray_grid(side, side, device="cpu"))
-    assert got.shape == (side * side,) and got.dtype == torch.int64
+    assert got.shape == (side * side,) and got.dtype == torch.uint32
+    assert want.dtype == np.uint32
     assert (want != want[0]).any()
     assert_u8_close(got.numpy(), want)
     if shadows:  # the shadow test darkened some pixels

@@ -48,7 +48,8 @@ def test_pack_unpack_rgb(seed):
     want = np.asarray(jmath.pack_rgb(jnp.asarray(r), jnp.asarray(g),
                                      jnp.asarray(b)))
     got = tmath.pack_rgb(t(r), t(g), t(b)).numpy()
-    np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         tmath.unpack_rgb(t(got)).numpy(),
         np.asarray(jmath.unpack_rgb(jnp.asarray(want))))

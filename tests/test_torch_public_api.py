@@ -1,7 +1,7 @@
 """The port's public API against the JAX package's, on the CPU: every
 top-level name of `raytracercuda_tpu` exists in `raytracercuda_torch`
 with an equal value where it is a constant (error codes, vertex-data
-slots, FLT_MAX, the version) and equal fields and defaults where it is a
+slots, FLT_MAX, the version; `types.py`'s sentinels) and equal fields and defaults where it is a
 configuration class; `Rays`, `miss_hit`, `SceneData`'s helpers and the
 small helpers of `ops/math.py` hold JAX's values exactly on the cases of
 `tests/test_math.py:138-155`.
@@ -67,6 +67,14 @@ def test_version_and_all():
     assert err.code == 4 and str(err) == str(jrt.BeamError(4, "bad"))
 
 
+@pytest.mark.parametrize("name", ["FLT_MAX", "INVALID_U32", "INVALID_I32"])
+def test_types_sentinel(name):
+    """`types.py`'s sentinels: JAX's value and numpy scalar type."""
+    want, got = getattr(jtypes, name), getattr(ttypes, name)
+    assert type(got) is type(want) and got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
+
+
 def test_rays_and_miss_hit():
     o, d = torch.zeros(4, 3), torch.ones(4, 3)
     rays = trt.Rays(o, d)
@@ -106,14 +114,16 @@ def test_pack_helpers():
         assert int(got) == int(jm.pack_gray(jnp.float32(x)))
     assert int(tm.pack_gray(torch.tensor(0.5))) == (127 << 16) | (127 << 8) \
         | 127
-    vals = np.array([0x00FF8040, 0x00000000, 0x00FFFFFF], np.int64)
+    vals = np.array([0x00FF8040, 0x00000000, 0x00FFFFFF], np.uint32)
     got = tm.pack_rgb_vec(tm.unpack_rgb(torch.from_numpy(vals)))
+    assert got.dtype == torch.uint32
     np.testing.assert_array_equal(got.numpy(), vals)
     rgb = np.random.default_rng(3).uniform(-0.5, 1.5, (64, 3)).astype(
         np.float32)
-    np.testing.assert_array_equal(
-        tm.pack_rgb_vec(torch.from_numpy(rgb)).numpy(),
-        np.asarray(jm.pack_rgb_vec(jnp.asarray(rgb))).astype(np.int64))
+    got = tm.pack_rgb_vec(torch.from_numpy(rgb)).numpy()
+    want = np.asarray(jm.pack_rgb_vec(jnp.asarray(rgb)))
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
 
 
 def test_aabb_helpers():
