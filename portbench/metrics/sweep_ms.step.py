@@ -1,0 +1,13 @@
+"""Device ms an Adam step of the tile sweeps of `csrc/sweep.cu` (C and H in
+the forward render), by kernel name."""
+
+from portbench.tracing import kernel_ms
+
+KERNELS = ("fill_keys_kernel", "sweep_items_kernel", "shade_epilogue_kernel",
+           "closest_epilogue_kernel", "clear_flags_kernel",
+           "occlusion_items_kernel")
+
+
+def read(trace):
+    ms = kernel_ms(trace, KERNELS)
+    return ms / trace.units if ms else None
