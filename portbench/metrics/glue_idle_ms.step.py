@@ -1,0 +1,12 @@
+"""Device-idle ms an Adam step inside the program's root spans: the device
+waiting on the program's host code (`portbench/program.py`)."""
+
+from portbench import program
+
+
+def install(tracer):
+    program.install(tracer)
+
+
+def read(trace):
+    return program.glue_idle_ms(trace)

@@ -1,0 +1,13 @@
+"""Host syncs a frame (a progressive pass): the program's ``host_syncs``
+counter, one at each call that waits for the device
+(`portbench/program.py`)."""
+
+from portbench import program
+
+
+def install(tracer):
+    program.install(tracer)
+
+
+def read(trace):
+    return program.host_syncs(trace)

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import ClusterConfig
+from ..utils.profiler import span
 from .bvh import morton_codes
 
 
@@ -59,7 +60,13 @@ def build_clusters(positions: torch.Tensor, faces: torch.Tensor,
     """Sort triangles in Morton order and cut them into fixed clusters.
 
     ``positions`` ``[V,3]`` float32, ``faces`` ``[F,4]`` integer (3 vertex
-    ids + mesh id), both on the device the clusters should live on."""
+    ids + mesh id), both on the device the clusters should live on.  Span
+    ``accel.build``."""
+    with span("accel.build"):
+        return _build_clusters(positions, faces, cfg)
+
+
+def _build_clusters(positions, faces, cfg) -> ClusterSet:
     L = cfg.cluster_size
     faces = faces.long()
     num_faces = faces.shape[0]

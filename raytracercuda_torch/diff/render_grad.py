@@ -35,6 +35,8 @@ from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.interpolate import face_ray_intersect
 from ..trace.pipeline import rotate_rays, trace_hit
 from ..types import FLT_MAX, Hit
+from ..utils import profiler
+from ..utils.profiler import host_sync, span
 from .scatter import check_frame_hw
 
 #: Rays per tile of the gathers' backward (`diff/scatter.py`).
@@ -181,7 +183,8 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
     nx = torch.where(flip, -nx, nx)
     ny = torch.where(flip, -ny, ny)
     nz = torch.where(flip, -nz, nz)
-    l = torch.as_tensor(light_dir, dtype=torch.float32, device=dx.device)
+    with host_sync("sync.shade_light"):
+        l = torch.as_tensor(light_dir, dtype=torch.float32, device=dx.device)
     l = l / torch.sqrt(torch.clamp(torch.sum(l * l), min=1e-30))
     ndotl = torch.clamp(nx * l[0] + ny * l[1] + nz * l[2], min=0.0)
     if shadow_mask is not None:
@@ -305,9 +308,10 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
 def _discrete(scene, accel, initial_rays, eye, orient, config, shading,
               with_shadows, light_dir, frame_hw):
     """The render's combinatorics: hit face ids and (with shadows and
-    Lambert shading) the shadow mask, both constants to autograd."""
+    Lambert shading) the shadow mask, both constants to autograd (span
+    ``render.discrete``)."""
     check_frame_hw(frame_hw, initial_rays.shape[0])
-    with torch.no_grad():
+    with span("render.discrete"), torch.no_grad():
         dirs = rotate_rays(initial_rays.detach(), orient.detach())
         e = eye.detach()
         origin = e[None, :].expand(dirs.shape)
@@ -354,13 +358,64 @@ def render_rgb(scene, accel, initial_rays: torch.Tensor, eye: torch.Tensor,
     uvs), ``scene.albedo``, ``scene.textures``, ``initial_rays``, ``eye``
     and ``orient``: any of them that requires grad gets one from
     ``backward()``.  ``frame_hw`` ``(H, W)``, when given, must cover the
-    rays; without it the rays trace as a bundle."""
-    face_ids, shadow_mask = _discrete(scene, accel, initial_rays, eye,
-                                      orient, config, shading, with_shadows,
-                                      light_dir, frame_hw)
-    return _render_fixed_ids(scene, initial_rays, eye, orient, face_ids,
-                             shadow_mask, config, shading, light_dir,
-                             accel=accel, frame_hw=frame_hw)
+    rays; without it the rays trace as a bundle.
+
+    Span ``render`` holds ``render.discrete`` and ``render.shade``; while
+    tracing is on, the backward of ``render.shade``'s graph is span
+    ``grad`` (`_GradMark`)."""
+    with span("render"):
+        face_ids, shadow_mask = _discrete(scene, accel, initial_rays, eye,
+                                          orient, config, shading,
+                                          with_shadows, light_dir, frame_hw)
+        held = None
+        if profiler.enabled and torch.is_grad_enabled():
+            held = []
+            leaves = _GradMark.mark(held, False, [
+                *_scene_leaves(scene), initial_rays, eye, orient])
+            scene = _with_leaves(scene, leaves[:-3])
+            initial_rays, eye, orient = leaves[-3:]
+        with span("render.shade"):
+            rgb = _render_fixed_ids(scene, initial_rays, eye, orient,
+                                    face_ids, shadow_mask, config, shading,
+                                    light_dir, accel=accel,
+                                    frame_hw=frame_hw)
+        if held is not None:
+            (rgb,) = _GradMark.mark(held, True, [rgb])
+        return rgb
+
+
+class _GradMark(torch.autograd.Function):
+    """Identity on the tensors that require grad, to record the backward
+    of the graph between two marks as span ``grad``: the mark on the
+    graph's output (``opening``) opens the span when the backward reaches
+    it, the mark on its inputs closes it once every input's gradient is
+    in.  Spans open in ``held``.  Gradients pass unchanged."""
+
+    @staticmethod
+    def forward(ctx, held, opening, *xs):
+        ctx.held, ctx.opening = held, opening
+        ctx.set_materialize_grads(False)
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.opening:
+            ctx.held.append(span("grad").open())
+        else:
+            while ctx.held:
+                ctx.held.pop().close()
+        return (None, None, *grads)
+
+    @staticmethod
+    def mark(held, opening, xs):
+        """``xs`` with those that require grad passed through the mark."""
+        need = [i for i, x in enumerate(xs) if x.requires_grad]
+        out = list(xs)
+        if need:
+            marked = _GradMark.apply(held, opening, *(xs[i] for i in need))
+            for i, y in zip(need, marked):
+                out[i] = y
+        return out
 
 
 class _RenderVJP(torch.autograd.Function):
@@ -374,31 +429,46 @@ class _RenderVJP(torch.autograd.Function):
     def forward(ctx, opts, scene, *leaves):
         accel, config, shading, with_shadows, light_dir, frame_hw = opts[:6]
         initial_rays, eye, orient = leaves[-3:]
-        face_ids, shadow_mask = _discrete(scene, accel, initial_rays, eye,
-                                          orient, config, shading,
-                                          with_shadows, light_dir, frame_hw)
-        ctx.opts, ctx.scene = opts, scene
-        ctx.face_ids, ctx.shadow_mask = face_ids, shadow_mask
-        ctx.save_for_backward(*leaves)
-        return _render_fixed_ids(scene, initial_rays, eye, orient, face_ids,
-                                 shadow_mask, config, shading, light_dir,
-                                 accel=accel, frame_hw=frame_hw)
+        with span("render"):
+            face_ids, shadow_mask = _discrete(scene, accel, initial_rays,
+                                              eye, orient, config, shading,
+                                              with_shadows, light_dir,
+                                              frame_hw)
+            ctx.opts, ctx.scene = opts, scene
+            ctx.face_ids, ctx.shadow_mask = face_ids, shadow_mask
+            ctx.save_for_backward(*leaves)
+            with span("render.shade"):
+                return _render_fixed_ids(scene, initial_rays, eye, orient,
+                                         face_ids, shadow_mask, config,
+                                         shading, light_dir, accel=accel,
+                                         frame_hw=frame_hw)
 
     @staticmethod
     def backward(ctx, g):
+        with span("grad"):
+            return _RenderVJP._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
+        """The backward's body: the fixed-id render recomputed under
+        ``enable_grad`` (span ``grad.recompute``), its VJP by
+        `torch.autograd.grad` (``grad.autograd``), and the boundary
+        term."""
         accel, config, shading, _, light_dir, frame_hw = ctx.opts[:6]
         leaves = [x.detach().requires_grad_(need)
                   for x, need in zip(ctx.saved_tensors,
                                      ctx.needs_input_grad[2:])]
         scene = _with_leaves(ctx.scene, leaves[:-3])
         with torch.enable_grad():
-            out = _render_fixed_ids(scene, *leaves[-3:], ctx.face_ids,
-                                    ctx.shadow_mask, config, shading,
-                                    light_dir, accel=accel,
-                                    frame_hw=frame_hw)
+            with span("grad.recompute"):
+                out = _render_fixed_ids(scene, *leaves[-3:], ctx.face_ids,
+                                        ctx.shadow_mask, config, shading,
+                                        light_dir, accel=accel,
+                                        frame_hw=frame_hw)
             wanted = [x for x in leaves if x.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g,
-                                             allow_unused=True))
+            with span("grad.autograd"):
+                grads = iter(torch.autograd.grad(out, wanted, g,
+                                                 allow_unused=True))
         grads = [next(grads) if x.requires_grad else None for x in leaves]
         edges = ctx.opts[6] if len(ctx.opts) > 6 else None
         if (edges is not None and config.diff.silhouette
@@ -483,7 +553,9 @@ def _occlusion_nondiff(scene, accel, hit: Hit, origin, dirs, config,
                        light_dir, frame_hw) -> torch.Tensor:
     """The forward pass's discrete shadow mask, without gradients, toward
     the unit light."""
-    l = torch.as_tensor(light_dir, dtype=torch.float32, device=dirs.device)
+    with host_sync("sync.occlusion_light"):
+        l = torch.as_tensor(light_dir, dtype=torch.float32,
+                            device=dirs.device)
     l = l / torch.sqrt(torch.sum(l * l))
     return _occlusion_from_hit(scene, accel, hit, origin, dirs, l, config,
                                frame_hw)

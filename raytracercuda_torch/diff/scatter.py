@@ -37,6 +37,7 @@ import torch
 
 from ..ops.cuda_build import kernel_fn, raw_stream
 from ..trace import sweep
+from ..utils.profiler import span
 
 #: Kernel launches, counted where the kernel is launched.
 launch_counts = {"scatter_add": 0, "scatter_sorted": 0}
@@ -191,7 +192,8 @@ class _GatherRowsTiled(torch.autograd.Function):
         else:
             idx_t = idx.reshape(t, b)
             g_t = gr.reshape(t, b, -1).transpose(1, 2)
-        d_rows = tile_scatter_add(g_t, idx_t, ctx.num_rows)
+        with span("scatter.G"):
+            d_rows = tile_scatter_add(g_t, idx_t, ctx.num_rows)
         # The forward gathered row 0 for misses (id < 0), which G drops:
         # credit their cotangent to row 0 with one masked reduction.
         miss = (idx < 0)[:, None]

@@ -31,6 +31,7 @@ from ..config import RenderConfig
 from ..models.scene import SceneData
 from ..ops.math import normalize, pack_rgb
 from ..types import FLT_MAX
+from ..utils.profiler import span
 from .dense import tile_pixels_planar, untile_pixels
 from .shade import (build_face_tables, pack_shaded, sample_texture,
                     shade_lambert_rgb)
@@ -87,11 +88,12 @@ class FrameRenderer:
     def _trace(self, eye, orient, rays):
         # dirs = rays @ orient.T, written out per component so the three
         # products sum in one fixed order on every device.
-        r = rays.T  # [3, N]
-        d3 = (orient[:, 0:1] * r[0] + orient[:, 1:2] * r[1]
-              + orient[:, 2:3] * r[2])
-        d3_tiles = tile_pixels_planar(d3, self.height, self.width,
-                                      self.tile_px).contiguous()
+        with span("frame.rays"):
+            r = rays.T  # [3, N]
+            d3 = (orient[:, 0:1] * r[0] + orient[:, 1:2] * r[1]
+                  + orient[:, 2:3] * r[2])
+            d3_tiles = tile_pixels_planar(d3, self.height, self.width,
+                                          self.tile_px).contiguous()
         outs = trace_shade_tiles_planar(
             self.accel, self.blocks, self.has_uv, eye, d3_tiles,
             tile_px=self.tile_px, trace_cfg=self.config.trace)
@@ -100,58 +102,67 @@ class FrameRenderer:
     def _shadow_shade(self, eye, d3_tiles, outs):
         tp = self.tile_px
         t = d3_tiles.shape[0]
-        bt = outs[0].reshape(-1)
-        nx, ny, nz = (o.reshape(-1) for o in outs[4:7])
-        ar, ag, ab = (o.reshape(-1) for o in outs[7:10])
-        dx = d3_tiles[:, 0, :].reshape(-1)
-        dy = d3_tiles[:, 1, :].reshape(-1)
-        dz = d3_tiles[:, 2, :].reshape(-1)
-        hitm = bt < FLT_MAX
+        with span("frame.shadow_rays"):
+            bt = outs[0].reshape(-1)
+            nx, ny, nz = (o.reshape(-1) for o in outs[4:7])
+            dx = d3_tiles[:, 0, :].reshape(-1)
+            dy = d3_tiles[:, 1, :].reshape(-1)
+            dz = d3_tiles[:, 2, :].reshape(-1)
+            hitm = bt < FLT_MAX
 
-        # normalize(n, eps=1e-30) per component, then face the eye.
-        nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
-                                      min=1e-30))
-        nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
-        flip = nx * dx + ny * dy + nz * dz > 0.0
-        nx = torch.where(flip, -nx, nx)
-        ny = torch.where(flip, -ny, ny)
-        nz = torch.where(flip, -nz, nz)
-        lx, ly, lz = self.light[0], self.light[1], self.light[2]
-        ndotl = torch.clamp(nx * lx + ny * ly + nz * lz, min=0.0)
+            # normalize(n, eps=1e-30) per component, then face the eye.
+            nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
+                                          min=1e-30))
+            nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
+            flip = nx * dx + ny * dy + nz * dz > 0.0
+            nx = torch.where(flip, -nx, nx)
+            ny = torch.where(flip, -ny, ny)
+            nz = torch.where(flip, -nz, nz)
+            lx, ly, lz = self.light[0], self.light[1], self.light[2]
+            ndotl = torch.clamp(nx * lx + ny * ly + nz * lz, min=0.0)
+            if self.shadows:
+                # Shadow rays only where they can change the pixel:
+                # surfaces facing away from the light shade to ambient
+                # either way.
+                active = hitm & (ndotl > 0.0)
+                tmin = torch.clamp(bt, max=1e6)
+                eps = self.shadow_eps
+                sox = (torch.where(active, eye[0] + dx * tmin, eye[0])
+                       + lx * eps)
+                soy = (torch.where(active, eye[1] + dy * tmin, eye[1])
+                       + ly * eps)
+                soz = (torch.where(active, eye[2] + dz * tmin, eye[2])
+                       + lz * eps)
+                o3 = torch.stack([sox.reshape(t, tp * tp),
+                                  soy.reshape(t, tp * tp),
+                                  soz.reshape(t, tp * tp)], dim=1)
         if self.shadows:
-            # Shadow rays only where they can change the pixel: surfaces
-            # facing away from the light shade to ambient either way.
-            active = hitm & (ndotl > 0.0)
-            tmin = torch.clamp(bt, max=1e6)
-            eps = self.shadow_eps
-            sox = torch.where(active, eye[0] + dx * tmin, eye[0]) + lx * eps
-            soy = torch.where(active, eye[1] + dy * tmin, eye[1]) + ly * eps
-            soz = torch.where(active, eye[2] + dz * tmin, eye[2]) + lz * eps
-            o3 = torch.stack([sox.reshape(t, tp * tp),
-                              soy.reshape(t, tp * tp),
-                              soz.reshape(t, tp * tp)], dim=1)
             shadow = occlusion_tiles_planar(
                 self.accel, o3, self.light,
                 active.reshape(t, tp * tp), tile_px=tp,
                 trace_cfg=self.config.trace)
-            ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
-        textures = self.scene.textures
-        if self.has_uv and textures.shape[0] > 0:
-            tex_id = outs[10].reshape(-1).to(torch.int32)
-            tex_rgb = sample_texture(textures, tex_id, outs[11].reshape(-1),
-                                     outs[12].reshape(-1))
-            texd = tex_id >= 0
-            ar = torch.where(texd, ar * tex_rgb[:, 0], ar)
-            ag = torch.where(texd, ag * tex_rgb[:, 1], ag)
-            ab = torch.where(texd, ab * tex_rgb[:, 2], ab)
-        lit = self.ambient + (1.0 - self.ambient) * ndotl
-        bg = self.background
-        r = torch.where(hitm, ar * lit, bg[0])
-        g = torch.where(hitm, ag * lit, bg[1])
-        b = torch.where(hitm, ab * lit, bg[2])
-        packed = pack_rgb(r, g, b)
-        return untile_pixels(packed.reshape(t, tp * tp), self.height,
-                             self.width, tp)
+        with span("frame.shade"):
+            if self.shadows:
+                ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
+            ar, ag, ab = (o.reshape(-1) for o in outs[7:10])
+            textures = self.scene.textures
+            if self.has_uv and textures.shape[0] > 0:
+                tex_id = outs[10].reshape(-1).to(torch.int32)
+                tex_rgb = sample_texture(textures, tex_id,
+                                         outs[11].reshape(-1),
+                                         outs[12].reshape(-1))
+                texd = tex_id >= 0
+                ar = torch.where(texd, ar * tex_rgb[:, 0], ar)
+                ag = torch.where(texd, ag * tex_rgb[:, 1], ag)
+                ab = torch.where(texd, ab * tex_rgb[:, 2], ab)
+            lit = self.ambient + (1.0 - self.ambient) * ndotl
+            bg = self.background
+            r = torch.where(hitm, ar * lit, bg[0])
+            g = torch.where(hitm, ag * lit, bg[1])
+            b = torch.where(hitm, ab * lit, bg[2])
+            packed = pack_rgb(r, g, b)
+            return untile_pixels(packed.reshape(t, tp * tp), self.height,
+                                 self.width, tp)
 
     def _render_rows(self, eye, orient, rays):
         """The route of every structure other than CLUSTER (JAX
@@ -187,9 +198,10 @@ class FrameRenderer:
         for one camera pose.  ``rays``: the pinhole ray grid
         (`camera_ray_grid`), row-major ``[H*W, 3]``; all on the scene's
         device."""
-        eye = eye.to(torch.float32)
-        orient = orient.to(torch.float32)
-        if not self.clusters:
-            return self._render_rows(eye, orient, rays)
-        d3_tiles, outs = self._trace(eye, orient, rays)
-        return self._shadow_shade(eye, d3_tiles, outs)
+        with span("frame"):
+            eye = eye.to(torch.float32)
+            orient = orient.to(torch.float32)
+            if not self.clusters:
+                return self._render_rows(eye, orient, rays)
+            d3_tiles, outs = self._trace(eye, orient, rays)
+            return self._shadow_shade(eye, d3_tiles, outs)

@@ -17,6 +17,7 @@ import torch
 from ..config import RenderConfig
 from ..device import resolve_device
 from ..diff.render_grad import render_rgb
+from ..utils.profiler import host_sync, span
 
 
 def halton(index: int, base: int) -> np.float32:
@@ -54,8 +55,10 @@ def jittered_ray_grid(
     device = resolve_device(device)
     dx = (right - left) / width
     dy = (bottom - top) / height
-    jx = torch.tensor(jitter_x, dtype=torch.float32, device=device)
-    jy = torch.tensor(jitter_y, dtype=torch.float32, device=device)
+    # Two copies from host memory: each waits for the device's queue.
+    with host_sync("sync.jitter", 2):
+        jx = torch.tensor(jitter_x, dtype=torch.float32, device=device)
+        jy = torch.tensor(jitter_y, dtype=torch.float32, device=device)
     rx = left + dx * (torch.arange(width, dtype=torch.float32, device=device)
                       + jx)
     ry = top + dy * (torch.arange(height, dtype=torch.float32, device=device)
@@ -99,14 +102,17 @@ def progressive_step(
     with_shadows: bool = False,
     zoom: float = 1.0,
 ) -> ProgressiveState:
-    """Accumulate one jittered sample frame into the running sum."""
-    jx = halton(state.count + 1, 2)
-    jy = halton(state.count + 1, 3)
-    rays = jittered_ray_grid(width, height, jx, jy, zoom=zoom,
-                             device=state.accum.device)
-    # A jittered pinhole grid still shares one origin per tile, so the
-    # frame takes kernel C's tile route.
-    rgb = render_rgb(scene, accel, rays, eye, orient, config,
-                     shading=shading, with_shadows=with_shadows,
-                     frame_hw=(height, width))
-    return ProgressiveState(accum=state.accum + rgb, count=state.count + 1)
+    """Accumulate one jittered sample frame into the running sum (span
+    ``pass``)."""
+    with span("pass"):
+        jx = halton(state.count + 1, 2)
+        jy = halton(state.count + 1, 3)
+        rays = jittered_ray_grid(width, height, jx, jy, zoom=zoom,
+                                 device=state.accum.device)
+        # A jittered pinhole grid still shares one origin per tile, so the
+        # frame takes kernel C's tile route.
+        rgb = render_rgb(scene, accel, rays, eye, orient, config,
+                         shading=shading, with_shadows=with_shadows,
+                         frame_hw=(height, width))
+        return ProgressiveState(accum=state.accum + rgb,
+                                count=state.count + 1)

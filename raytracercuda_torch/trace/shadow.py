@@ -21,13 +21,18 @@ import torch
 from ..config import TraceConfig
 from ..ops.math import cross, dot_fused, tri_intersect
 from ..types import FLT_MAX
+from ..utils.profiler import host_sync
 
 
 def light_basis(light_dir: torch.Tensor):
     """Orthonormal (u, v, l) with l along the light direction."""
     l = light_dir / torch.linalg.vector_norm(light_dir)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=l.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=l.device)
+    # Two copies from host memory: each waits for the device's queue.
+    with host_sync("sync.light_basis", 2):
+        ex = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
+                          device=l.device)
+        ey = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                          device=l.device)
     u = cross(l, torch.where(l[0].abs() < 0.9, ex, ey))
     u = u / torch.linalg.vector_norm(u)
     v = cross(l, u)

@@ -59,6 +59,7 @@ from ..config import TraceConfig
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.cuda_build import kernel_fn, raw_stream
 from ..types import FLT_MAX, Hit
+from ..utils.profiler import host_sync, span
 from .dense import (
     _cull_frustum,
     frustum_planes,
@@ -185,12 +186,13 @@ def _tile_lists(survive: torch.Tensor) -> TileLists:
     no cap on a tile's count.  It waits for the device, since the number
     of survivors sizes its output: a sync in the middle of every frame
     that a later change should remove (for example a fixed-capacity list
-    written by a kernel)."""
+    written by a kernel): span ``sync.tile_lists``."""
     counts = survive.sum(dim=1, dtype=torch.int32)
     offsets = torch.zeros(survive.shape[0] + 1, dtype=torch.int32,
                           device=survive.device)
     offsets[1:] = torch.cumsum(counts, dim=0)
-    ids = survive.nonzero()[:, 1].to(torch.int32)
+    with host_sync("sync.tile_lists"):
+        ids = survive.nonzero()[:, 1].to(torch.int32)
     return TileLists(counts=counts, offsets=offsets, ids=ids)
 
 
@@ -635,12 +637,14 @@ def trace_shade_tiles_planar(
 
     Returns planar ``[T, R]`` tensors ``(t, slot, u, v, nx, ny, nz, ar,
     ag, ab[, tex, tu, tv][, refl])``; slot is int32, the rest float32."""
-    planes = tile_planes_planar(d3_tiles, tile_px)
-    lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
-    run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
-    return run(lists, eye.to(torch.float32).contiguous(),
-               d3_tiles.contiguous(), shade_blocks, has_uv, with_refl,
-               t_eps_of(trace_cfg), segment_blocks(cs))
+    with span("sweep.cull"):
+        planes = tile_planes_planar(d3_tiles, tile_px)
+        lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
+    with span("sweep.A"):
+        run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
+        return run(lists, eye.to(torch.float32).contiguous(),
+                   d3_tiles.contiguous(), shade_blocks, has_uv, with_refl,
+                   t_eps_of(trace_cfg), segment_blocks(cs))
 
 
 def occlusion_tiles_planar(
@@ -656,13 +660,15 @@ def occlusion_tiles_planar(
     inactive.  The lists come from the swept-beam cull; the sweep runs
     along ``beam.l``, the light direction that `light_basis`
     re-normalises, over the geometry rows `segment_blocks(cs)`."""
-    beam = swept_tile_beams_planar(o3_tiles, a_tiles, light_dir)
-    lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
-    run = _pick(o3_tiles, _occlusion_plain, _occlusion_cuda)
-    occ = run(lists, beam.l.to(torch.float32).contiguous(),
-              o3_tiles.contiguous(), a_tiles.contiguous(), segment_blocks(cs),
-              np.float32(trace_cfg.t_epsilon))
-    return occ & a_tiles
+    with span("sweep.shadow_cull"):
+        beam = swept_tile_beams_planar(o3_tiles, a_tiles, light_dir)
+        lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
+    with span("sweep.B"):
+        run = _pick(o3_tiles, _occlusion_plain, _occlusion_cuda)
+        occ = run(lists, beam.l.to(torch.float32).contiguous(),
+                  o3_tiles.contiguous(), a_tiles.contiguous(),
+                  segment_blocks(cs), np.float32(trace_cfg.t_epsilon))
+        return occ & a_tiles
 
 
 def trace_tiles(
@@ -677,12 +683,14 @@ def trace_tiles(
     common origin ``eye`` -> `Hit` with ``[T*R]`` fields in tile order;
     ``face`` is the winner's original face id (int32), -1 on a miss.
     ``tri_blocks`` is `segment_blocks(cs)`."""
-    planes = tile_frustum_planes(d_tiles, tile_px)
-    lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
-    run = _pick(d_tiles, _primary_plain, _primary_cuda)
-    bt, bu, bv, bs = (x.reshape(-1) for x in run(
-        lists, eye.to(torch.float32).contiguous(), d_tiles.contiguous(),
-        tri_blocks, t_eps_of(trace_cfg)))
+    with span("sweep.cull"):
+        planes = tile_frustum_planes(d_tiles, tile_px)
+        lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
+    with span("sweep.C"):
+        run = _pick(d_tiles, _primary_plain, _primary_cuda)
+        bt, bu, bv, bs = (x.reshape(-1) for x in run(
+            lists, eye.to(torch.float32).contiguous(), d_tiles.contiguous(),
+            tri_blocks, t_eps_of(trace_cfg)))
     # A miss already carries FLT_MAX, u = v = 0 and slot 0.
     face = torch.where(bt < FLT_MAX, cs.face_order[bs.long()], -1)
     return Hit(t=bt, u=bu, v=bv, face=face.to(torch.int32))
@@ -724,13 +732,15 @@ def occlusion_tiles(
     ``a_tiles [T,R]`` bool -> ``[T*R]`` bool in tile order, false where
     inactive.  Always clipped at ``t_epsilon``; the sweep runs along
     ``beam.l``, the light direction that `light_basis` re-normalises."""
-    beam = swept_tile_beams(o_tiles, a_tiles, light_dir)
-    lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
-    run = _pick(o_tiles, _occlusion_rows_plain, _occlusion_rows_cuda)
-    occ = run(lists, beam.l.to(torch.float32).contiguous(),
-              o_tiles.contiguous(), a_tiles.contiguous(), tri_blocks,
-              np.float32(trace_cfg.t_epsilon))
-    return (occ & a_tiles).reshape(-1)
+    with span("sweep.shadow_cull"):
+        beam = swept_tile_beams(o_tiles, a_tiles, light_dir)
+        lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
+    with span("sweep.H"):
+        run = _pick(o_tiles, _occlusion_rows_plain, _occlusion_rows_cuda)
+        occ = run(lists, beam.l.to(torch.float32).contiguous(),
+                  o_tiles.contiguous(), a_tiles.contiguous(), tri_blocks,
+                  np.float32(trace_cfg.t_epsilon))
+        return (occ & a_tiles).reshape(-1)
 
 
 def occlusion_dense(
