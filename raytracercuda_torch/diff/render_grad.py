@@ -50,6 +50,31 @@ def _detached_scene(scene):
         albedo=scene.albedo.detach(), textures=scene.textures.detach())
 
 
+#: Light directions copied to a device, by (float32 bits, device).
+_LIGHTS: dict = {}
+#: Most entries `_LIGHTS` holds; the oldest goes first.
+_LIGHTS_KEPT = 64
+
+
+def _light_on(light_dir, device: torch.device, site: str) -> torch.Tensor:
+    """``light_dir`` as a float32 ``[3]`` tensor on ``device``.  A host
+    sequence is copied once per (value, device) and the copy reused: a
+    copy from host memory waits for the device's queue, so only the first
+    waits, counted under ``site``.  The tensor is shared: read-only."""
+    if isinstance(light_dir, torch.Tensor):
+        return light_dir.to(device=device, dtype=torch.float32)
+    host = torch.as_tensor(light_dir, dtype=torch.float32)
+    # By bits, so that -0.0 and 0.0 stay apart.
+    key = (tuple(host.view(torch.int32).tolist()), device)
+    l = _LIGHTS.get(key)
+    if l is None:
+        if len(_LIGHTS) >= _LIGHTS_KEPT:
+            del _LIGHTS[next(iter(_LIGHTS))]
+        with host_sync(site):
+            l = _LIGHTS[key] = host.to(device)
+    return l
+
+
 def hit_nondiff(scene, accel, origin, direction, config: RenderConfig,
                 frame_hw=None, common_origin=None) -> Hit:
     """The traversal's `Hit`, computed without gradients on detached
@@ -183,8 +208,7 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
     nx = torch.where(flip, -nx, nx)
     ny = torch.where(flip, -ny, ny)
     nz = torch.where(flip, -nz, nz)
-    with host_sync("sync.shade_light"):
-        l = torch.as_tensor(light_dir, dtype=torch.float32, device=dx.device)
+    l = _light_on(light_dir, dx.device, "sync.shade_light")
     l = l / torch.sqrt(torch.clamp(torch.sum(l * l), min=1e-30))
     ndotl = torch.clamp(nx * l[0] + ny * l[1] + nz * l[2], min=0.0)
     if shadow_mask is not None:
@@ -553,9 +577,7 @@ def _occlusion_nondiff(scene, accel, hit: Hit, origin, dirs, config,
                        light_dir, frame_hw) -> torch.Tensor:
     """The forward pass's discrete shadow mask, without gradients, toward
     the unit light."""
-    with host_sync("sync.occlusion_light"):
-        l = torch.as_tensor(light_dir, dtype=torch.float32,
-                            device=dirs.device)
+    l = _light_on(light_dir, dirs.device, "sync.occlusion_light")
     l = l / torch.sqrt(torch.sum(l * l))
     return _occlusion_from_hit(scene, accel, hit, origin, dirs, l, config,
                                frame_hw)

@@ -17,7 +17,7 @@ import torch
 from ..config import RenderConfig
 from ..device import resolve_device
 from ..diff.render_grad import render_rgb
-from ..utils.profiler import host_sync, span
+from ..utils.profiler import span
 
 
 def halton(index: int, base: int) -> np.float32:
@@ -55,10 +55,10 @@ def jittered_ray_grid(
     device = resolve_device(device)
     dx = (right - left) / width
     dy = (bottom - top) / height
-    # Two copies from host memory: each waits for the device's queue.
-    with host_sync("sync.jitter", 2):
-        jx = torch.tensor(jitter_x, dtype=torch.float32, device=device)
-        jy = torch.tensor(jitter_y, dtype=torch.float32, device=device)
+    # The offsets enter as Python scalars, which the sums round to float32
+    # as a float32 tensor would be: a copy from host memory would wait for
+    # the device's queue.
+    jx, jy = float(jitter_x), float(jitter_y)
     rx = left + dx * (torch.arange(width, dtype=torch.float32, device=device)
                       + jx)
     ry = top + dy * (torch.arange(height, dtype=torch.float32, device=device)

@@ -14,6 +14,7 @@ tests, so the answer stays exact.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -21,18 +22,20 @@ import torch
 from ..config import TraceConfig
 from ..ops.math import cross, dot_fused, tri_intersect
 from ..types import FLT_MAX
-from ..utils.profiler import host_sync
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_axes(device: torch.device) -> torch.Tensor:
+    """``[2, 3]``: the x and y unit axes, rows of an identity built on
+    ``device`` once per device (a copy from host memory would wait for the
+    device's queue).  Read-only: callers share it."""
+    return torch.eye(3, dtype=torch.float32, device=device)[:2]
 
 
 def light_basis(light_dir: torch.Tensor):
     """Orthonormal (u, v, l) with l along the light direction."""
     l = light_dir / torch.linalg.vector_norm(light_dir)
-    # Two copies from host memory: each waits for the device's queue.
-    with host_sync("sync.light_basis", 2):
-        ex = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
-                          device=l.device)
-        ey = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                          device=l.device)
+    ex, ey = _unit_axes(l.device)
     u = cross(l, torch.where(l[0].abs() < 0.9, ex, ey))
     u = u / torch.linalg.vector_norm(u)
     v = cross(l, u)

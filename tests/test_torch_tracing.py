@@ -117,7 +117,9 @@ class Small:
 
 @pytest.fixture(scope="module")
 def small():
-    return Small()
+    s = Small()
+    s.progressive()  # copies the light to the device: later renders reuse it
+    return s
 
 
 def tree(record) -> list:
@@ -149,21 +151,18 @@ def check_record(record) -> None:
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
 
 
-SHADOW_LISTS = [(2, "sync.light_basis"), (2, "sync.tile_lists")]
 FRAME_TREE = [(0, "frame"), (1, "frame.rays"), (1, "sweep.cull"),
               (2, "sync.tile_lists"), (1, "sweep.A"),
               (1, "frame.shadow_rays"), (1, "sweep.shadow_cull"),
-              *SHADOW_LISTS, (1, "sweep.B"), (1, "frame.shade")]
+              (2, "sync.tile_lists"), (1, "sweep.B"), (1, "frame.shade")]
 
 
 def render_tree(depth: int) -> list:
     d = depth
     return [(d, "render"), (d + 1, "render.discrete"), (d + 2, "sweep.cull"),
             (d + 3, "sync.tile_lists"), (d + 2, "sweep.C"),
-            (d + 2, "sync.occlusion_light"), (d + 2, "sweep.shadow_cull"),
-            (d + 3, "sync.light_basis"), (d + 3, "sync.tile_lists"),
-            (d + 2, "sweep.H"), (d + 1, "render.shade"),
-            (d + 2, "sync.shade_light")]
+            (d + 2, "sweep.shadow_cull"), (d + 3, "sync.tile_lists"),
+            (d + 2, "sweep.H"), (d + 1, "render.shade")]
 
 
 def test_off_span_is_one_shared_object_and_records_nothing(small):
@@ -208,7 +207,7 @@ def test_frame_records_its_phases(small, monkeypatch):
     assert tree(record) == FRAME_TREE
     assert len({s.unit for s in record.spans}) == 1
     assert len(calls) == 2
-    assert record.counters == {"host_syncs": len(calls) + 2}
+    assert record.counters == {"host_syncs": len(calls)}
 
 
 def test_progressive_pass_records_its_phases(small, monkeypatch):
@@ -217,12 +216,11 @@ def test_progressive_pass_records_its_phases(small, monkeypatch):
         small.progressive()
     record = collect()
     check_record(record)
-    assert tree(record) == [(0, "pass"), (1, "sync.jitter"),
-                            *render_tree(1)]
+    assert tree(record) == [(0, "pass"), *render_tree(1)]
     assert len(calls) == 2
-    # The lists, the jitter's two copies, the light basis's two, the
-    # occlusion's and the shade's light.
-    assert record.counters == {"host_syncs": len(calls) + 6}
+    # The lists alone: the jitter enters as scalars, the light basis's
+    # axes and the light are made once and reused.
+    assert record.counters == {"host_syncs": len(calls)}
 
 
 def test_grad_step_records_build_render_and_grad(small, monkeypatch):
@@ -238,8 +236,23 @@ def test_grad_step_records_build_render_and_grad(small, monkeypatch):
     assert [s.name for s in roots] == ["accel.build", "render", "grad"]
     assert len({s.unit for s in record.spans}) == 3
     assert len(calls) == 2
-    assert record.counters == {"host_syncs": len(calls) + 4}
+    assert record.counters == {"host_syncs": len(calls)}
     assert getattr(profiler._local, "stack", []) == []
+
+
+def test_the_light_is_copied_and_counted_once_a_device(small, monkeypatch):
+    monkeypatch.setattr(render_grad, "_LIGHTS", {})
+    with tracing():
+        small.progressive()
+        first = collect()
+        small.progressive()
+        second = collect()
+    syncs = [s.name for s in first.spans if s.name.startswith("sync.")]
+    assert syncs == ["sync.tile_lists", "sync.occlusion_light",
+                     "sync.tile_lists"]
+    assert first.counters == {"host_syncs": 3}
+    assert second.counters == {"host_syncs": 2}
+    assert len(render_grad._LIGHTS) == 1
 
 
 def test_vjp_backward_records_recompute_and_autograd(small):
@@ -250,8 +263,8 @@ def test_vjp_backward_records_recompute_and_autograd(small):
     names = tree(record)
     grad = names.index((0, "grad"))
     assert names[grad:] == [(0, "grad"), (1, "grad.recompute"),
-                            (2, "sync.shade_light"), (1, "grad.autograd"),
-                            (2, "scatter.G"), (2, "scatter.G")]
+                            (1, "grad.autograd"), (2, "scatter.G"),
+                            (2, "scatter.G")]
 
 
 @pytest.mark.parametrize("route", ["frame", "progressive", "step", "vjp"])
@@ -340,7 +353,7 @@ def test_device_trace_exports_the_program_spans(small, tmp_path):
         assert any(inside(e, s) for e in ops if e["name"] == "aten::nonzero")
     counters = [e for e in trace["traceEvents"]
                 if e.get("cat") == "program" and e["ph"] == "C"]
-    assert counters[0]["args"] == {"host_syncs": 4}
+    assert counters[0]["args"] == {"host_syncs": 2}
 
 
 def test_profiler_phase_is_a_span():
@@ -394,7 +407,57 @@ def test_host_syncs_count_every_synchronizing_call(bench_sized):
     syncs = [w for w in caught
              if "called a synchronizing" in str(w.message)]
     record = collect()
-    assert record.counters["host_syncs"] == len(syncs) == 10
+    assert record.counters["host_syncs"] == len(syncs) == 4
+
+
+def _sync_sites(run) -> list:
+    """The innermost span open at each synchronizing call that
+    `torch.cuda.set_sync_debug_mode` reports while ``run`` runs traced."""
+    sites = []
+
+    def show(message, *args, **kw):
+        if "called a synchronizing" in str(message):
+            stack = getattr(profiler._local, "stack", [])
+            sites.append(stack[-1].name if stack else None)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with tracing():
+                run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+@pytest.mark.card
+def test_a_pass_and_an_adam_step_wait_only_for_the_lists(bench_sized):
+    s = bench_sized
+    leaves = [s.data.positions.clone().requires_grad_(),
+              s.data.textures.clone().requires_grad_()]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+
+    def adam_step():
+        p, tex = leaves
+        accel = build_clusters(p.detach(), s.data.faces, CONFIG.cluster)
+        loss = render_grad.l2_image_loss(
+            s.data._replace(positions=p, textures=tex), accel, s.rays, s.eye,
+            s.orient, s.target, CONFIG, frame_hw=(s.side, s.side),
+            with_shadows=True)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    for run in (s.progressive, adam_step):
+        run()
+        torch.cuda.synchronize()
+        collect()
+        sites = _sync_sites(run)
+        assert sites == ["sync.tile_lists", "sync.tile_lists"]
+        assert collect().counters["host_syncs"] == 2
 
 
 @pytest.mark.card
