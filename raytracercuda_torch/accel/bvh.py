@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import BvhConfig
+from ..utils.profiler import span
 
 
 #: Leaf ranges pack into one int32 as ``first * LEAF_PACK + count``;
@@ -197,111 +198,120 @@ def build_bvh(positions: torch.Tensor, faces: torch.Tensor,
       positions: ``[V,3]`` float32 vertex positions.
       faces: ``[F,4]`` face table (3 vertex ids + mesh id).
       cfg: build knobs.
+
+    Span ``accel.build``.
     """
-    if cfg.max_leaf_faces >= LEAF_PACK:
-        raise ValueError(f"max_leaf_faces {cfg.max_leaf_faces} must be "
-                         f"below LEAF_PACK ({LEAF_PACK})")
-    positions = positions.to(torch.float32)
-    num_faces = faces.shape[0]
-    dev = positions.device
-    corners = positions[faces[:, :3].reshape(-1).long()].reshape(
-        num_faces, 3, 3)
-    v0, v1, v2 = corners[:, 0], corners[:, 1], corners[:, 2]
-    tri_min = _fmin(v0, _fmin(v1, v2))
-    tri_max = _fmax(v0, _fmax(v1, v2))
-    centroids = (tri_min + tri_max) * 0.5
-    # The quantization below maps a signed zero bound to the same code
-    # either way, so torch's own reductions serve here.
-    smin = tri_min.amin(dim=0)
-    smax = tri_max.amax(dim=0)
+    with span("accel.build"):
+        if cfg.max_leaf_faces >= LEAF_PACK:
+            raise ValueError(f"max_leaf_faces {cfg.max_leaf_faces} must be "
+                             f"below LEAF_PACK ({LEAF_PACK})")
+        positions = positions.to(torch.float32)
+        num_faces = faces.shape[0]
+        dev = positions.device
+        corners = positions[faces[:, :3].reshape(-1).long()].reshape(
+            num_faces, 3, 3)
+        v0, v1, v2 = corners[:, 0], corners[:, 1], corners[:, 2]
+        tri_min = _fmin(v0, _fmin(v1, v2))
+        tri_max = _fmax(v0, _fmax(v1, v2))
+        centroids = (tri_min + tri_max) * 0.5
+        # The quantization below maps a signed zero bound to the same code
+        # either way, so torch's own reductions serve here.
+        smin = tri_min.amin(dim=0)
+        smax = tri_max.amax(dim=0)
 
-    codes = morton_codes(centroids, smin, smax, cfg.morton_bits)
-    codes, order = torch.sort(codes, stable=True)
+        codes = morton_codes(centroids, smin, smax, cfg.morton_bits)
+        codes, order = torch.sort(codes, stable=True)
 
-    def ints(*vals):
-        return torch.tensor(vals, dtype=torch.int64, device=dev)
+        def ints(*vals):
+            return torch.tensor(vals, dtype=torch.int64, device=dev)
 
-    if num_faces == 1:
-        one = dict(node_min=tri_min, node_max=tri_max, hit_link=ints(-1),
-                   skip_link=ints(-1),
-                   is_leaf=torch.ones(1, dtype=torch.bool, device=dev),
-                   leaf_first=ints(0), leaf_count=ints(1), face_order=order)
-        packed = _pack_layouts(*one.values(), v0, v1, v2)
-        return Bvh(**one, packed_nodes=packed[0], packed_links=packed[1],
-                   packed_tris=packed[2])
+        if num_faces == 1:
+            one = dict(node_min=tri_min, node_max=tri_max,
+                       hit_link=ints(-1), skip_link=ints(-1),
+                       is_leaf=torch.ones(1, dtype=torch.bool, device=dev),
+                       leaf_first=ints(0), leaf_count=ints(1),
+                       face_order=order)
+            packed = _pack_layouts(*one.values(), v0, v1, v2)
+            return Bvh(**one, packed_nodes=packed[0], packed_links=packed[1],
+                       packed_tris=packed[2])
 
-    n = num_faces
-    num_nodes = 2 * n - 1
-    leaf_base = n - 1  # leaf j lives at node leaf_base + j
+        n = num_faces
+        num_nodes = 2 * n - 1
+        leaf_base = n - 1  # leaf j lives at node leaf_base + j
 
-    first, last, gamma = _karras_ranges(codes)
-    left = torch.where(first == gamma, leaf_base + gamma, gamma)
-    right = torch.where(last == gamma + 1, leaf_base + gamma + 1, gamma + 1)
+        first, last, gamma = _karras_ranges(codes)
+        left = torch.where(first == gamma, leaf_base + gamma, gamma)
+        right = torch.where(last == gamma + 1, leaf_base + gamma + 1,
+                            gamma + 1)
 
-    # Parent pointers (each node has exactly one parent).
-    internal_ids = torch.arange(n - 1, dtype=torch.int64, device=dev)
-    parent = torch.full((num_nodes,), -1, dtype=torch.int64, device=dev)
-    parent[left] = internal_ids
-    parent[right] = internal_ids
+        # Parent pointers (each node has exactly one parent).
+        internal_ids = torch.arange(n - 1, dtype=torch.int64, device=dev)
+        parent = torch.full((num_nodes,), -1, dtype=torch.int64, device=dev)
+        parent[left] = internal_ids
+        parent[right] = internal_ids
 
-    # Per-node sorted-face ranges.
-    leaf_ids = torch.arange(n, dtype=torch.int64, device=dev)
-    node_first = torch.cat([first, leaf_ids])
-    node_last = torch.cat([last, leaf_ids])
-    size = node_last - node_first + 1
+        # Per-node sorted-face ranges.
+        leaf_ids = torch.arange(n, dtype=torch.int64, device=dev)
+        node_first = torch.cat([first, leaf_ids])
+        node_last = torch.cat([last, leaf_ids])
+        size = node_last - node_first + 1
 
-    # Boxes as a range min/max query: a node's box is the union of a
-    # contiguous run of sorted leaf boxes, answered from a sparse table
-    # with two gathers.
-    leaf_min = tri_min[order]
-    leaf_max = tri_max[order]
-    log2n = max(1, (n - 1).bit_length())
+        # Boxes as a range min/max query: a node's box is the union of a
+        # contiguous run of sorted leaf boxes, answered from a sparse table
+        # with two gathers.
+        leaf_min = tri_min[order]
+        leaf_max = tri_max[order]
+        log2n = max(1, (n - 1).bit_length())
 
-    def sparse_table(leaf_vals, combine):
-        tbl = [leaf_vals]
-        for k in range(1, log2n + 1):
-            prev = tbl[-1]
-            sh = min(1 << (k - 1), n - 1)
-            shifted = torch.cat([prev[sh:], prev[-1:].expand(sh, 3)], dim=0)
-            tbl.append(combine(prev, shifted))
-        return torch.stack(tbl)  # [log2n+1, n, 3]
+        def sparse_table(leaf_vals, combine):
+            tbl = [leaf_vals]
+            for k in range(1, log2n + 1):
+                prev = tbl[-1]
+                sh = min(1 << (k - 1), n - 1)
+                shifted = torch.cat([prev[sh:], prev[-1:].expand(sh, 3)],
+                                    dim=0)
+                tbl.append(combine(prev, shifted))
+            return torch.stack(tbl)  # [log2n+1, n, 3]
 
-    length = last - first + 1
-    klev = 31 - _clz32(length)  # floor(log2(len)) per internal node
-    hi_start = last - (torch.ones_like(klev) << klev) + 1
+        length = last - first + 1
+        klev = 31 - _clz32(length)  # floor(log2(len)) per internal node
+        hi_start = last - (torch.ones_like(klev) << klev) + 1
 
-    def rmq(leaf_vals, combine):
-        flat = sparse_table(leaf_vals, combine).reshape(-1, 3)
-        return combine(flat[klev * n + first], flat[klev * n + hi_start])
+        def rmq(leaf_vals, combine):
+            flat = sparse_table(leaf_vals, combine).reshape(-1, 3)
+            return combine(flat[klev * n + first], flat[klev * n + hi_start])
 
-    node_min = torch.cat([rmq(leaf_min, _fmin), leaf_min])
-    node_max = torch.cat([rmq(leaf_max, _fmax), leaf_max])
+        node_min = torch.cat([rmq(leaf_min, _fmin), leaf_min])
+        node_max = torch.cat([rmq(leaf_max, _fmax), leaf_max])
 
-    # Leaf collapse: a node becomes a traversal leaf when its subtree is
-    # small enough and its parent's is not.
-    k = cfg.max_leaf_faces
-    parent_size = torch.where(parent >= 0, size[parent.clamp(min=0)], n + 1)
-    is_leaf = (size <= k) & (parent_size > k)
+        # Leaf collapse: a node becomes a traversal leaf when its subtree is
+        # small enough and its parent's is not.
+        k = cfg.max_leaf_faces
+        parent_size = torch.where(parent >= 0, size[parent.clamp(min=0)],
+                                  n + 1)
+        is_leaf = (size <= k) & (parent_size > k)
 
-    # Skip links in closed form: the node visited after finishing subtree
-    # [a, b] is the largest node whose range starts at b+1; none follows
-    # b == n-1.
-    node_ids = torch.arange(num_nodes, dtype=torch.int64, device=dev)
-    best_size = torch.zeros(n, dtype=torch.int64, device=dev).scatter_reduce(
-        0, node_first, size, "amax")
-    winner = size == best_size[node_first]
-    best_id = torch.full((n,), -1, dtype=torch.int64,
-                         device=dev).scatter_reduce(
-        0, node_first, torch.where(winner, node_ids, -1), "amax")
-    skip_link = torch.where(node_last == n - 1, -1,
-                            best_id[torch.clamp(node_last + 1, max=n - 1)])
-    hit_link = torch.cat([left, torch.full((n,), -1, dtype=torch.int64,
-                                           device=dev)])
+        # Skip links in closed form: the node visited after finishing subtree
+        # [a, b] is the largest node whose range starts at b+1; none follows
+        # b == n-1.
+        node_ids = torch.arange(num_nodes, dtype=torch.int64, device=dev)
+        best_size = torch.zeros(n, dtype=torch.int64,
+                                device=dev).scatter_reduce(
+            0, node_first, size, "amax")
+        winner = size == best_size[node_first]
+        best_id = torch.full((n,), -1, dtype=torch.int64,
+                             device=dev).scatter_reduce(
+            0, node_first, torch.where(winner, node_ids, -1), "amax")
+        skip_link = torch.where(node_last == n - 1, -1,
+                                best_id[torch.clamp(node_last + 1, max=n - 1)])
+        hit_link = torch.cat([left, torch.full((n,), -1, dtype=torch.int64,
+                                               device=dev)])
 
-    packed_nodes, packed_links, packed_tris = _pack_layouts(
-        node_min, node_max, hit_link, skip_link, is_leaf, node_first, size,
-        order, v0, v1, v2)
-    return Bvh(node_min=node_min, node_max=node_max, hit_link=hit_link,
-               skip_link=skip_link, is_leaf=is_leaf, leaf_first=node_first,
-               leaf_count=size, face_order=order, packed_nodes=packed_nodes,
-               packed_links=packed_links, packed_tris=packed_tris)
+        packed_nodes, packed_links, packed_tris = _pack_layouts(
+            node_min, node_max, hit_link, skip_link, is_leaf, node_first, size,
+            order, v0, v1, v2)
+        return Bvh(node_min=node_min, node_max=node_max,
+                   hit_link=hit_link, skip_link=skip_link, is_leaf=is_leaf,
+                   leaf_first=node_first, leaf_count=size, face_order=order,
+                   packed_nodes=packed_nodes, packed_links=packed_links,
+                   packed_tris=packed_tris)

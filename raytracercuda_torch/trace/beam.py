@@ -50,6 +50,7 @@ from ..accel.bvh import Bvh, LEAF_PACK
 from ..config import BvhConfig, TraceConfig
 from ..ops.cuda_build import kernel_fn, raw_stream
 from ..types import FLT_MAX, Hit
+from ..utils.profiler import count, span
 from .dense import tile_frustum_planes, tile_pixels, untile_pixels
 from .sweep import _check_cuda, _eps_args, _pick, t_eps_of
 from .traverse import kernel_rows, row_mt, slot_hit
@@ -313,18 +314,21 @@ def _beam_cuda(bvh: Bvh, eye, dirs, planes, height: int, width: int,
         if _FLAGS is None or _FLAGS.numel() < 2 * end:
             _FLAGS = torch.zeros(2 * end, dtype=torch.int32,
                                  pin_memory=True)
-        err = kernel_fn("rt_beam")(
-            node_rows.data_ptr(), num_nodes, tri_rows.data_ptr(), num_slots,
-            eye.data_ptr(), dirs.data_ptr(), planes.data_ptr(), height,
-            width, tile_px, queue, k_leaf, steps, BEAM_CHUNK,
-            *_eps_args(t_eps), keys.data_ptr(), cursor.data_ptr(),
-            log.data_ptr(), counters.data_ptr(),
-            _FLAGS.data_ptr(), begin, end, ctypes.addressof(info),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            slot.data_ptr(), raw_stream(dev))
+        # The call waits for the device ``info[2]`` times, once a batch.
+        with span("sync.beam"):
+            err = kernel_fn("rt_beam")(
+                node_rows.data_ptr(), num_nodes, tri_rows.data_ptr(),
+                num_slots, eye.data_ptr(), dirs.data_ptr(),
+                planes.data_ptr(), height, width, tile_px, queue, k_leaf,
+                steps, BEAM_CHUNK, *_eps_args(t_eps), keys.data_ptr(),
+                cursor.data_ptr(), log.data_ptr(), counters.data_ptr(),
+                _FLAGS.data_ptr(), begin, end, ctypes.addressof(info),
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                slot.data_ptr(), raw_stream(dev))
         if err:
             raise RuntimeError(f"kernel L launch failed: CUDA error {err}")
         syncs += info[2]
+        count("host_syncs", info[2])
         if not info[1]:
             break
         # More rounds: keep the earlier rounds' queues (the epilogue reads
@@ -366,25 +370,31 @@ def trace_beam(
       eye: ``[3]`` common ray origin.
       dirs: ``[H*W, 3]`` row-major pixel directions (already oriented).
       height/width: frame dims; inferred square if omitted.
+
+    Span ``bvh.L``; kernel L's waits for the device are ``sync.beam``
+    spans, counted under ``host_syncs``.
     """
-    num_rays = dirs.shape[0]
-    if height is None or width is None:
-        side = int(round(num_rays ** 0.5))
-        if side * side != num_rays:
-            raise ValueError("a frame that is not square needs height and "
-                             "width")
-        height = width = side
-    if height % tile_px or width % tile_px:
-        raise ValueError(f"{height}x{width} not divisible by tile {tile_px}")
-    dirs = dirs.to(torch.float32).contiguous()
-    eye = eye.to(torch.float32).reshape(3).contiguous()
-    planes = tile_frustum_planes(tile_pixels(dirs, height, width, tile_px),
-                                 tile_px).contiguous()
-    run = _pick(dirs, _beam_plain, _beam_cuda)
-    t, u, v, slot = run(bvh, eye, dirs, planes, height, width, tile_px,
-                        queue, cfg.max_leaf_faces, walk_steps(cfg.max_iters),
-                        t_eps_of(trace_cfg), tiles_per_chunk)
-    return slot_hit(bvh, t, u, v, slot)
+    with span("bvh.L"):
+        num_rays = dirs.shape[0]
+        if height is None or width is None:
+            side = int(round(num_rays ** 0.5))
+            if side * side != num_rays:
+                raise ValueError("a frame that is not square needs height and "
+                                 "width")
+            height = width = side
+        if height % tile_px or width % tile_px:
+            raise ValueError(f"{height}x{width} not divisible by tile "
+                             f"{tile_px}")
+        dirs = dirs.to(torch.float32).contiguous()
+        eye = eye.to(torch.float32).reshape(3).contiguous()
+        planes = tile_frustum_planes(
+            tile_pixels(dirs, height, width, tile_px), tile_px).contiguous()
+        run = _pick(dirs, _beam_plain, _beam_cuda)
+        t, u, v, slot = run(bvh, eye, dirs, planes, height, width, tile_px,
+                            queue, cfg.max_leaf_faces,
+                            walk_steps(cfg.max_iters), t_eps_of(trace_cfg),
+                            tiles_per_chunk)
+        return slot_hit(bvh, t, u, v, slot)
 
 
 def occlusion_beam(

@@ -16,16 +16,22 @@ call:
 Shade blocks are built once per (scene, clusters) pair.  On any other
 structure (BVH, GRID, WAVEFRONT, or none for BRUTE; JAX `_frame_xla`) it
 traces with `pipeline.trace_hit` (kernel L or K on BVH, M on GRID), tests
-shadows with `any_hit_brute` (kernel E) from origins offset by ``light *
-shadow_eps``, and shades through the per-face rows of
-`shade.build_face_tables`.  The tensors' device picks the kernels: CUDA
-kernels on a GPU, their plain PyTorch versions on the CPU.
+shadows from origins offset by ``light * shadow_eps`` and shades through
+the per-face rows of `shade.build_face_tables`.  On an LBVH (BVH and
+WAVEFRONT) the shadow rays walk the tree with `any_hit_bvh` (kernel K's
+any hit), each with ``t_max`` FLT_MAX where its primary ray hit and 0
+where it missed, so a missed ray's walk ends at the root; BRUTE and GRID
+test them with `any_hit_brute` (kernel E) and keep ``shadow & hit_mask``.
+Both give the same mask, bit for bit, as JAX `_frame_xla`'s brute-force
+test.  The tensors' device picks the kernels: CUDA kernels on a GPU,
+their plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..accel.bvh import Bvh
 from ..accel.clusters import ClusterSet
 from ..config import RenderConfig
 from ..models.scene import SceneData
@@ -84,6 +90,10 @@ class FrameRenderer:
             self.blocks, self.has_uv = shade_segment_blocks(accel, scene)
         else:
             self.tables = build_face_tables(scene)
+            # On the device once: a copy from host memory in each frame
+            # would wait for the frame's kernels.
+            self.background = torch.tensor(self.background,
+                                           dtype=torch.float32, device=dev)
 
     def _trace(self, eye, orient, rays):
         # dirs = rays @ orient.T, written out per component so the three
@@ -166,31 +176,45 @@ class FrameRenderer:
 
     def _render_rows(self, eye, orient, rays):
         """The route of every structure other than CLUSTER (JAX
-        `_frame_xla`): `trace_hit`, shadows by kernel E, per-face rows."""
-        from .bruteforce import any_hit_brute
+        `_frame_xla`): `trace_hit`, `_shadow_rows`, per-face rows."""
         from .pipeline import rotate_rays, trace_hit
 
-        tc = self.config.trace
-        dirs = rotate_rays(rays, orient)
-        origin = eye[None, :].expand(dirs.shape)
+        with span("frame.rays"):
+            dirs = rotate_rays(rays, orient)
+            origin = eye[None, :].expand(dirs.shape)
         hit = trace_hit(self.scene, self.accel, origin, dirs, self.config,
                         frame_hw=(self.height, self.width),
                         common_origin=eye)
-        shadow = None
-        if self.shadows:
+        shadow = self._shadow_rows(origin, dirs, hit) if self.shadows \
+            else None
+        with span("frame.shade"):
+            rgb = shade_lambert_rgb(self.scene, hit, origin, dirs,
+                                    light_dir=self.light, shadow_mask=shadow,
+                                    ambient=self.ambient,
+                                    background=self.background,
+                                    tables=self.tables)
+            return pack_shaded(rgb)
+
+    def _shadow_rows(self, origin, dirs, hit):
+        """Occlusion toward the light of each primary ray's hit point:
+        False wherever the primary ray missed."""
+        scene, tc = self.scene, self.config.trace
+        with span("frame.shadow_rays"):
             p = origin + dirs * torch.clamp(hit.t, max=1e6)[..., None]
             so = (torch.where(hit.hit_mask[..., None], p, origin)
                   + self.light * self.shadow_eps)
-            shadow = any_hit_brute(
-                self.scene.positions, self.scene.faces, so,
-                self.light.expand(dirs.shape), float(FLT_MAX), tc)
-            shadow = shadow & hit.hit_mask
-        rgb = shade_lambert_rgb(self.scene, hit, origin, dirs,
-                                light_dir=self.light, shadow_mask=shadow,
-                                ambient=self.ambient,
-                                background=self.background,
-                                tables=self.tables)
-        return pack_shaded(rgb)
+            light = self.light.expand(dirs.shape)
+        if isinstance(self.accel, Bvh):
+            from .traverse import any_hit_bvh
+
+            # t_max 0 ends a missed ray's walk at the root: not occluded.
+            t_max = torch.where(hit.hit_mask, float(FLT_MAX), 0.0)
+            return any_hit_bvh(self.accel, scene.positions, scene.faces, so,
+                               light, t_max, self.config.bvh, tc)
+        from .bruteforce import any_hit_brute
+
+        return any_hit_brute(scene.positions, scene.faces, so, light,
+                             float(FLT_MAX), tc) & hit.hit_mask
 
     def render(self, eye: torch.Tensor, orient: torch.Tensor,
                rays: torch.Tensor) -> torch.Tensor:

@@ -119,7 +119,9 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
                       tables: Optional[FaceTables] = None) -> torch.Tensor:
     """Lambert N·L shading with optional shadow attenuation -> float RGB
     ``[..., 3]``.  The generic route interpolates, then shades; with
-    ``tables`` (`build_face_tables`) each hit is one row gather."""
+    ``tables`` (`build_face_tables`) each hit is one row gather.  A
+    ``light_dir`` or ``background`` given as a float32 tensor on the rays'
+    device is used without a copy from the host."""
     del ray_origin  # the JAX signature's; a directional light needs none
     dev = ray_dir.device
     if tables is not None:
@@ -152,7 +154,7 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
     if albedo is None:
         albedo = material_albedo(scene, hit)
     rgb = albedo * (ambient + (1.0 - ambient) * ndotl)[..., None]
-    bg = torch.tensor(background, dtype=torch.float32, device=dev)
+    bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
     return torch.where(hit.hit_mask[..., None], rgb, bg)
 
 

@@ -48,6 +48,7 @@ from ..config import BvhConfig, TraceConfig
 from ..ops.cuda_build import kernel_fn, raw_stream
 from ..ops.math import box_ray_intersect
 from ..types import FLT_MAX, Hit
+from ..utils.profiler import span
 from .bruteforce import _mt_oracle
 from .sweep import _check_cuda, _eps_args, _pick, t_eps_of
 
@@ -382,13 +383,14 @@ def trace_bvh(
     """Closest hit for ``[R,3]`` rays against the threaded LBVH.
     ``positions``/``faces`` are unused (the geometry is in
     ``bvh.packed_tris``) but kept so all tracer backends share one
-    signature; ``origin`` is ``[R,3]`` or ``[3]``."""
+    signature; ``origin`` is ``[R,3]`` or ``[3]``.  Span ``bvh.K``."""
     del positions, faces
-    origin, direction = _rays(origin, direction)
-    run = _pick(direction, _walk_closest_plain, _walk_closest_cuda)
-    t, u, v, slot = run(bvh, origin, direction, cfg.max_iters,
-                        t_eps_of(trace_cfg))
-    return slot_hit(bvh, t, u, v, slot)
+    with span("bvh.K"):
+        origin, direction = _rays(origin, direction)
+        run = _pick(direction, _walk_closest_plain, _walk_closest_cuda)
+        t, u, v, slot = run(bvh, origin, direction, cfg.max_iters,
+                            t_eps_of(trace_cfg))
+        return slot_hit(bvh, t, u, v, slot)
 
 
 def any_hit_bvh(
@@ -402,12 +404,14 @@ def any_hit_bvh(
     trace_cfg: TraceConfig = TraceConfig(),
 ) -> torch.Tensor:
     """Occlusion (shadow-ray) query: True where anything lies in
-    ``(t_epsilon, t_max)``; ``t_max`` is ``[R]`` or a scalar."""
+    ``(t_epsilon, t_max)``; ``t_max`` is ``[R]`` or a scalar.  Span
+    ``bvh.K``."""
     del positions, faces
-    origin, direction = _rays(origin, direction)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=direction.device).expand(
-        direction.shape[:1]).contiguous()
-    run = _pick(direction, _walk_any_plain, _walk_any_cuda)
-    return run(bvh, origin, direction, t_max, cfg.max_iters,
-               np.float32(trace_cfg.t_epsilon))
+    with span("bvh.K"):
+        origin, direction = _rays(origin, direction)
+        t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                device=direction.device).expand(
+            direction.shape[:1]).contiguous()
+        run = _pick(direction, _walk_any_plain, _walk_any_cuda)
+        return run(bvh, origin, direction, t_max, cfg.max_iters,
+                   np.float32(trace_cfg.t_epsilon))

@@ -21,14 +21,21 @@ The spans the routes record:
   * a CLUSTER frame (`trace/frame.py`): ``frame`` > ``frame.rays``,
     ``sweep.cull``, ``sweep.A``, ``frame.shadow_rays``,
     ``sweep.shadow_cull``, ``sweep.B``, ``frame.shade``;
+  * an LBVH frame (BVH, or WAVEFRONT without ``bvh.L``): ``frame`` >
+    ``frame.rays``, ``bvh.L`` (`trace_beam`, kernel L, holding
+    ``sync.beam``), ``frame.shadow_rays``, ``bvh.K`` (`any_hit_bvh`,
+    kernel K), ``frame.shade``; ``bvh.L`` and ``bvh.K`` (also
+    `trace_bvh`) wherever those functions are called;
   * the differentiable render (`diff/render_grad.py`): ``render`` >
     ``render.discrete`` (``sweep.cull``, ``sweep.C``,
     ``sweep.shadow_cull``, ``sweep.H``) and ``render.shade``, under
     ``pass`` in `progressive_step`; its backward ``grad`` (with
     ``grad.recompute`` and ``grad.autograd`` in `_RenderVJP`) holding
-    ``scatter.G``; ``accel.build`` in `build_clusters`;
-  * ``sync.<site>`` where a route waits for the device, each also counted
-    under ``host_syncs``.
+    ``scatter.G``; ``accel.build`` in `build_clusters` and `build_bvh`;
+  * ``sync.<site>`` where a route waits for the device, each wait also
+    counted under ``host_syncs``: ``sync.beam`` around each call of
+    kernel L's C entry, which waits once a batch of rounds and adds its
+    own count of waits.
 
 `Profiler` is the ``ProfileItem`` analog (`TestProgram/Program.h:21-32`,
 `Program.cpp:358-379`; counterpart of `raytracercuda_tpu/utils/

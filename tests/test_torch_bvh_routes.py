@@ -165,7 +165,9 @@ RENDERER_CASES = {
 @pytest.mark.parametrize("case", sorted(RENDERER_CASES))
 def test_frame_renderer_matches_jax(case):
     """`FrameRenderer` off the CLUSTER route: `trace_hit`, shadows through
-    `any_hit_brute` and the per-face rows, against JAX `_frame_xla`."""
+    `any_hit_bvh` (kernel K's any hit) on BVH and WAVEFRONT and
+    `any_hit_brute` on BRUTE, and the per-face rows, against JAX
+    `_frame_xla` (which tests every shadow ray by brute force)."""
     kind, textured, shadows = RENDERER_CASES[case]
     side = 32
     f = numpy_scene(900, seed=17, textured=textured)

@@ -1,7 +1,8 @@
 """The port's program tracing (`raytracercuda_torch/utils/profiler.py`):
-spans and counters off and on, the span trees of a CLUSTER frame, a
-progressive pass and a gradient step, results unchanged by tracing, the
-clock shared with `torch.profiler`, and `device_trace`'s export.
+spans and counters off and on, the span trees of a CLUSTER frame, an
+LBVH frame, a progressive pass and a gradient step, kernel L's waits,
+results unchanged by tracing, the clock shared with `torch.profiler`, and
+`device_trace`'s export.
 
 CPU tests run on small scenes through the kernels' plain versions.  The
 tests marked ``card`` need an NVIDIA GPU and skip without one; on the
@@ -10,6 +11,7 @@ card: ``python -m pytest tests/test_torch_tracing.py -m card
 
 from __future__ import annotations
 
+import ctypes
 import json
 import signal
 import threading
@@ -27,7 +29,7 @@ from raytracercuda_torch.models.camera import (camera_ray_grid,
                                                orient_from_pan_pitch)
 from raytracercuda_torch.models.procedural import bumpy_sphere_mesh
 from raytracercuda_torch.models.scene import Material, Scene
-from raytracercuda_torch.trace import sweep
+from raytracercuda_torch.trace import beam, sweep
 from raytracercuda_torch.trace.frame import FrameRenderer
 from raytracercuda_torch.trace.progressive import (init_progressive,
                                                    progressive_step)
@@ -38,6 +40,7 @@ from raytracercuda_torch.utils.profiler import (Profiler, collect,
 
 torch.set_num_threads(1)
 CONFIG = RenderConfig(accel=AccelKind.CLUSTER)
+BVH_CONFIG = RenderConfig(accel=AccelKind.BVH)
 SIDE = 32
 
 
@@ -60,11 +63,12 @@ def time_limit():
 
 
 class Small:
-    """A textured bumpy sphere in front of the eye, its clusters and the
-    pinhole rays of a ``side``-pixel frame, on ``device``."""
+    """A textured bumpy sphere in front of the eye, its structure (the
+    clusters unless ``config`` says otherwise) and the pinhole rays of a
+    ``side``-pixel frame, on ``device``."""
 
-    def __init__(self, faces=800, side=SIDE, device="cpu"):
-        scene = Scene(CONFIG, device=device)
+    def __init__(self, faces=800, side=SIDE, device="cpu", config=CONFIG):
+        scene = Scene(config, device=device)
         mesh = bumpy_sphere_mesh(faces, 1.0, (0.0, 0.0, 3.0), seed=3)
         mesh.material_id = 0
         scene.add_mesh(mesh)
@@ -79,7 +83,7 @@ class Small:
         self.target = torch.rand(side * side, 3,
                                  generator=torch.Generator().manual_seed(2)
                                  ).to(device)
-        self.renderer = FrameRenderer(self.data, self.accel, CONFIG, side,
+        self.renderer = FrameRenderer(self.data, self.accel, config, side,
                                       side)
 
     def frame(self):
@@ -122,6 +126,11 @@ def small():
     return s
 
 
+@pytest.fixture(scope="module")
+def small_bvh():
+    return Small(config=BVH_CONFIG)
+
+
 def tree(record) -> list:
     """``(depth, name)`` of each span in start order, by its parents."""
     by_id = {s.id: s for s in record.spans}
@@ -155,6 +164,14 @@ FRAME_TREE = [(0, "frame"), (1, "frame.rays"), (1, "sweep.cull"),
               (2, "sync.tile_lists"), (1, "sweep.A"),
               (1, "frame.shadow_rays"), (1, "sweep.shadow_cull"),
               (2, "sync.tile_lists"), (1, "sweep.B"), (1, "frame.shade")]
+
+
+def lbvh_frame_tree(beam_calls: int) -> list:
+    """The spans of an LBVH frame whose kernel L made ``beam_calls`` calls
+    of its C entry."""
+    return [(0, "frame"), (1, "frame.rays"), (1, "bvh.L"),
+            *[(2, "sync.beam")] * beam_calls, (1, "frame.shadow_rays"),
+            (1, "bvh.K"), (1, "frame.shade")]
 
 
 def render_tree(depth: int) -> list:
@@ -208,6 +225,53 @@ def test_frame_records_its_phases(small, monkeypatch):
     assert len({s.unit for s in record.spans}) == 1
     assert len(calls) == 2
     assert record.counters == {"host_syncs": len(calls)}
+
+
+def test_lbvh_frame_records_its_phases(small_bvh):
+    with tracing():
+        small_bvh.frame()
+    record = collect()
+    check_record(record)
+    assert tree(record) == lbvh_frame_tree(0)
+    # The plain walks wait for nothing that is counted.
+    assert record.counters == {}
+
+
+def test_kernel_l_waits_are_counted_as_its_entry_reports_them(
+        small_bvh, monkeypatch):
+    """`beam._beam_cuda` on the frame's route, over a stand-in for kernel
+    L's C entry: the first call reports a further batch of rounds, so
+    the wrapper calls it twice, each call a ``sync.beam`` span, and
+    ``host_syncs`` adds up the waits each call reports."""
+    reports = [(8, 1, 2, 8), (11, 0, 1, 16)]  # rounds, more, waits, launched
+    calls = []
+
+    def rt_beam(*args):
+        rounds, more, waits, launched = reports[len(calls)]
+        calls.append(args)
+        info = (ctypes.c_int * 4).from_address(args[-6])
+        info[:] = [rounds, more, waits, launched]
+        num_rays = args[7] * args[8]
+        for ptr in args[-5:-1]:  # t, u, v, slot: all hit at t 0, slot 0
+            ctypes.memset(ptr, 0, 4 * num_rays)
+        return 0
+
+    def entry(name):
+        assert name == "rt_beam"
+        return rt_beam
+
+    monkeypatch.setattr(beam, "_pick", lambda x, plain, cuda: cuda)
+    monkeypatch.setattr(beam, "_check_cuda", lambda *args: None)
+    monkeypatch.setattr(beam, "kernel_fn", entry)
+    monkeypatch.setattr(beam, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(beam, "_FLAGS", torch.zeros(64, dtype=torch.int32))
+    with tracing():
+        small_bvh.frame()
+    record = collect()
+    check_record(record)
+    assert len(calls) == 2
+    assert tree(record) == lbvh_frame_tree(2)
+    assert record.counters == {"host_syncs": 3}
 
 
 def test_progressive_pass_records_its_phases(small, monkeypatch):
@@ -267,9 +331,11 @@ def test_vjp_backward_records_recompute_and_autograd(small):
                             (2, "scatter.G")]
 
 
-@pytest.mark.parametrize("route", ["frame", "progressive", "step", "vjp"])
-def test_results_are_bit_equal_with_tracing_on(small, route):
+@pytest.mark.parametrize("route", ["frame", "progressive", "step", "vjp",
+                                   "lbvh_frame"])
+def test_results_are_bit_equal_with_tracing_on(small, small_bvh, route):
     run = {"frame": lambda: (small.frame(),),
+           "lbvh_frame": lambda: (small_bvh.frame(),),
            "progressive": lambda: (small.progressive(),),
            "step": small.step,
            "vjp": lambda: small.step(vjp=True)}[route]
@@ -431,6 +497,35 @@ def _sync_sites(run) -> list:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return sites
+
+
+@pytest.mark.card
+def test_an_lbvh_frame_waits_only_inside_kernel_l(monkeypatch):
+    """A 512x512 LBVH frame over 69,451 faces: no synchronizing call that
+    torch sees, and ``host_syncs`` equal to the waits kernel L's entry
+    reports, in ``sync.beam`` under ``bvh.L``."""
+    s = Small(69451, 512, _card(), config=BVH_CONFIG)
+    s.frame()
+    torch.cuda.synchronize()
+    collect()
+    waits = []
+    real = beam._beam_cuda
+
+    def recorded(*args, **kw):
+        stats = {}
+        out = real(*args, **kw, stats=stats)
+        waits.append(stats["syncs"])
+        return out
+
+    monkeypatch.setattr(beam, "_beam_cuda", recorded)
+    sites = _sync_sites(s.frame)
+    record = collect()
+    check_record(record)
+    beam_calls = sum(sp.name == "sync.beam" for sp in record.spans)
+    assert beam_calls >= 1 and len(waits) == 1
+    assert tree(record) == lbvh_frame_tree(beam_calls)
+    assert sites == []
+    assert waits[0] > 0 and record.counters == {"host_syncs": waits[0]}
 
 
 @pytest.mark.card
