@@ -18,6 +18,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      requires every u8 channel within 1, hit pixels and shadowed pixels;
   6. times 50 frames on each path and each kernel beside its plain
      version;
+ 6b. holds the two cull kernels (`csrc/cull.cu`) against their plain
+     chains on the bench frame, and 6c on config 4's first progressive
+     pass (built first, as in phase 7): one launch of each a unit, the
+     frame and the pass bit-equal to the chains' route, the masks in
+     both layouts differing only where a test is within rounding of its
+     threshold (`CULL_THRESHOLD_REL`), the lists compared, and each
+     kernel timed beside its chain and its bound;
   7. builds the config-4 scene at 1024x1024: a 345,944-triangle bumpy
      sphere (the armadillo stand-in) and, standing in for f16.obj, a
      4,056-triangle textured bumpy sphere with a seeded 256x256 texture;
@@ -377,6 +384,18 @@ MT_OPS = 46
 GRADIENT_OPS = 2
 BLOB_OPS = 44
 BLOB_ROW_OPS = 3
+# FP32 operations the culls of `csrc/cull.cu` need (comparisons not
+# counted): the frustum cull's five plane distances (11 each) a (tile,
+# cluster) pair and a box centre and half extent (15) a cluster; the beam
+# cull's three projection intervals (24 each) a cluster, whose (tile,
+# cluster) test is comparisons alone.
+FRUSTUM_PAIR_OPS = 55
+FRUSTUM_CLUSTER_OPS = 15
+BEAM_CLUSTER_OPS = 72
+#: How near its threshold a cull test whose outcome differs between a cull
+#: kernel and its chain may lie, relative to the magnitudes it adds: ~170
+#: float32 ulps, the room of a 256-term sum taken in another order.
+CULL_THRESHOLD_REL = 1e-5
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -863,6 +882,167 @@ def config4_scene(dev, armadillo_faces, f16_faces):
     eye = ((lo + hi) / 2 - torch.tensor([0.0, 0.0, 2.0 * extent],
                                         device=dev)).to(torch.float32)
     return config, data, accel, eye, torch.eye(3, device=dev)
+
+
+def frustum_margin(d, eye, cmin, cmax, tile_px, planar, tiles, clusters):
+    """How near its threshold the frustum chain's test lies at each
+    (``tiles``, ``clusters``) pair of the cull of ``d`` (planar
+    ``[T, 3, R]``, else ``[T, R, 3]``): ``|min_p dist_p| / scale`` of the
+    five plane distances, in float64, 0 on the threshold."""
+    from raytracercuda_torch.trace import sweep
+
+    planes = (sweep.tile_planes_planar(d, tile_px) if planar
+              else sweep.tile_frustum_planes(d, tile_px))
+    planes = planes[tiles].double()  # [K, 5, 3]
+    mid = ((cmin + cmax) * 0.5 - eye)[clusters].double()[:, None]
+    half = ((cmax - cmin) * 0.5)[clusters].double()[:, None]
+    dist = (planes * mid).sum(-1) + (planes.abs() * half).sum(-1)
+    scale = (planes * mid).abs().sum(-1) + (planes.abs() * half).sum(-1)
+    return (dist / (scale + 1e-30)).amin(dim=1).abs()
+
+
+def beam_margin(o, act, light_dir, cmin, cmax, planar, tiles, clusters):
+    """As `frustum_margin`, for the swept-beam chain's five interval tests
+    (inf where the tile has no active ray: its row is false either
+    way)."""
+    import torch
+
+    from raytracercuda_torch.trace import occlusion_cull
+
+    beam = (occlusion_cull.swept_tile_beams_planar if planar
+            else occlusion_cull.swept_tile_beams)(o, act, light_dir)
+    lo, hi = cmin[clusters].double(), cmax[clusters].double()
+    c, h = (lo + hi) * 0.5, (hi - lo) * 0.5
+
+    def proj(axis):
+        a = axis.double()
+        return c @ a, h @ a.abs()
+
+    (cu, hu), (cv, hv), (cl, hl) = (proj(beam.u_ax), proj(beam.v_ax),
+                                    proj(beam.l))
+    ou_lo, ou_hi, ov_lo, ov_hi, ol_lo = (
+        x[tiles].double() for x in (beam.ou_lo, beam.ou_hi, beam.ov_lo,
+                                    beam.ov_hi, beam.ol_lo))
+    tests = [(cu + hu) - ou_lo, ou_hi - (cu - hu), (cv + hv) - ov_lo,
+             ov_hi - (cv - hv), (cl + hl) - ol_lo]
+    scales = [cu.abs() + hu + ou_lo.abs(), cu.abs() + hu + ou_hi.abs(),
+              cv.abs() + hv + ov_lo.abs(), cv.abs() + hv + ov_hi.abs(),
+              cl.abs() + hl + ol_lo.abs()]
+    rel = torch.stack([m / (s + 1e-30) for m, s in zip(tests, scales)])
+    return torch.where(beam.tile_any[tiles], rel.amin(dim=0).abs(),
+                       torch.inf)
+
+
+def cull_path(dev, clock, renderer, eye, orient, rays, c4, size=C4_SIZE):
+    """Phases 6b-6c: the two cull kernels (`csrc/cull.cu`) against their
+    plain chains on the card, on the bench frame (A's and B's planar
+    tiles) and on config 4's progressive pass (``c4``, C's and H's
+    row-major tiles): one launch of each a unit, the frame and the pass
+    bit-equal to the chains' route, each kernel's mask against its
+    chain's on the unit's input in both layouts (an entry may differ only
+    where the chain's test lies within `CULL_THRESHOLD_REL` of its
+    threshold), the lists, and both timed by CUDA events.  Returns the
+    two kernels' JSON records (``max_abs_err``: differing mask
+    entries)."""
+    import torch
+
+    from raytracercuda_torch.trace import sweep
+    from raytracercuda_torch.trace.progressive import (init_progressive,
+                                                       progressive_step)
+
+    kinds = {"_frustum_cull_cuda": ("frustum_cull", sweep._frustum_cull_plain,
+                                    frustum_margin),
+             "_beam_cull_cuda": ("beam_cull", sweep._beam_cull_plain,
+                                 beam_margin)}
+    stats = {name: {"differ": 0, "launches": 0, "ms": [], "plain_ms": [],
+                    "bound": []} for name in kinds}
+
+    def ops(name, t_, c_):
+        if name == "_frustum_cull_cuda":
+            return t_ * c_ * FRUSTUM_PAIR_OPS + c_ * FRUSTUM_CLUSTER_OPS
+        return c_ * BEAM_CLUSTER_OPS
+
+    def unit(what, run):
+        rec = Recorder(sweep, list(kinds))
+        try:
+            sweep.reset_launch_counts()
+            got = run()
+            torch.cuda.synchronize()
+            launches = {k: sweep.launch_counts[k]
+                        for k in ("frustum_cull", "beam_cull")}
+        finally:
+            rec.restore()
+        check(launches == {"frustum_cull": 1, "beam_cull": 1},
+              f"{what}: cull launches {launches}, want one of each")
+        with PlainOnCard({sweep: {n: v[1] for n, v in kinds.items()}}):
+            want = run()
+            torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{what}: not bit-equal to the plain chains' route")
+        for name, (key, plain, margin) in kinds.items():
+            args = rec.calls[name][-1]
+            kernel = getattr(sweep, name)
+            st = stats[name]
+            st["launches"] += 1
+            x, planar = args[0], args[-1]
+            for layout, a in (("as called", args), ("other layout", (
+                    x.transpose(1, 2).contiguous(), *args[1:-1],
+                    not planar))):
+                k, p = kernel(*a), plain(*a)
+                bad = (k != p).nonzero()
+                worst = (float(margin(*a, bad[:, 0], bad[:, 1]).max())
+                         if len(bad) else 0.0)
+                kl, pl = sweep._tile_lists(k), sweep._tile_lists(p)
+                same = all(torch.equal(u, v) for u, v in zip(kl, pl))
+                st["differ"] += len(bad)
+                print(f"{what}, {key} ({layout}): {len(bad)} of {k.numel()} "
+                      f"mask entries differ from the chain (largest "
+                      f"relative margin {worst:.3g}), lists "
+                      f"{'equal' if same else 'differ'}; "
+                      f"{int(k.sum())} survive")
+                check(worst <= CULL_THRESHOLD_REL,
+                      f"{what}, {key} ({layout}): a mask entry differs "
+                      f"{worst:.3g} from its threshold, beyond "
+                      f"{CULL_THRESHOLD_REL}")
+            ms = time_cuda(lambda: kernel(*args), 50)
+            plain_ms = time_cuda(lambda: plain(*args), 20)
+            queued = time_queued(lambda: kernel(*args), 50)
+            t_, c_ = x.shape[0], args[3].shape[0]
+            moved = nbytes(*args[:5]) + t_ * c_
+            st["ms"].append(ms)
+            st["plain_ms"].append(plain_ms)
+            st["bound"].append(bound(ops(name, t_, c_), moved))
+            b_ms, b_by = st["bound"][-1]
+            print(f"{what}, {key}: kernel {ms:.4f} ms (host hidden "
+                  f"{ms_text(queued)}), chain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.6f} ms by {b_by} ({t_} tiles x {c_} clusters, "
+                  f"{moved} bytes)")
+        return got
+
+    # 6b. The bench frame: A's and B's planar tiles.
+    unit("bench frame", lambda: renderer.render(eye, orient, rays))
+    clock.done("6b (culls, bench frame)")
+
+    # 6c. Config 4's progressive pass: C's and H's row-major tiles.
+    config, data, accel, c4_eye, c4_orient = c4
+
+    def first_pass():
+        with torch.no_grad():
+            return progressive_step(
+                init_progressive(size * size, device=dev), data, accel,
+                c4_eye, c4_orient, size, size, config,
+                with_shadows=True).image
+
+    unit("config 4 pass", first_pass)
+    clock.done("6c (culls, config 4 pass)")
+    src = "raytracercuda_torch/csrc/cull.cu"
+    replaces = {"_frustum_cull_cuda": "the frustum cull's PyTorch chain "
+                "(dense._cull_frustum; no TPU kernel)",
+                "_beam_cull_cuda": "the swept-beam cull's PyTorch chain "
+                "(occlusion_cull.beam_survive_matrix; no TPU kernel)"}
+    return [kernel_record(kinds[n][0], src, replaces[n], st["launches"],
+                          float(st["differ"]), st["ms"][0], st["plain_ms"][0],
+                          st["bound"][0]) for n, st in stats.items()]
 
 
 def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
@@ -4629,6 +4809,7 @@ def main() -> None:
     clock.done("6 (frame timing)")
 
     c4 = config4_scene(dev, C4_ARMADILLO, C4_F16)
+    cull_kernels = cull_path(dev, clock, renderer, eye, orient, rays, c4)
     c4_kernels = diff_path(dev, clock, card, c4=c4)
     # Phases 42-46: the silhouette term and the distributed layer.
     slice_launches = [silhouette_path(dev, clock, card, c4),
@@ -4698,6 +4879,7 @@ def main() -> None:
                       **{**c2["brute"],
                          "launches": c2["brute"]["launches"] + app["brute"]}),
         *c5_kernels, *c1_kernels, *bvh_kernels, grid_kernel,
+        *cull_kernels,
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["primary"]["launches"] += app["primary"]  # the CLI's parity route

@@ -6,9 +6,9 @@ plain C interface in ``raytracercuda_torch/_build/`` (git-ignored).  The
 library's name carries a hash of the sources, headers and flags, so an
 edited source is rebuilt.  Nothing here runs at import.
 
-`kernel_fn` and `raw_stream` are every wrapper's launch path (A-M): the
-library's function looked up once, and the current stream's handle
-without building a `torch.cuda.Stream`.
+`kernel_fn` and `raw_stream` are every wrapper's launch path (A-M and
+the culls): the library's function looked up once, and the current
+stream's handle without building a `torch.cuda.Stream`.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("sweep.cu", "scatter.cu", "brute.cu", "frame.cu",
-                 "bvh.cu", "grid.cu"))
+                 "bvh.cu", "grid.cu", "cull.cu"))
 HEADERS = tuple(_PKG / "csrc" / name for name in
                 ("launch.cuh", "hit_key.cuh", "mt.cuh"))
 BUILD_DIR = _PKG / "_build"
@@ -126,6 +126,8 @@ SIGNATURES = {
     "rt_chase": (_P, _I, _I, _P, _P),
     "rt_grid_march": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _F, _F,
                       _I, _I, _I, _F, _P, _P, _P, _P, _P),
+    "rt_frustum_cull": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P),
+    "rt_beam_cull": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
 }
 
 #: Bytes a pixel of the packed frames that `rt_clear`, `rt_gradient` and

@@ -3,7 +3,10 @@ their plain versions (counterpart of `raytracercuda_tpu/trace/
 pallas_sweep.py`, and of `pallas_bounce.py`'s kernel).
 
 Each 16x16 pixel tile gets the list of clusters that survive its cull, in
-ascending cluster id.  The kernels live in `csrc/sweep.cu`:
+ascending cluster id.  The culls (`frustum_cull` before A and C,
+`beam_cull` before B and H) write a ``[T, C]`` bool mask, one kernel
+launch each in `csrc/cull.cu`, which `_tile_lists` compacts.  The sweep
+kernels live in `csrc/sweep.cu`:
 
   * A (replacing `pallas_sweep._primary_shade_kernel`) finds each ray's
     closest hit from the common eye over the tile's clusters and
@@ -87,7 +90,8 @@ GEOM_COLS = 9
 
 #: Kernel launches per wrapper, counted where the kernel is launched.
 launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
-                 "primary": 0, "occlusion_rows": 0, "closest_rays": 0}
+                 "primary": 0, "occlusion_rows": 0, "closest_rays": 0,
+                 "frustum_cull": 0, "beam_cull": 0}
 
 #: Clusters per work item of each kernel, K: the fastest, within the run's
 #: spread, of `chip_smoke.py`'s sweep over K on the H100 (PERF.md), by the
@@ -395,8 +399,28 @@ def _occlusion_rows_plain(lists, light, o_tiles, active, blocks, t_eps):
                             blocks, t_eps)
 
 
+def _frustum_cull_plain(d_tiles, eye, cmin, cmax, tile_px, planar):
+    """Plain version of the frustum-cull kernel: the ``[T, C]`` bool
+    survive mask of planar ``[T, 3, R]`` or row-major ``[T, R, 3]``
+    direction tiles from the common ``eye`` against the cluster boxes
+    (`dense._cull_frustum` on the tiles' planes)."""
+    planes = (tile_planes_planar(d_tiles, tile_px) if planar
+              else tile_frustum_planes(d_tiles, tile_px))
+    return _cull_frustum(planes, eye, cmin, cmax)
+
+
+def _beam_cull_plain(o_tiles, a_tiles, light_dir, cmin, cmax, planar):
+    """Plain version of the beam-cull kernel: the ``[T, C]`` bool survive
+    mask of planar ``[T, 3, R]`` or row-major ``[T, R, 3]`` shadow-ray
+    origins with ``[T, R]`` bool activity (`beam_survive_matrix` on the
+    tiles' swept beams)."""
+    beams = swept_tile_beams_planar if planar else swept_tile_beams
+    return beam_survive_matrix(beams(o_tiles, a_tiles, light_dir), cmin,
+                               cmax)
+
+
 # ---------------------------------------------------------------------------
-# CUDA launches (kernels in `csrc/sweep.cu`).
+# CUDA launches (kernels in `csrc/sweep.cu` and `csrc/cull.cu`).
 # ---------------------------------------------------------------------------
 
 
@@ -601,6 +625,60 @@ def _occlusion_rows_cuda(lists, light, o_tiles, active, blocks, t_eps):
     return occ
 
 
+def _check_boxes(cmin, cmax, device):
+    for name, x in (("cmin", cmin), ("cmax", cmax)):
+        _check_cuda(name, x, device, torch.float32, (cmin.shape[0], 3))
+
+
+def _frustum_cull_cuda(d_tiles, eye, cmin, cmax, tile_px, planar):
+    """Launch the frustum-cull kernel (`csrc/cull.cu`); mask as in
+    `_frustum_cull_plain`."""
+    num_tiles, r = d_tiles.shape[0], tile_px * tile_px
+    dev = d_tiles.device
+    d_tiles, cmin, cmax = (x.contiguous() for x in (d_tiles, cmin, cmax))
+    eye = eye.to(torch.float32).contiguous()
+    _check_cuda("d_tiles", d_tiles, dev, torch.float32,
+                (num_tiles, 3, r) if planar else (num_tiles, r, 3))
+    _check_cuda("eye", eye, dev, torch.float32, (3,))
+    _check_boxes(cmin, cmax, dev)
+    survive = torch.empty((num_tiles, cmin.shape[0]), dtype=torch.bool,
+                          device=dev)
+    err = kernel_fn("rt_frustum_cull")(
+        d_tiles.data_ptr(), int(not planar), num_tiles, r, tile_px,
+        eye.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0],
+        survive.data_ptr(), raw_stream(dev))
+    if err:
+        raise RuntimeError(f"frustum cull launch failed: CUDA error {err}")
+    launch_counts["frustum_cull"] += 1
+    return survive
+
+
+def _beam_cull_cuda(o_tiles, a_tiles, light_dir, cmin, cmax, planar):
+    """Launch the beam-cull kernel (`csrc/cull.cu`); mask as in
+    `_beam_cull_plain`.  The kernel reads ``light_dir`` on the device and
+    makes `light_basis`'s axes from it."""
+    num_tiles, r = a_tiles.shape
+    dev = o_tiles.device
+    o_tiles, a_tiles, cmin, cmax = (x.contiguous() for x in
+                                    (o_tiles, a_tiles, cmin, cmax))
+    light = light_dir.to(torch.float32).contiguous()
+    _check_cuda("o_tiles", o_tiles, dev, torch.float32,
+                (num_tiles, 3, r) if planar else (num_tiles, r, 3))
+    _check_cuda("a_tiles", a_tiles, dev, torch.bool, (num_tiles, r))
+    _check_cuda("light_dir", light, dev, torch.float32, (3,))
+    _check_boxes(cmin, cmax, dev)
+    survive = torch.empty((num_tiles, cmin.shape[0]), dtype=torch.bool,
+                          device=dev)
+    err = kernel_fn("rt_beam_cull")(
+        o_tiles.data_ptr(), a_tiles.data_ptr(), int(not planar), num_tiles,
+        r, light.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0],
+        survive.data_ptr(), raw_stream(dev))
+    if err:
+        raise RuntimeError(f"beam cull launch failed: CUDA error {err}")
+    launch_counts["beam_cull"] += 1
+    return survive
+
+
 def _pick(x: torch.Tensor, plain, cuda):
     """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if x.device.type == "cpu":
@@ -622,6 +700,30 @@ def t_eps_of(trace_cfg: TraceConfig):
             else None)
 
 
+def frustum_cull(d_tiles, eye, cmin, cmax, tile_px, planar):
+    """The tile-frustum cull before kernels A and C: ``[T, C]`` bool, which
+    cluster boxes ``cmin``, ``cmax`` ``[C, 3]`` each pinhole tile of
+    directions from the common ``eye`` must sweep; ``planar`` tiles are
+    ``[T, 3, R]``, else row-major ``[T, R, 3]``, ``R = tile_px**2``.  The
+    plain chain for CPU tensors, one kernel launch for CUDA tensors;
+    inputs that require grad are culled detached."""
+    run = _pick(d_tiles, _frustum_cull_plain, _frustum_cull_cuda)
+    return run(d_tiles.detach(), eye.detach(), cmin.detach(), cmax.detach(),
+               tile_px, planar)
+
+
+def beam_cull(o_tiles, a_tiles, light_dir, cmin, cmax, planar):
+    """The swept-beam cull before kernels B and H: ``[T, C]`` bool, which
+    cluster boxes each tile of shadow-ray origins (``planar``
+    ``[T, 3, R]``, else row-major ``[T, R, 3]``) with ``[T, R]`` bool
+    activity must sweep toward ``light_dir``.  The plain chain for CPU
+    tensors, one kernel launch for CUDA tensors; inputs that require grad
+    are culled detached."""
+    run = _pick(o_tiles, _beam_cull_plain, _beam_cull_cuda)
+    return run(o_tiles.detach(), a_tiles, light_dir.detach(), cmin.detach(),
+               cmax.detach(), planar)
+
+
 def trace_shade_tiles_planar(
     cs: ClusterSet,
     shade_blocks: torch.Tensor,
@@ -638,8 +740,8 @@ def trace_shade_tiles_planar(
     Returns planar ``[T, R]`` tensors ``(t, slot, u, v, nx, ny, nz, ar,
     ag, ab[, tex, tu, tv][, refl])``; slot is int32, the rest float32."""
     with span("sweep.cull"):
-        planes = tile_planes_planar(d3_tiles, tile_px)
-        lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
+        lists = _tile_lists(frustum_cull(d3_tiles, eye, cs.cmin, cs.cmax,
+                                         tile_px, planar=True))
     with span("sweep.A"):
         run = _pick(d3_tiles, _primary_shade_plain, _primary_shade_cuda)
         return run(lists, eye.to(torch.float32).contiguous(),
@@ -658,14 +760,15 @@ def occlusion_tiles_planar(
     """Directional-light any-hit on planar tiles: ``o3_tiles [T,3,R]`` +
     ``a_tiles [T,R]`` bool -> ``[T,R]`` bool occlusion, false where
     inactive.  The lists come from the swept-beam cull; the sweep runs
-    along ``beam.l``, the light direction that `light_basis`
-    re-normalises, over the geometry rows `segment_blocks(cs)`."""
+    along the light direction that `light_basis` re-normalises, over the
+    geometry rows `segment_blocks(cs)`."""
     with span("sweep.shadow_cull"):
-        beam = swept_tile_beams_planar(o3_tiles, a_tiles, light_dir)
-        lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
+        light = light_dir / torch.linalg.vector_norm(light_dir)
+        lists = _tile_lists(beam_cull(o3_tiles, a_tiles, light_dir,
+                                      cs.cmin, cs.cmax, planar=True))
     with span("sweep.B"):
         run = _pick(o3_tiles, _occlusion_plain, _occlusion_cuda)
-        occ = run(lists, beam.l.to(torch.float32).contiguous(),
+        occ = run(lists, light.to(torch.float32).contiguous(),
                   o3_tiles.contiguous(), a_tiles.contiguous(),
                   segment_blocks(cs), np.float32(trace_cfg.t_epsilon))
         return occ & a_tiles
@@ -684,8 +787,8 @@ def trace_tiles(
     ``face`` is the winner's original face id (int32), -1 on a miss.
     ``tri_blocks`` is `segment_blocks(cs)`."""
     with span("sweep.cull"):
-        planes = tile_frustum_planes(d_tiles, tile_px)
-        lists = _tile_lists(_cull_frustum(planes, eye, cs.cmin, cs.cmax))
+        lists = _tile_lists(frustum_cull(d_tiles, eye, cs.cmin, cs.cmax,
+                                         tile_px, planar=False))
     with span("sweep.C"):
         run = _pick(d_tiles, _primary_plain, _primary_cuda)
         bt, bu, bv, bs = (x.reshape(-1) for x in run(
@@ -730,14 +833,15 @@ def occlusion_tiles(
 ) -> torch.Tensor:
     """Directional-light any-hit on row-major tiles: ``o_tiles [T,R,3]`` +
     ``a_tiles [T,R]`` bool -> ``[T*R]`` bool in tile order, false where
-    inactive.  Always clipped at ``t_epsilon``; the sweep runs along
-    ``beam.l``, the light direction that `light_basis` re-normalises."""
+    inactive.  Always clipped at ``t_epsilon``; the sweep runs along the
+    light direction that `light_basis` re-normalises."""
     with span("sweep.shadow_cull"):
-        beam = swept_tile_beams(o_tiles, a_tiles, light_dir)
-        lists = _tile_lists(beam_survive_matrix(beam, cs.cmin, cs.cmax))
+        light = light_dir / torch.linalg.vector_norm(light_dir)
+        lists = _tile_lists(beam_cull(o_tiles, a_tiles, light_dir,
+                                      cs.cmin, cs.cmax, planar=False))
     with span("sweep.H"):
         run = _pick(o_tiles, _occlusion_rows_plain, _occlusion_rows_cuda)
-        occ = run(lists, beam.l.to(torch.float32).contiguous(),
+        occ = run(lists, light.to(torch.float32).contiguous(),
                   o_tiles.contiguous(), a_tiles.contiguous(), tri_blocks,
                   np.float32(trace_cfg.t_epsilon))
         return (occ & a_tiles).reshape(-1)
