@@ -5,10 +5,9 @@ uvs, albedo, textures, eye and orientation (counterpart of
 Which face each ray hits is discrete, so the gradient is taken in two
 parts:
 
-  1. traversal (kernel C on CLUSTER, L or K on BVH, M on GRID, E on
-     BRUTE) and the shadow test (kernel H, K or E) run under
-     ``torch.no_grad()`` on detached tensors; only the integer face ids
-     and the shadow mask go on;
+  1. traversal (`pipeline.trace_hit`) and the shadow test
+     (`pipeline.occlusion_hit`) run under ``torch.no_grad()`` on detached
+     tensors; only the integer face ids and the shadow mask go on;
   2. t, u and v are re-derived from the hit face alone with live
      parameters, and shading interpolates, samples and lights them, so
      autograd reaches every continuous input.
@@ -33,7 +32,8 @@ import torch
 from ..config import AccelKind, RenderConfig
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.interpolate import face_ray_intersect
-from ..trace.pipeline import rotate_rays, trace_hit
+from ..trace.pipeline import (occlusion_hit, rotate_rays, shadow_origins,
+                              trace_hit)
 from ..types import FLT_MAX, Hit
 from ..utils import profiler
 from ..utils.profiler import host_sync, span
@@ -264,22 +264,16 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
     return out, t, hitm
 
 
-def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
-                        frame_hw) -> torch.Tensor:
+def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, config,
+                        light_dir, frame_hw) -> torch.Tensor:
     """Discrete directional-light occlusion mask from a traversal `Hit`,
-    without gradients: kernel E on BRUTE, kernel K's any-hit walk on BVH
-    and WAVEFRONT (``t_max`` FLT_MAX; none on GRID, as in the JAX
-    package), kernel H over the swept-beam lists
-    on CLUSTER (a frame the tile does not divide is edge-padded and
-    cropped; rays that are not a frame go in groups of one tile's count,
-    in their given order).
+    through `pipeline.occlusion_hit` (none on GRID, as in the JAX
+    package); `_discrete` calls it without gradients on detached rays.
 
     The shadow rule is the gradient route's own, not `FrameRenderer`'s:
-    origins ``hit point + l * (10 * t_epsilon)`` (no scene-extent
-    scaling), active wherever the primary ray hit."""
-    tc = config.trace
-    brute = config.accel == AccelKind.BRUTE or accel is None
-    if config.accel == AccelKind.GRID and not brute:
+    origins ``hit point + l * (10 * t_epsilon)`` toward the unit light
+    (no scene-extent scaling), active wherever the primary ray hit."""
+    if config.accel == AccelKind.GRID and accel is not None:
         # The JAX package hands a hash grid to the LBVH's any-hit walk
         # (raytracercuda_tpu/diff/render_grad.py:408-416), which fails on
         # it; the port keeps that behaviour rather than add shadows there.
@@ -287,46 +281,13 @@ def _occlusion_from_hit(scene, accel, hit_nd: Hit, origin, dirs, l, config,
             "render_rgb has no shadows on a GRID structure: the JAX "
             "package's _occlusion_from_hit sends it to any_hit_bvh "
             "(raytracercuda_tpu/diff/render_grad.py:408-416), which fails")
-    with torch.no_grad():
-        origin, dirs, l = origin.detach(), dirs.detach(), l.detach()
-        hit_mask = hit_nd.hit_mask
-        p = origin + dirs * torch.clamp(hit_nd.t, max=1e6)[..., None]
-        p = torch.where(hit_mask[..., None], p, origin)
-        shadow_origin = p + l * (10 * tc.t_epsilon)
-        if brute:
-            from ..trace.bruteforce import any_hit_brute
-
-            mask = any_hit_brute(scene.positions.detach(), scene.faces,
-                                 shadow_origin, l.expand(dirs.shape),
-                                 float(FLT_MAX), tc)
-        elif config.accel != AccelKind.CLUSTER:
-            from ..trace.traverse import any_hit_bvh
-
-            mask = any_hit_bvh(accel, scene.positions.detach(), scene.faces,
-                               shadow_origin, l.expand(dirs.shape),
-                               float(FLT_MAX), config.bvh, tc)
-        elif frame_hw is None:
-            from ..trace.bounce_sweep import group_rays
-            from ..trace.sweep import occlusion_tiles, segment_blocks
-
-            r = tc.dense_tile_px * tc.dense_tile_px
-            mask = occlusion_tiles(
-                accel, segment_blocks(accel),
-                group_rays(shadow_origin, r).contiguous(), l,
-                group_rays(hit_mask, r), tile_px=tc.dense_tile_px,
-                trace_cfg=tc)[:hit_mask.shape[0]]
-        else:
-            from ..trace.pipeline import crop_frame, pad_frame
-            from ..trace.sweep import occlusion_dense, segment_blocks
-
-            height, width = frame_hw
-            tp = tc.dense_tile_px
-            so, hp, wp = pad_frame(shadow_origin, height, width, tp)
-            act, _, _ = pad_frame(hit_mask, height, width, tp)
-            mask = crop_frame(occlusion_dense(
-                accel, segment_blocks(accel), so, l, act, height=hp,
-                width=wp, tile_px=tp, trace_cfg=tc), height, width, hp, wp)
-    return mask & hit_mask
+    l = _light_on(light_dir, dirs.device, "sync.occlusion_light")
+    l = l / torch.sqrt(torch.sum(l * l))
+    hit_mask = hit_nd.hit_mask  # a property: one launch each read
+    so = shadow_origins(origin, dirs, hit_nd.t, hit_mask, l,
+                        10 * config.trace.t_epsilon, 1e6)
+    return occlusion_hit(_detached_scene(scene), accel, so, l, hit_mask,
+                         config, frame_hw)
 
 
 def _discrete(scene, accel, initial_rays, eye, orient, config, shading,
@@ -343,9 +304,9 @@ def _discrete(scene, accel, initial_rays, eye, orient, config, shading,
                              frame_hw=frame_hw, common_origin=e)
         shadow_mask = None
         if with_shadows and shading != "normal":
-            shadow_mask = _occlusion_nondiff(scene, accel, hit_nd, origin,
-                                             dirs, config, light_dir,
-                                             frame_hw)
+            shadow_mask = _occlusion_from_hit(scene, accel, hit_nd, origin,
+                                              dirs, config, light_dir,
+                                              frame_hw)
     return hit_nd.face, shadow_mask
 
 
@@ -571,16 +532,6 @@ def render_rgb_silhouette(scene, accel, eye, orient, config: RenderConfig,
             (edge_vids, edge_faces, width, height, zoom))
     return _RenderVJP.apply(opts, scene, *_scene_leaves(scene), rays, eye,
                             orient)
-
-
-def _occlusion_nondiff(scene, accel, hit: Hit, origin, dirs, config,
-                       light_dir, frame_hw) -> torch.Tensor:
-    """The forward pass's discrete shadow mask, without gradients, toward
-    the unit light."""
-    l = _light_on(light_dir, dirs.device, "sync.occlusion_light")
-    l = l / torch.sqrt(torch.sum(l * l))
-    return _occlusion_from_hit(scene, accel, hit, origin, dirs, l, config,
-                               frame_hw)
 
 
 def l2_image_loss(scene, accel, initial_rays, eye, orient, target,

@@ -24,8 +24,8 @@ import torch
 from ..config import RenderConfig
 from ..models.mesh import VERTEX_DATA_NORMAL
 from ..ops.math import normalize
-from ..types import FLT_MAX, Hit
-from .pipeline import crop_frame, pad_frame
+from ..types import Hit
+from .pipeline import crop_frame, occlusion_hit, pad_frame, shadow_origins
 from .shade import interpolate_slot, shade_lambert_rgb
 
 
@@ -90,7 +90,7 @@ def render_bounces(
             with_shadows=with_shadows, background=background, trace_cfg=tc)
         return crop_frame(rgb, height, width, hp, wp)
 
-    from .bruteforce import any_hit_brute, trace_brute
+    from .bruteforce import trace_brute
 
     dev = dirs.device
     eps = torch.tensor(tc.t_epsilon, dtype=torch.float32, device=dev) \
@@ -102,11 +102,10 @@ def render_bounces(
 
     shadow = None
     if with_shadows:
-        p = origin + dirs * torch.clamp(hit.t, max=3e37)[..., None]
-        so = torch.where(hit.hit_mask[..., None], p, origin) + light * eps
-        shadow = any_hit_brute(
-            scene.positions, scene.faces, so, light.expand(dirs.shape),
-            float(FLT_MAX), tc) & hit.hit_mask
+        # No structure: E, as for the primary rays.
+        hit_mask = hit.hit_mask
+        so = shadow_origins(origin, dirs, hit.t, hit_mask, light, eps, 3e37)
+        shadow = occlusion_hit(scene, None, so, light, hit_mask, config)
 
     local0 = shade_lambert_rgb(scene, hit, origin, dirs, light_dir=light_dir,
                                shadow_mask=shadow, background=background)

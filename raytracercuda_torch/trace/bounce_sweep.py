@@ -30,7 +30,7 @@ from ..config import TraceConfig
 from ..ops.math import normalize
 from ..types import FLT_MAX, Hit
 from .dense import tile_pixels_planar, untile_pixels
-from .shade import sample_texture
+from .shade import faced_ndotl_planar, lambert_planar, shadow_origins_planar
 from .sweep import (
     _closest_rays_cuda,
     _closest_rays_plain,
@@ -185,42 +185,6 @@ def _coherence_perm(ox, oy, oz, dx, dy, dz, active, lo, hi):
     return perm, inv
 
 
-def _planar_shade(outs, d3_tiles, light, textures, has_uv, ambient,
-                  shadow=None):
-    """Planar Lambert shade of one depth's kernel outputs: flat ``[N]``
-    ``(r, g, b, hitm, nx, ny, nz, refl)``, the normals normalized and faced
-    against the rays (the bounce geometry reuses them)."""
-    t_ = outs[0].reshape(-1)
-    nx, ny, nz = (o.reshape(-1) for o in outs[4:7])
-    ar, ag, ab = (o.reshape(-1) for o in outs[7:10])
-    refl = outs[-1].reshape(-1)
-    dx = d3_tiles[:, 0, :].reshape(-1)
-    dy = d3_tiles[:, 1, :].reshape(-1)
-    dz = d3_tiles[:, 2, :].reshape(-1)
-    hitm = t_ < FLT_MAX
-
-    nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-30))
-    nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
-    flip = nx * dx + ny * dy + nz * dz > 0.0
-    nx = torch.where(flip, -nx, nx)
-    ny = torch.where(flip, -ny, ny)
-    nz = torch.where(flip, -nz, nz)
-    ndotl = torch.clamp(nx * light[0] + ny * light[1] + nz * light[2],
-                        min=0.0)
-    if shadow is not None:
-        ndotl = torch.where(shadow, 0.0, ndotl)
-    if has_uv and textures is not None and textures.shape[0] > 0:
-        tex_id = outs[10].reshape(-1).to(torch.int32)
-        tex_rgb = sample_texture(textures, tex_id, outs[11].reshape(-1),
-                                 outs[12].reshape(-1))
-        texd = tex_id >= 0
-        ar = torch.where(texd, ar * tex_rgb[:, 0], ar)
-        ag = torch.where(texd, ag * tex_rgb[:, 1], ag)
-        ab = torch.where(texd, ab * tex_rgb[:, 2], ab)
-    lit = ambient + (1.0 - ambient) * ndotl
-    return ar * lit, ag * lit, ab * lit, hitm, nx, ny, nz, refl
-
-
 def _planar(x, y, z, num_tiles, rays):
     """Three flat ``[N]`` planes -> planar ``[T, 3, R]`` tiles."""
     return torch.stack([x.reshape(num_tiles, rays), y.reshape(num_tiles, rays),
@@ -271,9 +235,8 @@ def render_bounces_tiled(
     dy = d3_tiles[:, 1, :].reshape(-1)
     dz = d3_tiles[:, 2, :].reshape(-1)
     t0 = outs[0].reshape(-1)
-    hitm0 = t0 < FLT_MAX
+    hitm, nx, ny, nz, ndotl = faced_ndotl_planar(outs, d3_tiles, light)
 
-    shadow = None
     if with_shadows:
         # Back-facing surfaces shade to ambient whether occluded or not.
         nx0, ny0, nz0 = (o.reshape(-1) for o in outs[4:7])
@@ -282,22 +245,18 @@ def render_bounces_tiled(
         ncos = (nx0 * dx + ny0 * dy + nz0 * dz) / nl
         ndl = (nx0 * light[0] + ny0 * light[1] + nz0 * light[2]) / nl
         ndl = torch.where(ncos > 0, -ndl, ndl)
-        sactive = hitm0 & (ndl > 0.0)
-        tmin = torch.clamp(t0, max=1e6)
-        sox = torch.where(sactive, eye[0] + dx * tmin, eye[0]) + light[0] * eps
-        soy = torch.where(sactive, eye[1] + dy * tmin, eye[1]) + light[1] * eps
-        soz = torch.where(sactive, eye[2] + dz * tmin, eye[2]) + light[2] * eps
+        sactive = (hitm & (ndl > 0.0)).reshape(T, R)
         shadow = occlusion_tiles_planar(
-            cs, _planar(sox, soy, soz, T, R), light,
-            sactive.reshape(T, R), tile_px=tile_px,
-            trace_cfg=trace_cfg).reshape(-1)
+            cs, shadow_origins_planar(eye, d3_tiles, outs[0], sactive,
+                                      light, eps),
+            light, sactive, tile_px=tile_px, trace_cfg=trace_cfg)
+        ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
 
-    r0, g0, b0, hitm, nx, ny, nz, refl = _planar_shade(
-        outs, d3_tiles, light, textures, has_uv, ambient, shadow)
+    r0, g0, b0 = lambert_planar(outs, ndotl, textures, has_uv, ambient)
     r0 = torch.where(hitm, r0, bg[0])
     g0 = torch.where(hitm, g0, bg[1])
     b0 = torch.where(hitm, b0, bg[2])
-    refl = torch.where(hitm, refl, 0.0)
+    refl = torch.where(hitm, outs[-1].reshape(-1), 0.0)
 
     if num_bounces == 0:
         rgb = torch.stack([r0, g0, b0], dim=-1)
@@ -339,12 +298,12 @@ def render_bounces_tiled(
             outs = trace_shade_general_planar(
                 cs, shade_blocks, has_uv, _planar(ox_, oy_, oz_, T, R), d3,
                 active.reshape(T, R), trace_cfg=trace_cfg)
-        lr, lg, lb, hitm, nx, ny, nz, refl = _planar_shade(
-            outs, d3, light, textures, has_uv, ambient)
+        hitm, nx, ny, nz, ndotl = faced_ndotl_planar(outs, d3, light)
+        lr, lg, lb = lambert_planar(outs, ndotl, textures, has_uv, ambient)
         lr = torch.where(hitm, lr, bg[0])
         lg = torch.where(hitm, lg, bg[1])
         lb = torch.where(hitm, lb, bg[2])
-        refl = torch.where(hitm, refl, 0.0)
+        refl = torch.where(hitm, outs[-1].reshape(-1), 0.0)
         if b == num_bounces - 1:
             refl = torch.zeros_like(refl)
         wgt = torch.where(active, throughput * (1.0 - refl), 0.0)

@@ -8,39 +8,36 @@ call:
      ``[T, 3, R]``;
   2. culls each tile's frustum against the cluster boxes and runs kernel A
      (closest hit + interpolated normal, albedo, uv);
-  3. builds shadow origins toward a directional light and runs kernel B
-     (any hit) over the swept-beam cull;
-  4. shades with Lambert (textured where the scene has uvs and a
+  3. builds shadow origins toward a directional light
+     (`shade.shadow_origins_planar`) and runs kernel B (any hit) over the
+     swept-beam cull;
+  4. shades with Lambert (`shade.faced_ndotl_planar`,
+     `shade.lambert_planar`: textured where the scene has uvs and a
      texture), packs ``0x00RRGGBB`` and untiles into row-major order.
 
 Shade blocks are built once per (scene, clusters) pair.  On any other
 structure (BVH, GRID, WAVEFRONT, or none for BRUTE; JAX `_frame_xla`) it
-traces with `pipeline.trace_hit` (kernel L or K on BVH, M on GRID), tests
-shadows from origins offset by ``light * shadow_eps`` and shades through
-the per-face rows of `shade.build_face_tables`.  On an LBVH (BVH and
-WAVEFRONT) the shadow rays walk the tree with `any_hit_bvh` (kernel K's
-any hit), each with ``t_max`` FLT_MAX where its primary ray hit and 0
-where it missed, so a missed ray's walk ends at the root; BRUTE and GRID
-test them with `any_hit_brute` (kernel E) and keep ``shadow & hit_mask``.
-Both give the same mask, bit for bit, as JAX `_frame_xla`'s brute-force
-test.  The tensors' device picks the kernels: CUDA kernels on a GPU,
-their plain PyTorch versions on the CPU.
+traces with `pipeline.trace_hit`, tests shadows from the origins of
+`pipeline.shadow_origins` (offset by ``light * shadow_eps``) with
+`pipeline.occlusion_hit`, which picks the any-hit kernel, and shades
+through the per-face rows of `shade.build_face_tables`.  The tensors'
+device picks the kernels: CUDA kernels on a GPU, their plain PyTorch
+versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..accel.bvh import Bvh
 from ..accel.clusters import ClusterSet
 from ..config import RenderConfig
 from ..models.scene import SceneData
 from ..ops.math import normalize, pack_rgb
-from ..types import FLT_MAX
 from ..utils.profiler import span
 from .dense import tile_pixels_planar, untile_pixels
-from .shade import (build_face_tables, pack_shaded, sample_texture,
-                    shade_lambert_rgb)
+from .pipeline import occlusion_hit, rotate_rays, shadow_origins, trace_hit
+from .shade import (build_face_tables, faced_ndotl_planar, lambert_planar,
+                    pack_shaded, shade_lambert_rgb, shadow_origins_planar)
 from .sweep import (
     occlusion_tiles_planar,
     shade_segment_blocks,
@@ -113,72 +110,34 @@ class FrameRenderer:
         tp = self.tile_px
         t = d3_tiles.shape[0]
         with span("frame.shadow_rays"):
-            bt = outs[0].reshape(-1)
-            nx, ny, nz = (o.reshape(-1) for o in outs[4:7])
-            dx = d3_tiles[:, 0, :].reshape(-1)
-            dy = d3_tiles[:, 1, :].reshape(-1)
-            dz = d3_tiles[:, 2, :].reshape(-1)
-            hitm = bt < FLT_MAX
-
-            # normalize(n, eps=1e-30) per component, then face the eye.
-            nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
-                                          min=1e-30))
-            nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
-            flip = nx * dx + ny * dy + nz * dz > 0.0
-            nx = torch.where(flip, -nx, nx)
-            ny = torch.where(flip, -ny, ny)
-            nz = torch.where(flip, -nz, nz)
-            lx, ly, lz = self.light[0], self.light[1], self.light[2]
-            ndotl = torch.clamp(nx * lx + ny * ly + nz * lz, min=0.0)
+            hitm, _, _, _, ndotl = faced_ndotl_planar(outs, d3_tiles,
+                                                      self.light)
             if self.shadows:
                 # Shadow rays only where they can change the pixel:
                 # surfaces facing away from the light shade to ambient
                 # either way.
-                active = hitm & (ndotl > 0.0)
-                tmin = torch.clamp(bt, max=1e6)
-                eps = self.shadow_eps
-                sox = (torch.where(active, eye[0] + dx * tmin, eye[0])
-                       + lx * eps)
-                soy = (torch.where(active, eye[1] + dy * tmin, eye[1])
-                       + ly * eps)
-                soz = (torch.where(active, eye[2] + dz * tmin, eye[2])
-                       + lz * eps)
-                o3 = torch.stack([sox.reshape(t, tp * tp),
-                                  soy.reshape(t, tp * tp),
-                                  soz.reshape(t, tp * tp)], dim=1)
+                active = (hitm & (ndotl > 0.0)).reshape(t, tp * tp)
+                o3 = shadow_origins_planar(eye, d3_tiles, outs[0], active,
+                                           self.light, self.shadow_eps)
         if self.shadows:
             shadow = occlusion_tiles_planar(
-                self.accel, o3, self.light,
-                active.reshape(t, tp * tp), tile_px=tp,
+                self.accel, o3, self.light, active, tile_px=tp,
                 trace_cfg=self.config.trace)
         with span("frame.shade"):
             if self.shadows:
                 ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
-            ar, ag, ab = (o.reshape(-1) for o in outs[7:10])
-            textures = self.scene.textures
-            if self.has_uv and textures.shape[0] > 0:
-                tex_id = outs[10].reshape(-1).to(torch.int32)
-                tex_rgb = sample_texture(textures, tex_id,
-                                         outs[11].reshape(-1),
-                                         outs[12].reshape(-1))
-                texd = tex_id >= 0
-                ar = torch.where(texd, ar * tex_rgb[:, 0], ar)
-                ag = torch.where(texd, ag * tex_rgb[:, 1], ag)
-                ab = torch.where(texd, ab * tex_rgb[:, 2], ab)
-            lit = self.ambient + (1.0 - self.ambient) * ndotl
+            r, g, b = lambert_planar(outs, ndotl, self.scene.textures,
+                                     self.has_uv, self.ambient)
             bg = self.background
-            r = torch.where(hitm, ar * lit, bg[0])
-            g = torch.where(hitm, ag * lit, bg[1])
-            b = torch.where(hitm, ab * lit, bg[2])
-            packed = pack_rgb(r, g, b)
+            packed = pack_rgb(torch.where(hitm, r, bg[0]),
+                              torch.where(hitm, g, bg[1]),
+                              torch.where(hitm, b, bg[2]))
             return untile_pixels(packed.reshape(t, tp * tp), self.height,
                                  self.width, tp)
 
     def _render_rows(self, eye, orient, rays):
         """The route of every structure other than CLUSTER (JAX
         `_frame_xla`): `trace_hit`, `_shadow_rows`, per-face rows."""
-        from .pipeline import rotate_rays, trace_hit
-
         with span("frame.rays"):
             dirs = rotate_rays(rays, orient)
             origin = eye[None, :].expand(dirs.shape)
@@ -198,23 +157,12 @@ class FrameRenderer:
     def _shadow_rows(self, origin, dirs, hit):
         """Occlusion toward the light of each primary ray's hit point:
         False wherever the primary ray missed."""
-        scene, tc = self.scene, self.config.trace
         with span("frame.shadow_rays"):
-            p = origin + dirs * torch.clamp(hit.t, max=1e6)[..., None]
-            so = (torch.where(hit.hit_mask[..., None], p, origin)
-                  + self.light * self.shadow_eps)
-            light = self.light.expand(dirs.shape)
-        if isinstance(self.accel, Bvh):
-            from .traverse import any_hit_bvh
-
-            # t_max 0 ends a missed ray's walk at the root: not occluded.
-            t_max = torch.where(hit.hit_mask, float(FLT_MAX), 0.0)
-            return any_hit_bvh(self.accel, scene.positions, scene.faces, so,
-                               light, t_max, self.config.bvh, tc)
-        from .bruteforce import any_hit_brute
-
-        return any_hit_brute(scene.positions, scene.faces, so, light,
-                             float(FLT_MAX), tc) & hit.hit_mask
+            hit_mask = hit.hit_mask  # a property: one launch each read
+            so = shadow_origins(origin, dirs, hit.t, hit_mask, self.light,
+                                self.shadow_eps, 1e6)
+        return occlusion_hit(self.scene, self.accel, so, self.light,
+                             hit_mask, self.config)
 
     def render(self, eye: torch.Tensor, orient: torch.Tensor,
                rays: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,13 @@ framebuffer (counterpart of `raytracercuda_tpu/trace/pipeline.py`).
     (`grid_march.trace_grid`), a pinhole frame on pixel-patch warps with
     the eye's terms staged;
   * WAVEFRONT traces through `wavefront.trace_wavefront` (plain PyTorch).
+
+`occlusion_hit` is its any-hit counterpart, the one place where a shadow
+ray's kernel is chosen for row-major rays: E on BRUTE and GRID, K's
+any-hit walk on BVH and WAVEFRONT, H on CLUSTER.  `shadow_origins` builds
+those rays' origins; each caller passes its own rule's offset and clamp.
+The planar tiles of the CLUSTER frames build theirs with
+`shade.shadow_origins_planar` and run kernel B.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..config import AccelKind, RenderConfig
-from ..types import Hit
+from ..types import FLT_MAX, Hit
 
 
 def rotate_rays(initial_rays: torch.Tensor,
@@ -127,6 +134,70 @@ def trace_hit(
     hit = trace_dense(accel, segment_blocks(accel), common_origin, dirs,
                       height=hp, width=wp, tile_px=tp, trace_cfg=tc)
     return Hit(*(crop_frame(x, height, width, hp, wp) for x in hit))
+
+
+def occlusion_hit(
+    scene,
+    accel,
+    origins: torch.Tensor,
+    light: torch.Tensor,
+    active: torch.Tensor,
+    config: RenderConfig,
+    frame_hw: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Any hit toward the unit directional ``light`` ``[3]`` from row-major
+    ``origins`` ``[N, 3]`` -> ``[N]`` bool, true only where ``active``
+    ``[N]`` and occluded.  The counterpart of `trace_hit`, on the same
+    structures: E on BRUTE (or no structure) and GRID, K's any-hit walk on
+    BVH and WAVEFRONT (``t_max`` 0 ends an inactive ray's walk at the
+    root), and H over the swept-beam lists on CLUSTER (``frame_hw``
+    marks a frame, edge-padded and cropped; any other bundle goes in
+    groups of one tile's count of rays, in their given order)."""
+    kind = config.accel
+    tc = config.trace
+    if kind in (AccelKind.BRUTE, AccelKind.GRID) or accel is None:
+        from .bruteforce import any_hit_brute
+
+        return any_hit_brute(scene.positions, scene.faces, origins,
+                             light.expand(origins.shape), float(FLT_MAX),
+                             tc) & active
+    if kind in (AccelKind.BVH, AccelKind.WAVEFRONT):
+        from .traverse import any_hit_bvh
+
+        t_max = torch.where(active, float(FLT_MAX), 0.0)
+        return any_hit_bvh(accel, scene.positions, scene.faces, origins,
+                           light.expand(origins.shape), t_max, config.bvh,
+                           tc)
+    if kind != AccelKind.CLUSTER:
+        raise ValueError(f"unknown accel kind {kind}")
+    from .sweep import occlusion_dense, occlusion_tiles, segment_blocks
+
+    tp = tc.dense_tile_px
+    if frame_hw is None:
+        from .bounce_sweep import group_rays
+
+        r = tp * tp
+        return occlusion_tiles(
+            accel, segment_blocks(accel), group_rays(origins, r).contiguous(),
+            light, group_rays(active, r), tile_px=tp,
+            trace_cfg=tc)[:active.shape[0]]
+    height, width = frame_hw
+    so, hp, wp = pad_frame(origins, height, width, tp)
+    act, _, _ = pad_frame(active, height, width, tp)
+    return crop_frame(occlusion_dense(
+        accel, segment_blocks(accel), so, light, act, height=hp, width=wp,
+        tile_px=tp, trace_cfg=tc), height, width, hp, wp)
+
+
+def shadow_origins(origin: torch.Tensor, dirs: torch.Tensor,
+                   t: torch.Tensor, hit_mask: torch.Tensor,
+                   light: torch.Tensor, eps, t_clamp: float) -> torch.Tensor:
+    """Row-major ``[N, 3]`` shadow-ray origins: each hit point (``t``
+    clamped at ``t_clamp``), or the ray's own origin where ``hit_mask`` is
+    false, pushed ``eps`` along ``light``.  Each route passes its own eps
+    and clamp."""
+    p = origin + dirs * torch.clamp(t, max=t_clamp)[..., None]
+    return torch.where(hit_mask[..., None], p, origin) + light * eps
 
 
 def trace_to_buffer(

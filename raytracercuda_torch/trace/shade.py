@@ -1,8 +1,9 @@
 """Shading over `Hit` records (counterpart of
 `raytracercuda_tpu/trace/shade.py`): attribute interpolation, the
 bit-parity packed normal shader and its float-RGB twin, texture sampling,
-material albedo, Lambert shading (the generic, differentiable route, and
-the `FaceTables` route for callers that do not differentiate) and
+material albedo, Lambert shading (the generic, differentiable route, the
+`FaceTables` route for callers that do not differentiate, and the planar
+route over the cluster kernels' outputs with its shadow origins) and
 packing."""
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.interpolate import face_interpolate
 from ..ops.math import as_u32, normalize, pack_rgb
-from ..types import Hit
+from ..types import FLT_MAX, Hit
 
 #: The miss colour ``255 << 8`` of the packed normal shader.
 MISS_COLOR_PACKED = 255 << 8
@@ -156,6 +157,60 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
     rgb = albedo * (ambient + (1.0 - ambient) * ndotl)[..., None]
     bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
     return torch.where(hit.hit_mask[..., None], rgb, bg)
+
+
+def faced_ndotl_planar(outs, d3_tiles: torch.Tensor, light: torch.Tensor):
+    """Planar kernel outputs ``outs`` (``t``, ..., ``nx, ny, nz`` at 4-6,
+    as kernels A and F write them) and ``[T, 3, R]`` directions -> flat
+    ``[N]`` ``(hitm, nx, ny, nz, ndotl)``: the normal normalized and faced
+    against the ray, ``n.l`` clamped at 0 toward the unit ``light``."""
+    nx, ny, nz = (o.reshape(-1) for o in outs[4:7])
+    dx = d3_tiles[:, 0, :].reshape(-1)
+    dy = d3_tiles[:, 1, :].reshape(-1)
+    dz = d3_tiles[:, 2, :].reshape(-1)
+    hitm = outs[0].reshape(-1) < FLT_MAX
+    # normalize(n, eps=1e-30) per component, then face the ray.
+    nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-30))
+    nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
+    flip = nx * dx + ny * dy + nz * dz > 0.0
+    nx = torch.where(flip, -nx, nx)
+    ny = torch.where(flip, -ny, ny)
+    nz = torch.where(flip, -nz, nz)
+    ndotl = torch.clamp(nx * light[0] + ny * light[1] + nz * light[2],
+                        min=0.0)
+    return hitm, nx, ny, nz, ndotl
+
+
+def lambert_planar(outs, ndotl: torch.Tensor, textures, has_uv: bool,
+                   ambient: float):
+    """Flat ``[N]`` Lambert ``(r, g, b)`` of planar kernel outputs (albedo
+    at 7-9, textured where ``has_uv`` and a texture exist: id, u, v at
+    10-12) lit by ``ndotl`` (shadows already applied), before the
+    background."""
+    ar, ag, ab = (o.reshape(-1) for o in outs[7:10])
+    if has_uv and textures is not None and textures.shape[0] > 0:
+        tex_id = outs[10].reshape(-1).to(torch.int32)
+        tex_rgb = sample_texture(textures, tex_id, outs[11].reshape(-1),
+                                 outs[12].reshape(-1))
+        texd = tex_id >= 0
+        ar = torch.where(texd, ar * tex_rgb[:, 0], ar)
+        ag = torch.where(texd, ag * tex_rgb[:, 1], ag)
+        ab = torch.where(texd, ab * tex_rgb[:, 2], ab)
+    lit = ambient + (1.0 - ambient) * ndotl
+    return ar * lit, ag * lit, ab * lit
+
+
+def shadow_origins_planar(eye: torch.Tensor, d3_tiles: torch.Tensor,
+                          t: torch.Tensor, active: torch.Tensor,
+                          light: torch.Tensor, eps) -> torch.Tensor:
+    """Planar ``[T, 3, R]`` shadow-ray origins of a pinhole frame's tiles
+    (``t`` and ``active`` ``[T, R]``): `pipeline.shadow_origins` per
+    component, the hit point at ``t`` clamped at 1e6 where ``active``,
+    else ``eye``, pushed ``eps`` along ``light``."""
+    tmin = torch.clamp(t, max=1e6)
+    return torch.stack([
+        torch.where(active, eye[i] + d3_tiles[:, i, :] * tmin, eye[i])
+        + light[i] * eps for i in range(3)], dim=1)
 
 
 def pack_shaded(rgb: torch.Tensor) -> torch.Tensor:
