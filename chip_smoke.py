@@ -13,7 +13,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
   4. holds kernel A and kernel B against their plain PyTorch versions on
      the card, on the inputs that frame gave them (A: slots equal, t/u/v
      bit-equal, attributes within 1e-5; B: equal masks), with their work
-     items;
+     items, and the eye and light rows their C entries staged bit-equal
+     to `_eye_rows_plain` and `_light_rows_plain` (`staged_rows_check`;
+     so too C's and H's in phases 10 and 10c); in every phase that counts
+     launches, one staged table a launch of A, B, C or H and none of F
+     (`staged_counts`);
   5. renders the same frame with the plain versions on the card and
      requires every u8 channel within 1, hit pixels and shadowed pixels;
   6. times 50 frames on each path and each kernel beside its plain
@@ -828,6 +832,52 @@ class Recorder:
             setattr(self.module, n, fn)
 
 
+def staged_rows_check(sweep, kind: str, launch, args, name: str):
+    """``launch(*args)`` (A's or C's wrapper with ``kind`` "eye", B's or
+    H's with "light") with `sweep._staged_table` recorded: the one table
+    its C entry staged must equal the plain builder's (`_eye_rows_plain`,
+    `_light_rows_plain`) on the same eye or light (``args[1]``) and
+    geometry rows, bit for bit.  Returns the launch's output."""
+    import torch
+
+    make = sweep._staged_table
+    tables = []
+
+    def record(geom):
+        table = make(geom)
+        tables.append((table, geom))
+        return table
+
+    sweep._staged_table = record
+    try:
+        out = launch(*args)
+    finally:
+        sweep._staged_table = make
+    sync_device(args[1].device)
+    check(len(tables) == 1, f"{name}: {len(tables)} staged tables")
+    table, geom = tables[0]
+    plain = (sweep._eye_rows_plain if kind == "eye"
+             else sweep._light_rows_plain)(args[1], geom)
+    differ = int((table.view(torch.int32) != plain.view(torch.int32)).sum())
+    check(differ == 0, f"{name}: {differ} of {table.numel()} floats of the "
+          f"staged {kind} rows differ from plain")
+    flagged = f", {int((table[..., 13] != 0).sum())} flagged degenerate" \
+        if kind == "light" else ""
+    print(f"{name}: staged {kind} rows {tuple(table.shape)} bit-equal to "
+          f"plain{flagged}")
+    return out
+
+
+def staged_counts(launches: dict, where: str) -> None:
+    """The staged tables' launch counts match the sweeps that read them:
+    eye rows A + C, light rows B + H; F and the ray bundles' closest hit
+    stage none."""
+    check(launches["eye_rows"] == launches["primary_shade"]
+          + launches["primary"] and launches["light_rows"]
+          == launches["occlusion"] + launches["occlusion_rows"],
+          f"{where}: staged tables do not match the sweeps: {launches}")
+
+
 class PlainOnCard:
     """Within it, the CUDA wrappers of the given modules run their plain
     versions: ``{module: {cuda_name: plain_fn}}``."""
@@ -1093,6 +1143,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     print(f"progressive launches: {prog_launches}")
     check(prog_launches["primary"] > 0, "kernel C never launched")
     check(prog_launches["occlusion_rows"] > 0, "kernel H never launched")
+    staged_counts(prog_launches, "progressive")
     img = state.image
     check(tuple(img.shape) == (n, 3) and bool(torch.isfinite(img).all()),
           f"progressive image {tuple(img.shape)} not finite")
@@ -1130,6 +1181,7 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     check(grad_launches["scatter_add"] >= 2,
           "kernel G launched fewer than twice in a backward")
     check(grad_launches["primary"] > 0, "kernel C never launched")
+    staged_counts(grad_launches, "grad step")
     flags = {"grad_pos_finite": bool(torch.isfinite(gp).all()),
              "grad_pos_nonzero": bool((gp != 0).any()),
              "grad_tex_finite": bool(torch.isfinite(gt).all()),
@@ -1146,7 +1198,8 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
     c_err = 0.0  # bit-equal, checked below
     for what, args in (("progressive step", c_args),
                        ("grad step", rec_grad_c.calls["_primary_cuda"][-1])):
-        kc = sweep._primary_cuda(*args)
+        kc = staged_rows_check(sweep, "eye", sweep._primary_cuda, args,
+                               f"kernel C ({what})")
         pc = sweep._primary_plain(*args)
         sync()
         hits, _ = closest_err(kc, pc, f"kernel C ({what})")
@@ -1155,7 +1208,8 @@ def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
         print(f"kernel C ({what}) matches plain bit for bit: {hits} hit "
               f"rays of {pc[0].numel()}; {items} work items at K = "
               f"{sweep.PRIMARY_CHUNK}, {lanes:.2f} active lanes per warp")
-    kh = sweep._occlusion_rows_cuda(*h_args)
+    kh = staged_rows_check(sweep, "light", sweep._occlusion_rows_cuda,
+                           h_args, "kernel H (progressive step)")
     ph = sweep._occlusion_rows_plain(*h_args)
     sync()
     h_err = occlusion_err(kh, ph, "kernel H")
@@ -1640,11 +1694,24 @@ def bundle_checks(dev, data, accel, eye, orient, config,
                                              config)
 
     sweep.reset_launch_counts()
-    k_ids, k_mask, k_img, k_hit = run()
-    sync_device(dev)
+    rec = Recorder(sweep, ["_occlusion_rows_cuda"])
+    try:
+        k_ids, k_mask, k_img, k_hit = run()
+        sync_device(dev)
+    finally:
+        rec.restore()
     launches = dict(sweep.launch_counts)
     check(launches["closest_rays"] >= 3 and launches["occlusion_rows"] >= 2,
           f"ray bundles: launches {launches}")
+    staged_counts(launches, "ray bundles")
+    check(launches["eye_rows"] == 0, f"ray bundles: F's sweep staged eye "
+          f"rows: {launches}")
+    h_args = rec.calls["_occlusion_rows_cuda"][-1]
+    occlusion_err(staged_rows_check(sweep, "light",
+                                    sweep._occlusion_rows_cuda, h_args,
+                                    "kernel H (ray bundles)"),
+                  sweep._occlusion_rows_plain(*h_args),
+                  "kernel H (ray bundles)")
     with PlainOnCard({
             bounce_sweep: {"_closest_rays_cuda": sweep._closest_rays_plain},
             sweep: {"_occlusion_rows_cuda": sweep._occlusion_rows_plain}}):
@@ -2199,6 +2266,7 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
     check(launches["occlusion"] > 0, "kernel B never launched")
     check(launches["general_shade"] == 2,
           f"kernel F launched {launches['general_shade']} times, not 2")
+    staged_counts(launches, "config 5")
     check(tuple(img.shape) == (width * height, 3)
           and bool(torch.isfinite(img).all()), "config 5 image not finite")
     clock.done("17 (config 5 frame)")
@@ -4727,6 +4795,7 @@ def main() -> None:
     print(f"main path launches: {launches}")
     check(launches["primary_shade"] > 0, "kernel A never launched")
     check(launches["occlusion"] > 0, "kernel B never launched")
+    staged_counts(launches, "bench frame")
     check(tuple(frame.shape) == (SIZE * SIZE,), f"frame shape {frame.shape}")
     frame_bits(frame, "bench frame")
     a_args = rec.calls["_primary_shade_cuda"][-1]
@@ -4739,11 +4808,13 @@ def main() -> None:
     clock.done("3 (bench frame)")
 
     # 4. Kernels against their plain versions on the frame's inputs.
-    ka = sweep._primary_shade_cuda(*a_args)
+    ka = staged_rows_check(sweep, "eye", sweep._primary_shade_cuda, a_args,
+                           "kernel A (bench frame)")
     pa = sweep._primary_shade_plain(*a_args)
     torch.cuda.synchronize()
     a_err, hits, _ = shade_err(ka, pa, "kernel A")
-    kb = sweep._occlusion_cuda(*b_args)
+    kb = staged_rows_check(sweep, "light", sweep._occlusion_cuda, b_args,
+                           "kernel B (bench frame)")
     pb = sweep._occlusion_plain(*b_args)
     torch.cuda.synchronize()
     b_err = occlusion_err(kb, pb, "kernel B")

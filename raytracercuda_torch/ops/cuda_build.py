@@ -102,16 +102,17 @@ _I64, _U32 = ctypes.c_longlong, ctypes.c_uint
 #: its first launch error as an ``int``.
 SIGNATURES = {
     "rt_primary_shade": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _P, _P, _P, _P),
+                         _I, _F, _P, _P, _P, _P, _P),
     "rt_general_shade": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _P, _P, _P, _P),
-    "rt_occlusion": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
-    "rt_primary": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
-                   _P),
+    "rt_occlusion": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
+                     _P),
+    "rt_primary": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
+                   _P, _P, _P),
     "rt_closest_rays": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                         _P, _P, _P),
-    "rt_occlusion_rows": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
-                          _P),
+    "rt_occlusion_rows": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _P, _P, _P),
     "rt_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "rt_segment_sum": (_P, _P, _P, _I, _I, _I, _P, _P),
     "rt_brute": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P),

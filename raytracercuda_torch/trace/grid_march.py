@@ -40,7 +40,7 @@ from ..ops.cuda_build import kernel_fn, raw_stream
 from ..ops.math import box_ray_intersect_no_zero
 from ..types import FLT_MAX, Hit
 from .bruteforce import _mt_oracle
-from .sweep import _check_cuda, _eps_args, _pick, t_eps_of
+from .sweep import _check_cuda, _eps_args, _eye_rows_plain, _pick, t_eps_of
 from .traverse import _rays
 
 #: Faces of a bucket the plain version tests at once.
@@ -119,14 +119,7 @@ def eye_rows(rows: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:
     hit = _EYE_ROWS.get(key)
     if hit is not None and hit[0]() is rows and hit[1] == bits:
         return hit[2]
-    e1, e2 = rows[:, 3:6], rows[:, 6:9]
-    tv = e - rows[:, 0:3]
-    qv = torch.stack([tv[:, 1] * e1[:, 2] - tv[:, 2] * e1[:, 1],
-                      tv[:, 2] * e1[:, 0] - tv[:, 0] * e1[:, 2],
-                      tv[:, 0] * e1[:, 1] - tv[:, 1] * e1[:, 0]], dim=1)
-    tq = e2[:, 0] * qv[:, 0] + e2[:, 1] * qv[:, 1] + e2[:, 2] * qv[:, 2]
-    table = torch.cat([e1, e2, tv, qv, tq[:, None],
-                       torch.zeros_like(e1)], dim=1).contiguous()
+    table = _eye_rows_plain(e, rows).contiguous()
     _EYE_ROWS[key] = (weakref.ref(rows, lambda _: _EYE_ROWS.pop(key, None)),
                       bits, table)
     return table

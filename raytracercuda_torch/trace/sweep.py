@@ -45,6 +45,15 @@ ray's flag at its first hit, and a ray flagged by one item is skipped by
 the others (`csrc/sweep.cu`).  One launch is one call of the kernel's C
 entry (the key fill or flag clear, and its passes).
 
+A test's terms that do not depend on the ray are staged once a triangle,
+in the kernel that fills the keys or clears the flags, as ``[C, G, 16]``
+rows that pass 1 sweeps in place of the geometry rows: A and C trace from
+the common eye and read eye rows (`_eye_rows_plain`, tested by
+`_mt_eye_cols`), B and H trace along one light and read light rows
+(`_light_rows_plain`, `_mt_light_cols`).  Each staged term rounds as
+`_mt_cols` rounds it, so the tests give its t, u and v bit for bit.  F,
+with per-ray origins and directions, sweeps the geometry rows.
+
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its CUDA kernel for tensors on a GPU; there is no fallback from
 one to the other.  ``launch_counts`` counts kernel launches.
@@ -88,10 +97,17 @@ SHADE_COLS = 32
 #: Columns of a geometry row (the operand of every sweep): v0 | e1 | e2.
 GEOM_COLS = 9
 
+#: Columns of a staged row, the operand of pass 1 of A and C (eye rows) and
+#: of B and H (light rows): 64 bytes, four 16-byte copies a triangle.
+STAGED_COLS = 16
+
 #: Kernel launches per wrapper, counted where the kernel is launched.
+#: ``eye_rows`` and ``light_rows`` count the launches that staged a table:
+#: A's and C's, B's and H's.
 launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
                  "primary": 0, "occlusion_rows": 0, "closest_rays": 0,
-                 "frustum_cull": 0, "beam_cull": 0}
+                 "frustum_cull": 0, "beam_cull": 0, "eye_rows": 0,
+                 "light_rows": 0}
 
 #: Clusters per work item of each kernel, K: the fastest, within the run's
 #: spread, of `chip_smoke.py`'s sweep over K on the H100 (PERF.md), by the
@@ -249,6 +265,88 @@ def _mt_cols(tri, ox, oy, oz, dx, dy, dz, t_eps):
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
     miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
     miss = miss | (det.abs() < _DET_TINY)
+    if t_eps is not None:
+        miss = miss | (t < t_eps)
+    return torch.where(miss, float(FLT_MAX), t), u, v
+
+
+def _eye_rows_plain(eye, geom):
+    """Plain version of the eye rows that A's and C's key fill stages
+    (and kernel M's, `grid_march.eye_rows`): ``[..., 16]`` e1 | e2 | tvec
+    | qvec | tq | three zeros of each v0 | e1 | e2 row of ``geom [..., 9
+    or more]`` from the common ``eye [3]``, each term rounded as
+    `_mt_cols` rounds it: ``tvec = eye - v0``, ``qvec = tvec x e1``,
+    ``tq = e2 . qvec``."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (geom[..., k]
+                                                   for k in range(9))
+    tvx, tvy, tvz = eye[0] - v0x, eye[1] - v0y, eye[2] - v0z
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    tq = e2x * qvx + e2y * qvy + e2z * qvz
+    zero = torch.zeros_like(tq)
+    return torch.stack([e1x, e1y, e1z, e2x, e2y, e2z, tvx, tvy, tvz, qvx,
+                        qvy, qvz, tq, zero, zero, zero], dim=-1)
+
+
+def _light_rows_plain(light, geom):
+    """Plain version of the light rows that B's and H's flag clear stages:
+    ``[C, G, 16]`` v0 | e1 | e2 | pvec | inv | flag | two zeros of each
+    geometry row of ``geom [C, G, 9]`` along the unit ``light [3]``, each
+    term rounded as `_mt_cols` rounds it: ``pvec = light x e2``, ``inv =
+    1 / det`` with ``det = e1 . pvec``; flag 1.0 where ``|det|`` is below
+    ``_DET_TINY`` (a miss for every ray), else 0.0."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = geom.unbind(-1)
+    dx, dy, dz = light[0], light[1], light[2]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = 1.0 / det
+    flag = (det.abs() < _DET_TINY).to(torch.float32)
+    zero = torch.zeros_like(det)
+    return torch.stack([v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pvx,
+                        pvy, pvz, inv, flag, zero, zero], dim=-1)
+
+
+def _mt_eye_cols(rows, dx, dy, dz, t_eps):
+    """`_mt_cols` from the common eye on staged eye rows (the first
+    thirteen ``[n,G,1]`` columns of `_eye_rows_plain`), rays on dim 2:
+    only the ray's terms, as A's and C's pass 1 computes them -> t/u/v
+    ``[n,G,R]``, bit-equal to `_mt_cols`'."""
+    e1x, e1y, e1z, e2x, e2y, e2z, tvx, tvy, tvz, qvx, qvy, qvz, tq = \
+        rows[:13]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = 1.0 / det
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = tq * inv
+    miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
+    miss = miss | (det.abs() < _DET_TINY)
+    if t_eps is not None:
+        miss = miss | (t < t_eps)
+    return torch.where(miss, float(FLT_MAX), t), u, v
+
+
+def _mt_light_cols(rows, ox, oy, oz, dx, dy, dz, t_eps):
+    """`_mt_cols` along the light ``(dx, dy, dz)`` on staged light rows (the
+    first fourteen ``[n,G,1]`` columns of `_light_rows_plain`), rays on
+    dim 2: only the ray's terms, as B's and H's pass 1 computes them, a
+    flagged row a miss -> t/u/v ``[n,G,R]``, bit-equal to `_mt_cols`'."""
+    (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pvx, pvy, pvz, inv,
+     flag) = rows[:14]
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
+    miss = miss | (flag != 0.0)
     if t_eps is not None:
         miss = miss | (t < t_eps)
     return torch.where(miss, float(FLT_MAX), t), u, v
@@ -455,11 +553,18 @@ def _eps_args(t_eps):
     return int(t_eps is not None), 0.0 if t_eps is None else float(t_eps)
 
 
+def _staged_table(geom: torch.Tensor) -> torch.Tensor:
+    """``[C, G, 16]`` float32 scratch for a launch's eye or light rows,
+    which its C entry writes before the sweep reads them."""
+    return torch.empty((geom.shape[0], geom.shape[1], STAGED_COLS),
+                       dtype=torch.float32, device=geom.device)
+
+
 def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
                         t_eps, geom):
     """Launch kernel A; outputs as in `_primary_shade_plain`.  Pass 1
-    sweeps ``geom``, the geometry rows `segment_blocks` gives; pass 2
-    reads the shade rows."""
+    sweeps the eye rows of ``geom``, the geometry rows `segment_blocks`
+    gives; pass 2 reads ``geom`` and the shade rows."""
     num_tiles, _, R = d3_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = d3_tiles.device
@@ -474,15 +579,17 @@ def _primary_shade_cuda(lists, eye, d3_tiles, blocks, has_uv, with_refl,
     keys = torch.empty(num_tiles * R, dtype=torch.int64, device=dev)
     out_f = torch.empty((n_f, num_tiles, R), dtype=torch.float32, device=dev)
     out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    rows = _staged_table(geom)
     err = kernel_fn("rt_primary_shade")(
         items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
         eye.data_ptr(), d3_tiles.data_ptr(), geom.data_ptr(),
-        blocks.data_ptr(), num_tiles, R, g, int(has_uv), int(with_refl),
-        *_eps_args(t_eps), keys.data_ptr(), out_f.data_ptr(),
-        out_slot.data_ptr(), raw_stream(dev))
+        blocks.data_ptr(), c, num_tiles, R, g, int(has_uv), int(with_refl),
+        *_eps_args(t_eps), keys.data_ptr(), rows.data_ptr(),
+        out_f.data_ptr(), out_slot.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel A launch failed: CUDA error {err}")
     launch_counts["primary_shade"] += 1
+    launch_counts["eye_rows"] += 1
     return (out_f[0], out_slot, *out_f[1:])
 
 
@@ -490,7 +597,8 @@ def _launch_occlusion(entry, what, chunk, num_tiles, R, lists, light,
                       origins, active, blocks, t_eps):
     """Launch kernel B or H (C entry ``entry``, work items of ``chunk``
     clusters) on ``origins`` already checked to hold ``num_tiles`` tiles
-    of ``R`` rays: ``[T, R]`` bool occlusion."""
+    of ``R`` rays: ``[T, R]`` bool occlusion.  The entry stages the light
+    rows of ``blocks`` along ``light``, then sweeps them."""
     c, g = blocks.shape[0], blocks.shape[1]
     dev = origins.device
     _check_lists(lists, dev, num_tiles)
@@ -501,13 +609,15 @@ def _launch_occlusion(entry, what, chunk, num_tiles, R, lists, light,
     items = split_lists(lists, chunk)
     # The kernel reads the bool mask as bytes and writes the bool result.
     occ = torch.empty((num_tiles, R), dtype=torch.bool, device=dev)
+    rows = _staged_table(blocks)
     err = kernel_fn(entry)(
         items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
         light.data_ptr(), origins.data_ptr(), active.data_ptr(),
-        blocks.data_ptr(), num_tiles, R, g, float(t_eps), occ.data_ptr(),
-        raw_stream(dev))
+        blocks.data_ptr(), c, num_tiles, R, g, float(t_eps),
+        rows.data_ptr(), occ.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel {what} launch failed: CUDA error {err}")
+    launch_counts["light_rows"] += 1
     return occ
 
 
@@ -560,7 +670,8 @@ def _general_shade_cuda(lists, o3_tiles, d3_tiles, active, blocks, has_uv,
 
 
 def _primary_cuda(lists, eye, d_tiles, blocks, t_eps):
-    """Launch kernel C; outputs as in `_primary_plain`."""
+    """Launch kernel C; outputs as in `_primary_plain`.  Pass 1 sweeps the
+    eye rows of the geometry rows ``blocks``; pass 2 reads ``blocks``."""
     num_tiles, R, _ = d_tiles.shape
     c, g = blocks.shape[0], blocks.shape[1]
     dev = d_tiles.device
@@ -573,14 +684,16 @@ def _primary_cuda(lists, eye, d_tiles, blocks, t_eps):
     keys = torch.empty(num_tiles * R, dtype=torch.int64, device=dev)
     out_f = torch.empty((3, num_tiles, R), dtype=torch.float32, device=dev)
     out_slot = torch.empty((num_tiles, R), dtype=torch.int32, device=dev)
+    rows = _staged_table(blocks)
     err = kernel_fn("rt_primary")(
         items.data_ptr(), items.shape[1], lists.ids.data_ptr(),
-        eye.data_ptr(), d_tiles.data_ptr(), blocks.data_ptr(), num_tiles, R,
-        g, *_eps_args(t_eps), keys.data_ptr(), out_f.data_ptr(),
-        out_slot.data_ptr(), raw_stream(dev))
+        eye.data_ptr(), d_tiles.data_ptr(), blocks.data_ptr(), c, num_tiles,
+        R, g, *_eps_args(t_eps), keys.data_ptr(), rows.data_ptr(),
+        out_f.data_ptr(), out_slot.data_ptr(), raw_stream(dev))
     if err:
         raise RuntimeError(f"kernel C launch failed: CUDA error {err}")
     launch_counts["primary"] += 1
+    launch_counts["eye_rows"] += 1
     return out_f[0], out_f[1], out_f[2], out_slot
 
 

@@ -15,7 +15,13 @@ card: ``python -m pytest tests/test_torch_cull.py -m card -s
 --noconftest`` (this file imports no jax; ``-s`` shows the counts of
 differing mask entries).  On the card every mask entry that differs
 from the chain's must lie within `chip_smoke.CULL_THRESHOLD_REL` of its
-test's threshold."""
+test's threshold.
+
+The card tests also hold the sweeps the culls feed, A and B in a frame, C
+and H in a progressive pass and H on ray bundles: each launch's staged eye
+or light rows and its outputs bit-equal to the plain versions', and the
+staged tables counted once a launch of A, B, C or H and never on F's
+sweep."""
 
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CULL_THRESHOLD_REL, beam_margin, frustum_margin
+from chip_smoke import (CULL_THRESHOLD_REL, beam_margin, bits_equal,
+                        frustum_margin, staged_counts, staged_rows_check)
+from raytracercuda_torch.diff import render_grad
 from raytracercuda_torch.models.camera import (camera_ray_grid,
                                                orient_from_pan_pitch)
 from raytracercuda_torch.models.procedural import bumpy_sphere_mesh
@@ -531,13 +539,9 @@ def test_frames_over_the_period_equal_the_chains(traffic, monkeypatch):
     assert frames_differ == [] and cmp.worst <= CULL_THRESHOLD_REL
 
 
-@pytest.mark.card
-def test_a_progressive_pass_equals_the_chains(monkeypatch):
-    """armadillo346k-f16.c1024 (350,000 faces, 1024x1024, 4,096 tiles): a
-    first pass from the configuration's view through the kernels and
-    through the plain chains, bit for bit; the masks compared in both
-    layouts."""
-    dev = _card()
+def armadillo_first_pass(dev):
+    """armadillo346k-f16.c1024's first progressive pass from the
+    configuration's view: ``(run, clusters)``, ``run()`` -> the image."""
     config, data, accel = config_scene("armadillo346k-f16.c1024", dev)
     w, h, v = config["width"], config["height"], config["view"]
     mesh = config["meshes"][v["mesh"]]
@@ -553,6 +557,17 @@ def test_a_progressive_pass_equals_the_chains(monkeypatch):
                                     data, accel, eye, orient, w, h, CONFIG,
                                     with_shadows=True).image
 
+    return first_pass, accel
+
+
+@pytest.mark.card
+def test_a_progressive_pass_equals_the_chains(monkeypatch):
+    """armadillo346k-f16.c1024 (350,000 faces, 1024x1024, 4,096 tiles): a
+    first pass from the configuration's view through the kernels and
+    through the plain chains, bit for bit; the masks compared in both
+    layouts."""
+    dev = _card()
+    first_pass, accel = armadillo_first_pass(dev)
     cmp = AgainstChains(monkeypatch)
     got = first_pass()
     with cmp.chains():
@@ -589,3 +604,93 @@ def test_a_frame_waits_only_for_the_lists(bench_sized):
     bench_sized.frame()
     torch.cuda.synchronize()
     assert _sync_sites(bench_sized.frame) == ["sync.tile_lists"] * 2
+
+
+#: The sweeps that read staged rows: wrapper -> (rows, plain version).
+STAGED_SWEEPS = {
+    "_primary_shade_cuda": ("eye", sweep._primary_shade_plain),
+    "_occlusion_cuda": ("light", sweep._occlusion_plain),
+    "_primary_cuda": ("eye", sweep._primary_plain),
+    "_occlusion_rows_cuda": ("light", sweep._occlusion_rows_plain),
+}
+
+
+def _same_bits(got, want) -> bool:
+    return (bits_equal(got, want) if got.dtype == torch.float32
+            else torch.equal(got, want))
+
+
+def _staged_unit(unit: str, dev):
+    """A unit whose sweeps read staged rows: the first frame of near's or
+    far's period on bunny69k.c512 (A, B), armadillo346k-f16.c1024's first
+    progressive pass (C, H), or a shadowed `render_rgb` of bunny69k.c512's
+    first near pose without ``frame_hw`` (ray bundles: F's sweep, then H)."""
+    if unit == "progressive":
+        return armadillo_first_pass(dev)[0]
+    config, data, accel = config_scene("bunny69k.c512", dev)
+    pos = data.positions.cpu().numpy()
+    lo, hi = pos.min(0), pos.max(0)
+    eye, orient = next(orbit("near" if unit == "bundle" else unit,
+                             (lo + hi) / 2, config["meshes"][0]["radius"],
+                             float((hi - lo).max())))
+    eye, orient = (torch.as_tensor(x, device=dev) for x in (eye, orient))
+    if unit == "bundle":
+        rays = camera_ray_grid(128, 128, device=dev)
+
+        def bundle():
+            with torch.no_grad():
+                return render_grad.render_rgb(data, accel, rays, eye, orient,
+                                              CONFIG, with_shadows=True)
+        return bundle
+    side = config["width"]
+    renderer = FrameRenderer(data, accel, CONFIG, config["height"], side)
+    rays = camera_ray_grid(side, config["height"], device=dev)
+    return lambda: renderer.render(eye, orient, rays)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("unit", ["near", "far", "progressive", "bundle"])
+def test_staged_sweeps_equal_plain(unit, monkeypatch):
+    """Every launch of A, B, C or H in the unit, run again: its staged eye
+    or light rows bit-equal to `_eye_rows_plain` / `_light_rows_plain`,
+    and its outputs (t, slot, u, v and A's attributes; B's and H's mask)
+    bit-equal to its plain version's on the same inputs.  The staged
+    tables count A + C and B + H launches; F's sweep (the bundles' closest
+    hit) stages none."""
+    dev = _card()
+    run = _staged_unit(unit, dev)
+    run()  # warm-up: the light's first copy to the card
+    torch.cuda.synchronize()
+    calls = []
+    for name in STAGED_SWEEPS:
+        def spy(*args, _name=name, _real=getattr(sweep, name)):
+            calls.append((_name, args))
+            return _real(*args)
+        monkeypatch.setattr(sweep, name, spy)
+    sweep.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    launches = dict(sweep.launch_counts)
+    monkeypatch.undo()
+    staged_counts(launches, unit)
+    want_kinds = {"near": {"_primary_shade_cuda", "_occlusion_cuda"},
+                  "far": {"_primary_shade_cuda", "_occlusion_cuda"},
+                  "progressive": {"_primary_cuda", "_occlusion_rows_cuda"},
+                  "bundle": {"_occlusion_rows_cuda"}}[unit]
+    assert {name for name, _ in calls} == want_kinds
+    if unit == "bundle":
+        assert launches["closest_rays"] > 0 and launches["eye_rows"] == 0
+    for name, args in calls:
+        kind, plain = STAGED_SWEEPS[name]
+        got = staged_rows_check(sweep, kind, getattr(sweep, name), args,
+                                f"{unit} {name}")
+        want = plain(*args)
+        torch.cuda.synchronize()
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert _same_bits(g, w), f"{name} output {i}: " \
+                f"{int((g != w).sum())} entries differ"
+    print(f"{unit}: {len(calls)} staged sweeps bit-equal to plain; "
+          f"launches {launches}")

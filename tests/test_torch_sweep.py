@@ -263,6 +263,170 @@ def test_mt_subnormal_det_is_miss():
     assert torch.isfinite(t).all() and (t == FLT_MAX).all()
 
 
+# Staged terms: the eye rows of A and C, the light rows of B and H.  Each
+# case: geometry rows [1, G, 9], the eye [3] and directions [3, R] (eye
+# form), the unit light [3] and origins [3, R] (light form).
+_T_EPS = np.float32(1e-4)
+
+
+def _unit_tri_case(a, b, depth):
+    """The triangle v0 = 0, e1 = x, e2 = y, hit from z = -depth: from the
+    eye (0, 0, -depth) along (a, b, 1), and from (a, b, -depth) along the
+    light +z, each at u = a, v = b, t = depth exactly."""
+    geom = np.array([[0, 0, 0, 1, 0, 0, 0, 1, 0]], np.float32)
+    a, b = np.broadcast_arrays(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32))
+    ones = np.ones_like(a)
+    return dict(geom=geom, eye=np.array([0, 0, -depth], np.float32),
+                dirs=np.stack([a, b, ones]),
+                light=np.array([0, 0, 1], np.float32),
+                origins=np.stack([a, b, -depth * ones]))
+
+
+def _staged_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "random":
+        v0 = rng.uniform(-1, 1, (96, 3))
+        e1, e2 = rng.normal(0, 0.4, (2, 96, 3))
+        eye = rng.uniform(-0.3, 0.3, 3) + [0, 0, -4]
+        aim = v0[rng.integers(0, 96, 200)] + 0.25 * rng.normal(size=(200, 3))
+        light = rng.normal(size=3)
+        light /= np.linalg.norm(light)
+        return dict(geom=np.concatenate([v0, e1, e2], 1)[None],
+                    eye=eye, dirs=(aim - eye).T, light=light,
+                    origins=(aim - light * rng.uniform(0, 2, (200, 1))).T)
+    if name == "det_zero_in_plane":
+        # Zero-area triangles, and a ray or light in a triangle's plane.
+        geom = np.array([[0, 0, 0, 0, 0, 0, 0, 1, 0],     # e1 = 0
+                         [0, 0, 0, 1, 1, 0, 2, 2, 0],     # e2 = 2 e1
+                         [0, 0, 0, 1, 0, 0, 0, 1, 0],     # the z = 0 plane
+                         [0, 0, 0, 1, 0, 0, 0, 0, 1]],    # e2 along +z
+                        np.float32)
+        eye = np.array([-1, -1, 0], np.float32)  # in the z = 0 plane
+        dirs = np.array([[1, 1, 0], [1, 0.5, 0], [0.3, 0.2, 1],
+                         [0, 0, 1], [1, 2, 0]], np.float32).T
+        light = np.array([0, 0, 1], np.float32)  # along the last e2
+        origins = np.array([[0.2, 0.2, -1], [0.1, 0.0, -0.5],
+                            [0.5, 0.5, 0], [0, 0.3, 0.2]], np.float32).T
+        return dict(geom=geom[None], eye=eye, dirs=dirs, light=light,
+                    origins=origins)
+    if name == "det_subnormal":
+        tiny = np.float32(1e-20)
+        geom = np.array([[0, 0, 0, tiny, 0, 0, 0, tiny, 0],
+                         [0, 0, 1, 1e-19, 0, 0, 0, 1e-19, 0]], np.float32)
+        return dict(geom=geom[None], eye=np.zeros(3, np.float32),
+                    dirs=np.array([[0, 0, 1], [1e-20, 0, 1]],
+                                  np.float32).T,
+                    light=np.array([0, 0, 1], np.float32),
+                    origins=np.array([[0, 0, 0], [0, 0, -1],
+                                      [1e-20, 1e-20, -1]], np.float32).T)
+    if name == "uv_edges":
+        # u or v exactly 0 or 1, u + v exactly 1, and just outside.
+        a = np.array([0, 1, 0, 0.25, 0.5, 0.75, 1, -0.0, 0.5, 1.0000001,
+                      -1e-7, 0.6], np.float32)
+        b = np.array([0, 0, 1, 0.75, 0.5, 0.25, 1e-7, 1, -0.0, 0, 0.4,
+                      0.4000001], np.float32)
+        return _unit_tri_case(a, b, np.float32(2.0))
+    if name == "t_at_t_eps":
+        return _unit_tri_case(np.array([0.2, 0.3, 0.0], np.float32),
+                              np.array([0.2, 0.1, 0.5], np.float32), _T_EPS)
+    if name == "nan_inf_vertices":
+        inf, nan = np.float32(np.inf), np.float32(np.nan)
+        geom = np.array([[nan, 0, 0, 1, 0, 0, 0, 1, 0],
+                         [0, 0, 0, inf, 0, 0, 0, 1, 0],
+                         [0, 0, 0, 1, 0, 0, 0, -inf, 0],
+                         [0, 0, inf, 1, 0, 0, 0, 1, 0],
+                         [0, 0, 0, nan, nan, nan, 0, 1, 0],
+                         [0, 0, 0, 1, 0, 0, 0, 1, 0]], np.float32)
+        case = _unit_tri_case(np.array([0.2, 0, 0.5], np.float32),
+                              np.array([0.3, 0, 0.5], np.float32),
+                              np.float32(1.0))
+        return {**case, "geom": geom}
+    raise KeyError(name)
+
+
+STAGED_CASES = ["random", "det_zero_in_plane", "det_subnormal", "uv_edges",
+                "t_at_t_eps", "nan_inf_vertices"]
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("t_eps", [None, _T_EPS], ids=["no_eps", "eps"])
+@pytest.mark.parametrize("form", ["eye", "light"])
+@pytest.mark.parametrize("case", STAGED_CASES)
+def test_staged_rows_test_as_mt_cols(case, form, t_eps):
+    """The plain eye-row and light-row builders, then the plain pair tests
+    on their rows, give `_mt_cols`' t, u, v and miss mask bit for bit: the
+    eye form from the common eye along each ray's direction (A, C), the
+    light form from each ray's origin along the light (B, H)."""
+    c = {k: torch.from_numpy(np.asarray(v, np.float32))
+         for k, v in _staged_case(case).items()}
+    geom = c["geom"].reshape(1, -1, 9)
+    tri = tuple(geom[:, :, k:k + 1] for k in range(9))
+    if form == "eye":
+        table = tsweep._eye_rows_plain(c["eye"], geom)
+        d = c["dirs"][None, :, None, :]  # [1, 3, 1, R]
+        want = tsweep._mt_cols(tri, c["eye"][0], c["eye"][1], c["eye"][2],
+                               d[:, 0], d[:, 1], d[:, 2], t_eps)
+        got = tsweep._mt_eye_cols(
+            tuple(table[:, :, k:k + 1] for k in range(16)), d[:, 0],
+            d[:, 1], d[:, 2], t_eps)
+    else:
+        table = tsweep._light_rows_plain(c["light"], geom)
+        o = c["origins"][None, :, None, :]
+        lx, ly, lz = c["light"]
+        want = tsweep._mt_cols(tri, o[:, 0], o[:, 1], o[:, 2], lx, ly, lz,
+                               t_eps)
+        got = tsweep._mt_light_cols(
+            tuple(table[:, :, k:k + 1] for k in range(16)), o[:, 0],
+            o[:, 1], o[:, 2], lx, ly, lz, t_eps)
+    assert table.shape == (*geom.shape[:2], tsweep.STAGED_COLS)
+    assert table.dtype == torch.float32
+    for name, g, w in zip("tuv", got, want):
+        assert g.shape == w.shape, name
+        assert torch.equal(_bits(g), _bits(w)), name
+    assert torch.equal(got[0] == FLT_MAX, want[0] == FLT_MAX)
+    hits = int((want[0] < FLT_MAX).sum())
+    if case in ("random", "uv_edges", "t_at_t_eps"):
+        assert hits > 0
+    if case == "det_subnormal":
+        assert hits == 0
+    if form == "light" and case in ("det_zero_in_plane", "det_subnormal"):
+        assert bool((table[..., 13] == 1.0).any())  # a flagged row
+    if case == "t_at_t_eps":
+        # t == t_eps exactly: a hit, clipped or not.
+        assert bool((want[0] == _T_EPS).any())
+
+
+def test_staged_rows_rounding():
+    """Each staged term is the separate float32 operations of `_mt_cols`:
+    the eye rows' tq is summed left to right, and a light row's flag and
+    reciprocal come from the rounded det."""
+    geom = torch.tensor([[[0.1, 0.2, 0.3, 1e8, 1.0, -1e8, 0.5, 0.25, 3.0],
+                          [0, 0, 0, 1, 0, 0, 0, 0, 1]]], dtype=torch.float32)
+    eye = torch.tensor([0.7, -0.1, 2.0])
+    rows = tsweep._eye_rows_plain(eye, geom)
+    tv = eye - geom[..., 0:3]
+    e1, e2 = geom[..., 3:6], geom[..., 6:9]
+    qv = torch.stack([tv[..., 1] * e1[..., 2] - tv[..., 2] * e1[..., 1],
+                      tv[..., 2] * e1[..., 0] - tv[..., 0] * e1[..., 2],
+                      tv[..., 0] * e1[..., 1] - tv[..., 1] * e1[..., 0]], -1)
+    tq = (e2[..., 0] * qv[..., 0] + e2[..., 1] * qv[..., 1]) \
+        + e2[..., 2] * qv[..., 2]
+    assert torch.equal(_bits(rows[..., 6:9]), _bits(tv))
+    assert torch.equal(_bits(rows[..., 9:12]), _bits(qv))
+    assert torch.equal(_bits(rows[..., 12]), _bits(tq))
+    assert not rows[..., 13:].any()
+    light = torch.tensor([0.0, 0.0, 1.0])
+    lrows = tsweep._light_rows_plain(light, geom)
+    assert torch.equal(lrows[..., :9], geom)
+    assert lrows[0, 1, 13] == 1.0 and lrows[0, 0, 13] == 0.0
+    assert torch.isinf(lrows[0, 1, 12])  # 1 / 0
+    assert not lrows[..., 14:].any()
+
+
 def test_cuda_wrappers_reject_cpu_tensors():
     s = setup("plain", num_faces=300)
     lists = tsweep._tile_lists(torch.ones((16, s["tc"].num_clusters),
