@@ -1,0 +1,78 @@
+"""Kernel F, the closest hit and attributes of the mirror bounces
+(`trace/sweep.py`'s `_general_shade_cuda`, called through
+`trace/bounce_sweep.py`): its device time a launch and its share of its
+roofline, the least time its work needs (`yardstick`) over that time.
+
+F's one C entry launches `fill_keys_kernel`, `sweep_items_kernel<true,
+true>` (left out where no tile lists a cluster) and
+`shade_epilogue_kernel<true>`, in that order on one stream.  Its fill
+shares its name with E's and with the overload that A and C launch, so a
+fill is F's only where it is the activity that starts last before F's
+sweep or, without one, before F's epilogue: each launch's fill is
+attributed by that order, never by the name's mean over the slice.
+
+The tests are counted from the inputs the wrapper hands the kernel:
+every listed cluster's triangles for each active ray of its tile
+(`yardstick.sweep_tests` with ``active``), the work F's pass 1 does; the
+bytes are those of its inputs and outputs, each once."""
+
+from __future__ import annotations
+
+import torch
+
+from .yardstick import MT_OPS, bound, nbytes, sweep_tests
+
+FILL = "fill_keys_kernel"
+SWEEP = "sweep_items_kernel<true, true>"
+EPILOGUE = "shade_epilogue_kernel<true>"
+WRAPPER = "_general_shade_cuda"
+
+
+def launches_us(trace) -> list:
+    """Device us of each of F's launches recorded in the slice: its
+    epilogue, and the sweep and the fill just before it."""
+    acts = sorted(trace.activities, key=lambda a: a[1])
+    out = []
+    for i, (name, _, dur) in enumerate(acts):
+        if name != EPILOGUE:
+            continue
+        j = i - 1
+        if j >= 0 and acts[j][0] == SWEEP:
+            dur += acts[j][2]
+            j -= 1
+        if j >= 0 and acts[j][0] == FILL:
+            dur += acts[j][2]
+        out.append(dur)
+    return out
+
+
+def install(tracer) -> None:
+    """Count each call's tests and bytes while the traced slice runs."""
+    from raytracercuda_torch.trace import bounce_sweep
+
+    launch = getattr(bounce_sweep, WRAPPER)
+
+    def counted(*args):
+        out = launch(*args)
+        lists, d3_tiles, active, blocks = args[0], args[2], args[3], args[4]
+        tracer.count(WRAPPER, sweep_tests(lists.counts, d3_tiles.shape[2],
+                                          blocks.shape[1], active),
+                     nbytes(*args, out))
+        return out
+
+    tracer.patch(bounce_sweep, WRAPPER, counted)
+
+
+def share(trace):
+    """Percent of the bound that F reaches over the slice, or None where
+    it made no call or none of its launches was recorded.  Its time is
+    the mean recorded launch times the calls, so that launches the
+    profiler drops do not read as speed."""
+    calls = trace.calls.get(WRAPPER)
+    launches = launches_us(trace)
+    if not calls or not launches:
+        return None
+    kernel_ms = sum(launches) / len(launches) * len(calls) / 1e3
+    tests = torch.stack([c.tests for c in calls]).cpu().tolist()
+    bound_ms = sum(bound(t * MT_OPS, c.nbytes) for t, c in zip(tests, calls))
+    return 100.0 * bound_ms / kernel_ms

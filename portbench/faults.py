@@ -5,8 +5,9 @@ also give the upper readings of its limits).
 
 Each cell can have: an answer altered where it is produced (``answer``),
 half of the batch left out (``half``) and, where a step carries state, a
-step that returns its state unchanged (``state``).  There is one chip, so
-no exchange between chips to leave out.
+step that returns its state unchanged (``state``).  A frame with mirror
+bounces can also lose its materials' reflectivity (``reflectivity``).
+There is one chip, so no exchange between chips to leave out.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import contextlib
 import torch
 
 #: The faults each traffic kind can have.
-FAULTS = {"orbit": ("answer", "half"), "progressive": ("state", "answer", "half"),
+FAULTS = {"orbit": ("answer", "half"),
+          "bounce_orbit": ("answer", "half", "reflectivity"),
+          "progressive": ("state", "answer", "half"),
           "adam": ("state", "answer", "half")}
 
 
@@ -26,7 +29,8 @@ def planted(kind: str, fault: str):
     undone on exit."""
     if fault not in FAULTS[kind]:
         raise ValueError(f"a {kind} cell has no fault {fault!r}")
-    target, attr, broken = {"orbit": _frames, "progressive": _progressive,
+    target, attr, broken = {"orbit": _frames, "bounce_orbit": _bounces,
+                            "progressive": _progressive,
                             "adam": _adam}[kind](fault)
     saved = getattr(target, attr)
     setattr(target, attr, broken(saved))
@@ -51,6 +55,26 @@ def _frames(fault):
         return frame
 
     return FrameRenderer, "render", broken
+
+
+def _bounces(fault):
+    from raytracercuda_torch.trace import bounce
+
+    def broken(render):
+        def frame(cs, scene, *args, **kw):
+            if fault == "reflectivity":  # every material a plain one
+                return render(cs, scene._replace(
+                    reflectivity=torch.zeros_like(scene.reflectivity)),
+                    *args, **kw)
+            rgb = render(cs, scene, *args, **kw).clone()
+            if fault == "answer":  # one pixel in a hundred, a wrong red
+                rgb[::100, 0] = (rgb[::100, 0] + 0.5) % 1.0
+            else:  # the rays of the second half never traced
+                rgb[rgb.shape[0] // 2:] = torch.tensor(kw["background"])
+            return rgb
+        return frame
+
+    return bounce, "render_bounces", broken
 
 
 def _progressive(fault):

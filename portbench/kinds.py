@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import checks, traffic as gen
-from .reference import render as ref
+from .reference import bounce as ref_bounce, render as ref
 from .reference.train import AdamSettings, adam_steps
 from .scenes import make_inputs, port_scene, ref_scene, shading
 
@@ -136,6 +136,99 @@ class OrbitFrames(_Scene):
         hits = [float((f.to(torch.int64) != bg).to(torch.float64).mean())
                 for f in self.kept.values()]
         return f"hit share of the checked frames {hits}"
+
+
+class BounceOrbit(_Scene):
+    """`OrbitFrames`' viewer over mirror materials: each frame is the
+    program's public bounce entry, `trace.bounce.render_bounces`, with
+    ``bounces`` mirror bounces and the configuration's shadows, packed by
+    `trace.shade.pack_shaded`, and issued when the last one is complete on
+    the card.  Of each checked frame the seed's ``sample_px`` pixels are
+    held against the reference (`reference/bounce.py`)."""
+
+    def __init__(self, config, traffic, seed, device):
+        super().__init__(config, seed, device)
+        import inspect
+
+        from raytracercuda_torch.trace import bounce, bounce_sweep, shade
+        from raytracercuda_torch.trace.pipeline import rotate_rays
+
+        ambient = inspect.signature(
+            bounce_sweep.render_bounces_tiled).parameters["ambient"].default
+        if self.shading.ambient != ambient:
+            raise ValueError(
+                f"the bounce entry shades with ambient {ambient}; the "
+                f"configuration asks for {self.shading.ambient}")
+        self.bounce, self.shade, self.rotate = bounce, shade, rotate_rays
+        self.accel = self.scene.accel
+        self.bounces = traffic["bounces"]
+        pos = np.concatenate([m["positions"] for m in self.inputs.meshes])
+        lo, hi = pos.min(0), pos.max(0)
+        eyes, orients = gen.orbit(traffic, (lo + hi) / 2,
+                                  config["meshes"][0]["radius"],
+                                  float((hi - lo).max()))
+        self.eyes, self.orients = self.tensor(eyes), self.tensor(orients)
+        self.period = traffic["period"]
+        self.rays = ref.camera_rays(self.width, self.height, device=device)
+        self.start = gen.start(self.period, seed)
+        self.checked = gen.checked(traffic["checked_frames"], self.period,
+                                   seed)
+        self.samples = {k: torch.as_tensor(v, device=device) for k, v in
+                        gen.sampled(traffic["sample_px"],
+                                    self.width * self.height, self.checked,
+                                    seed).items()}
+        self.warm = traffic["warmup_frames"]
+        self.kept = {}
+        self.changed = None
+
+    def _frame(self, k: int) -> torch.Tensor:
+        rgb = self.bounce.render_bounces(
+            self.accel, self.data, self.eyes[k],
+            self.rotate(self.rays, self.orients[k]), self.height, self.width,
+            self.rcfg, num_bounces=self.bounces, light_dir=self.shading.light,
+            with_shadows=self.config["shadows"],
+            background=self.shading.background)
+        return self.shade.pack_shaded(rgb)
+
+    warm_up = OrbitFrames.warm_up
+    unit = OrbitFrames.unit
+    end_to_end = OrbitFrames.end_to_end
+    _hit_notes = OrbitFrames.notes
+
+    def release(self) -> None:
+        super().release()
+        self.accel = None
+
+    def _reference(self, scene, k, dtype):
+        return ref_bounce.render_sample(
+            scene, self.eyes[k], self.orients[k], self.rays, self.width,
+            self.height, self.shading, self.config["shadows"], self.bounces,
+            self.samples[k], dtype)
+
+    def check(self) -> dict:
+        scene = self.reference()
+        off, changed = [], []
+        for k in self.checked:
+            if k not in self.kept:
+                off.append(float("inf"))
+                continue
+            want, flat = self._reference(scene, k, torch.float32)
+            got = self.kept[k].to(torch.int64)[self.samples[k]]
+            off.append(checks.frame_px_off(got, want))
+            changed.append(float((want != flat).to(torch.float64).mean()))
+        self.changed = changed
+        return {"px_off": max(off)}
+
+    def control(self) -> dict:
+        scene = self.reference()
+        return {"px_off": max(checks.frame_px_off(
+            self._reference(scene, k, torch.bfloat16)[0],
+            self._reference(scene, k, torch.float32)[0])
+            for k in self.checked)}
+
+    def notes(self) -> str:
+        return (f"{self._hit_notes()}; share of the sampled pixels that "
+                f"the bounces changed {self.changed}")
 
 
 class Progressive(_Scene):
@@ -304,4 +397,5 @@ class AdamJobs(_Scene):
                                  self._reference(scene, torch.float32))
 
 
-KINDS = {"orbit": OrbitFrames, "progressive": Progressive, "adam": AdamJobs}
+KINDS = {"orbit": OrbitFrames, "bounce_orbit": BounceOrbit,
+         "progressive": Progressive, "adam": AdamJobs}

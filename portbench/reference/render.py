@@ -53,6 +53,7 @@ class RefScene(NamedTuple):
     albedo: torch.Tensor  # [M, 3] float32
     texture_id: torch.Tensor  # [M] int64, -1 untextured
     textures: torch.Tensor  # [T, H, W, 3] float32
+    face_reflectivity: torch.Tensor  # [F] float32, mirror share (bounce.py)
 
 
 class Shading(NamedTuple):
@@ -314,6 +315,7 @@ class Surface(NamedTuple):
     corners: torch.Tensor  # [N, 3] vertex ids of the hit face
     weights: torch.Tensor  # [N, 3] barycentric weights (1 - u - v, u, v)
     ndotl: torch.Tensor  # [N] Lambert term, unshadowed
+    normal: torch.Tensor  # [N, 3] interpolated unit normal, facing the ray
 
 
 def surface(scene: RefScene, positions, face, hit, eye, d, light, dtype):
@@ -333,7 +335,7 @@ def surface(scene: RefScene, positions, face, hit, eye, d, light, dtype):
     n = n / torch.sqrt(torch.clamp((n * n).sum(1, keepdim=True), min=1e-30))
     n = torch.where(((n * d).sum(1) > 0.0)[:, None], -n, n)
     ndotl = torch.clamp((n * light.to(dtype)).sum(1), min=0.0)
-    return Surface(f, wts, ndotl)
+    return Surface(f, wts, ndotl, n)
 
 
 def colour(scene: RefScene, textures, s: Surface, face, hit, shadow,

@@ -5,7 +5,10 @@ reference.
 The meshes are the configuration's: their sizes and their own seeds are
 in its file, so every run traces the same geometry.  The run's seed draws
 what varies from run to run: the textures here, and in the traffic the
-path's start, the checked frames and the target image.
+path's start, the checked frames, the target image and the checked
+pixels of a sampled frame.  A material's optional ``reflectivity`` (its
+mirror share, 0 where the key is absent) goes to the program's
+`Material` and to the reference's per-face `RefScene.face_reflectivity`.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from .reference.meshes import bumpy_sphere
 from .reference.render import RefScene, Shading
 
 #: Stream numbers of `rng`: one per thing the seed draws.
-TEXTURES, PATH, CHECKED, TARGET = range(4)
+TEXTURES, PATH, CHECKED, TARGET, SAMPLE = range(5)
 
 
 def rng(seed: int, stream: int) -> np.random.Generator:
@@ -34,6 +37,7 @@ class Inputs(NamedTuple):
     materials: list  # (albedo, texture id) a material
     mesh_material: list  # material id a mesh
     textures: list  # [h, w, 3] float32 arrays
+    reflectivity: list  # mirror share a material
 
 
 def make_inputs(config: dict, seed: int) -> Inputs:
@@ -46,7 +50,8 @@ def make_inputs(config: dict, seed: int) -> Inputs:
     materials = [(tuple(m["albedo"]), m["texture"])
                  for m in config["materials"]]
     return Inputs(meshes, materials, [m["material"] for m in config["meshes"]],
-                  textures)
+                  textures, [float(m.get("reflectivity", 0.0))
+                             for m in config["materials"]])
 
 
 def shading(config: dict) -> Shading:
@@ -81,7 +86,9 @@ def ref_scene(inputs: Inputs, device) -> RefScene:
         face_material=dev(np.concatenate(fmat)),
         albedo=dev(np.array([a for a, _ in inputs.materials], np.float32)),
         texture_id=dev(np.array([t for _, t in inputs.materials], np.int64)),
-        textures=dev(tex))
+        textures=dev(tex),
+        face_reflectivity=dev(np.array(inputs.reflectivity,
+                                       np.float32)[np.concatenate(fmat)]))
 
 
 def render_config(config: dict):
@@ -121,7 +128,8 @@ def port_scene(inputs: Inputs, config: dict, device):
                 raise RuntimeError(f"the program refused a mesh: error {err}")
         mesh.material_id = mat
         scene.add_mesh(mesh)
-    scene.materials = [Material(albedo=a, texture_id=t)
-                       for a, t in inputs.materials]
+    scene.materials = [Material(albedo=a, texture_id=t, reflectivity=r)
+                       for (a, t), r in zip(inputs.materials,
+                                            inputs.reflectivity)]
     scene.textures = list(inputs.textures)
     return rcfg, scene

@@ -23,7 +23,7 @@ def test_a_short_run_on_the_card_is_correct(name):
         pytest.skip("no CUDA device: this test runs on the card")
     done = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload", name, "--seed",
-         "4000000007", "--seconds", "2", "--trace", "0"], cwd=ROOT,
+         "4000000007", "--seconds", "8", "--trace", "0"], cwd=ROOT,
         capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stderr[-3000:]
     out = json.loads(done.stdout.strip().splitlines()[-1])

@@ -15,7 +15,8 @@ from conftest import ROOT
 from portbench import harness
 
 CELLS = ["bunny69k.c512.near", "armadillo346k-f16.c1024.adam",
-         "bunny69k.c512.far", "armadillo346k-f16.c1024.progressive"]
+         "bunny69k.c512.far", "armadillo346k-f16.c1024.progressive",
+         "multimesh515k.c1080.bounce2"]
 
 
 @pytest.mark.parametrize("name", CELLS)

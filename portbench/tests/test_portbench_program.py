@@ -97,7 +97,8 @@ def test_a_program_without_the_facility_reads_nothing(monkeypatch):
 def test_install_switches_tracing_on_for_the_slice_alone(monkeypatch):
     """The slice's tracer turns the program's tracing on and gives it back
     off; a small near frame on the CPU then records its spans and the
-    four host syncs of a frame."""
+    two host syncs of a frame (the primary and the shadow lists'
+    `nonzero`)."""
     monkeypatch.setattr(program, "_last", None)
     cell = small_cell("bunny69k.c512.near")
     kind = KINDS["orbit"](cell.config, cell.traffic, 5, CPU)
@@ -114,7 +115,7 @@ def test_install_switches_tracing_on_for_the_slice_alone(monkeypatch):
             setattr(module, attr, value)
     assert not profiler.enabled
     trace = tracing.TraceData(2, 1.0, 0.0, [], [], {}, {})
-    assert _read("host_syncs.frame", trace) == 4.0
+    assert _read("host_syncs.frame", trace) == 2.0
     assert _read("sync_wait_ms.frame", trace) > 0.0
     roots = [s for s in program.record(trace).spans if s.parent is None]
     assert [s.name for s in roots] == ["frame", "frame"]

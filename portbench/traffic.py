@@ -12,6 +12,9 @@ A traffic file (``portbench/traffic/<name>.json``) is data only; its
     the scene box's largest side (``extent``).  The seed picks where on
     the path the run starts and which ``checked_frames`` poses are
     checked.
+  * ``bounce_orbit``: the same path and closed loop over frames with
+    ``bounces`` mirror bounces; of each checked frame the seed draws the
+    ``sample_px`` pixels that are checked.
   * ``progressive``: passes of jittered accumulation from the
     configuration's view, restarted every ``passes``.
   * ``adam``: optimisation jobs of ``job_steps`` Adam steps from the
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .scenes import CHECKED, PATH, TARGET, rng
+from .scenes import CHECKED, PATH, SAMPLE, TARGET, rng
 
 
 def look(pan: np.ndarray, pitch: np.ndarray) -> np.ndarray:
@@ -62,6 +65,15 @@ def checked(count: int, choices: int, seed: int) -> list:
     """The ``count`` units of ``choices`` whose outputs are checked."""
     return sorted(rng(seed, CHECKED).choice(choices, count,
                                             replace=False).tolist())
+
+
+def sampled(count: int, pixels: int, frames, seed: int) -> dict:
+    """For each of ``frames`` in turn, ``count`` of its ``pixels`` drawn
+    without repeats (all of them where ``count`` is not less), sorted."""
+    gen = rng(seed, SAMPLE)
+    return {k: (np.arange(pixels) if count >= pixels else
+                np.sort(gen.choice(pixels, count, replace=False)))
+            for k in frames}
 
 
 def view(config: dict):

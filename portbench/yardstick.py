@@ -2,7 +2,7 @@
 the program cannot move it: the H100's published peaks, the operations of
 one ray-triangle test, a kernel's least time and the tests a tile sweep
 needs (copied from `chip_smoke.py`: `FP32_OPS_PER_S`, `HBM_BYTES_PER_S`,
-`MT_OPS`, `bound`, `sweep_tests`, `nbytes`)."""
+`MT_OPS`, `bound`, `sweep_tests` with its ``active`` rule, `nbytes`)."""
 
 from __future__ import annotations
 
@@ -23,13 +23,16 @@ def bound(ops: float, moved: float) -> float:
     return max(ops / FP32_OPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
 
 
-def sweep_tests(counts: torch.Tensor, rays_per_tile: int,
-                g: int) -> torch.Tensor:
+def sweep_tests(counts: torch.Tensor, rays_per_tile: int, g: int,
+                active: torch.Tensor | None = None) -> torch.Tensor:
     """Ray-triangle tests a closest-hit tile sweep needs: every listed
     cluster's ``g`` triangles for each ray of its tile, from the lists'
-    per-tile ``counts``.  A tensor on the lists' device, so that counting
-    waits for nothing."""
-    return counts.sum(dtype=torch.int64) * (rays_per_tile * g)
+    per-tile ``counts`` (for each of the ``active`` ``[T, R]`` rays
+    alone, where given: an inactive ray tests nothing).  A tensor on the
+    lists' device, so that counting waits for nothing."""
+    if active is None:
+        return counts.sum(dtype=torch.int64) * (rays_per_tile * g)
+    return (counts.to(torch.int64) * active.sum(1)).sum() * g
 
 
 def nbytes(*xs) -> int:
