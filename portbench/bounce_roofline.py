@@ -28,22 +28,48 @@ EPILOGUE = "shade_epilogue_kernel<true>"
 WRAPPER = "_general_shade_cuda"
 
 
-def launches_us(trace) -> list:
-    """Device us of each of F's launches recorded in the slice: its
-    epilogue, and the sweep and the fill just before it."""
+def entry_launches_us(trace, middle: str, epilogue: str) -> list:
+    """Device us of each launch recorded in the slice of a C entry that
+    runs `FILL`, ``middle`` (left out where it has no work) and
+    ``epilogue`` in that order on one stream: its epilogue, and the
+    middle kernel and the fill just before it.  A name matches whole or
+    up to its template arguments."""
+    def named(name, want):
+        return name == want or name.split("<")[0] == want
+
     acts = sorted(trace.activities, key=lambda a: a[1])
     out = []
     for i, (name, _, dur) in enumerate(acts):
-        if name != EPILOGUE:
+        if not named(name, epilogue):
             continue
         j = i - 1
-        if j >= 0 and acts[j][0] == SWEEP:
+        if j >= 0 and named(acts[j][0], middle):
             dur += acts[j][2]
             j -= 1
         if j >= 0 and acts[j][0] == FILL:
             dur += acts[j][2]
         out.append(dur)
     return out
+
+
+def entry_share(trace, wrapper: str, launches: list):
+    """Percent of the bound of ``wrapper``'s calls over the slice that
+    its ``launches`` (`entry_launches_us`) reach, or None where it made
+    no call or none of its launches was recorded.  Its time is the mean
+    recorded launch times the calls, so that launches the profiler drops
+    do not read as speed."""
+    calls = trace.calls.get(wrapper)
+    if not calls or not launches:
+        return None
+    kernel_ms = sum(launches) / len(launches) * len(calls) / 1e3
+    tests = torch.stack([c.tests for c in calls]).cpu().tolist()
+    bound_ms = sum(bound(t * MT_OPS, c.nbytes) for t, c in zip(tests, calls))
+    return 100.0 * bound_ms / kernel_ms
+
+
+def launches_us(trace) -> list:
+    """Device us of each of F's launches recorded in the slice."""
+    return entry_launches_us(trace, SWEEP, EPILOGUE)
 
 
 def install(tracer) -> None:
@@ -64,15 +90,6 @@ def install(tracer) -> None:
 
 
 def share(trace):
-    """Percent of the bound that F reaches over the slice, or None where
-    it made no call or none of its launches was recorded.  Its time is
-    the mean recorded launch times the calls, so that launches the
-    profiler drops do not read as speed."""
-    calls = trace.calls.get(WRAPPER)
-    launches = launches_us(trace)
-    if not calls or not launches:
-        return None
-    kernel_ms = sum(launches) / len(launches) * len(calls) / 1e3
-    tests = torch.stack([c.tests for c in calls]).cpu().tolist()
-    bound_ms = sum(bound(t * MT_OPS, c.nbytes) for t, c in zip(tests, calls))
-    return 100.0 * bound_ms / kernel_ms
+    """Percent of the bound that F reaches over the slice
+    (`entry_share`)."""
+    return entry_share(trace, WRAPPER, launches_us(trace))

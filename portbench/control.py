@@ -43,7 +43,7 @@ def main(argv=None) -> int:
 
     from portbench import harness
     from portbench.faults import planted
-    from portbench.kinds import KINDS
+    from portbench.kinds import kind_class
 
     cell = harness.load_cell(args.workload, Path(ROOT))
     if not torch.cuda.is_available():
@@ -55,8 +55,8 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         if args.control:
-            kind = KINDS[cell.traffic["kind"]](cell.config, cell.traffic,
-                                               seed, device)
+            kind = kind_class(cell.traffic["kind"])(
+                cell.config, cell.traffic, seed, device)
             kind.release()
             line = {"seed": seed, "control": kind.control()}
         else:

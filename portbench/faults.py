@@ -7,7 +7,9 @@ Each cell can have: an answer altered where it is produced (``answer``),
 half of the batch left out (``half``) and, where a step carries state, a
 step that returns its state unchanged (``state``).  A frame with mirror
 bounces can also lose its materials' reflectivity (``reflectivity``).
-There is one chip, so no exchange between chips to leave out.
+There is one chip, so no exchange between chips to leave out.  A kind
+that lives in a file of its own (`kinds.load_kind`) gives its faults and
+where each is planted there.
 """
 
 from __future__ import annotations
@@ -16,22 +18,30 @@ import contextlib
 
 import torch
 
-#: The faults each traffic kind can have.
+from .kinds import load_kind
+
+#: The faults each traffic kind of `kinds.KINDS` can have.
 FAULTS = {"orbit": ("answer", "half"),
           "bounce_orbit": ("answer", "half", "reflectivity"),
           "progressive": ("state", "answer", "half"),
           "adam": ("state", "answer", "half")}
 
 
+def faults_of(kind: str) -> tuple:
+    """The faults a cell of traffic ``kind`` can have."""
+    return FAULTS[kind] if kind in FAULTS else load_kind(kind).FAULTS
+
+
 @contextlib.contextmanager
 def planted(kind: str, fault: str):
     """Plant ``fault`` in the program for the cells of traffic ``kind``;
     undone on exit."""
-    if fault not in FAULTS[kind]:
+    if fault not in faults_of(kind):
         raise ValueError(f"a {kind} cell has no fault {fault!r}")
-    target, attr, broken = {"orbit": _frames, "bounce_orbit": _bounces,
-                            "progressive": _progressive,
-                            "adam": _adam}[kind](fault)
+    plant = ({"orbit": _frames, "bounce_orbit": _bounces,
+              "progressive": _progressive, "adam": _adam}.get(kind)
+             or load_kind(kind).plant)
+    target, attr, broken = plant(fault)
     saved = getattr(target, attr)
     setattr(target, attr, broken(saved))
     try:

@@ -5,8 +5,8 @@ A cell is found by name in ``BENCHMARK.json``: it names a configuration
 (its file) and a traffic mix (``portbench/traffic/<traffic>.json``); its
 limits are ``portbench/limits/<cell>.json`` and its per-layer metrics
 ``portbench/metrics/<metric>.py``.  Adding a cell, a configuration, a
-traffic mix of a known kind or a per-layer metric adds files and entries
-only.
+traffic mix, a traffic kind (`kinds.kind_class`) or a per-layer metric
+adds files and entries only.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from . import checks
-from .kinds import KINDS, sync
+from .kinds import kind_class, sync
 from .tracing import Tracer, breakdown, load_reader
 
 BENCH = Path(__file__).resolve().parent
@@ -73,8 +73,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         device: torch.device, t_start: float) -> dict:
     """Run ``cell`` once; returns the result line's object.  ``t_start``
     is the process's start on the `time.perf_counter` clock."""
-    kind = KINDS[cell.traffic["kind"]](cell.config, cell.traffic, seed,
-                                       device)
+    kind = kind_class(cell.traffic["kind"])(cell.config, cell.traffic, seed,
+                                            device)
     kind.warm_up()
     readers = ({m["name"]: load_reader(m["name"]) for m in cell.per_layer}
                if trace else {})

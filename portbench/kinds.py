@@ -10,14 +10,24 @@ metrics, ``release`` drops the program's state, and ``check`` and
 reference, and the reference's own in bfloat16 against it in float32
 (the control, which must come out wrong).
 
-Only this module, `scenes.port_scene` and the launch counters of the
-per-layer readers call the program (`raytracercuda_torch`); `faults.py`
-breaks it on purpose, for the tests and `control.py`.
+A kind that `KINDS` lacks lives in a file of its own,
+``portbench/loops/<kind>.py``, found by name (`kind_class`): its class
+``KIND``, its ``FAULTS`` and ``plant(fault)``, which says where each
+fault is planted (`faults.planted`).  A new kind adds a file and changes
+none.
+
+Only this module, the loops' files, `scenes.port_scene` and the launch
+counters of the per-layer readers call the program
+(`raytracercuda_torch`); `faults.py` breaks it on purpose, for the tests
+and `control.py`.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import statistics
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -399,3 +409,25 @@ class AdamJobs(_Scene):
 
 KINDS = {"orbit": OrbitFrames, "bounce_orbit": BounceOrbit,
          "progressive": Progressive, "adam": AdamJobs}
+
+#: The kinds that live in a file of their own, one ``<kind>.py`` each.
+LOOPS = Path(__file__).resolve().parent / "loops"
+
+
+@functools.cache
+def load_kind(name: str):
+    """The module of the traffic kind ``name`` in `LOOPS`, loaded once."""
+    path = LOOPS / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no traffic kind {name!r}: not in KINDS, and no "
+                       f"{path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_kind_{name.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def kind_class(name: str):
+    """The class that drives traffic of kind ``name``."""
+    return KINDS[name] if name in KINDS else load_kind(name).KIND

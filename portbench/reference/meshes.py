@@ -1,6 +1,7 @@
 """Stand-in meshes, made from numbers alone (a frozen copy of
 `raytracercuda_torch/models/procedural.py:bumpy_sphere_mesh`, with its
-quad loop written as array operations: the same arrays, bit for bit).
+quad loop written as array operations: the same arrays, bit for bit),
+and the reference's hand-built quad.
 
 The Content meshes that the configurations name (bunny.obj, the
 armadillo, f16.obj) are not in the repository, so a configuration stands
@@ -59,3 +60,15 @@ def bumpy_sphere(num_faces: int, radius: float = 1.0, center=(0.0, 0.0, 3.0),
                     (tg / np.pi).reshape(-1)], axis=1).astype(np.float32)
     return {"positions": pos, "faces": faces, "normals": normals,
             "uvs": uvs}
+
+
+def quad(z: float) -> dict:
+    """The reference's 2-triangle quad in the plane ``z``
+    (`Program.cpp:153-185`): four vertices, faces (0, 1, 2) and (1, 2, 3),
+    every normal (0, 0, -1) and no uvs (a missing slot reads as zeros)."""
+    pos = np.array([[-1.0, -1.0, z], [0.0, 1.0, z], [1.0, -1.0, z],
+                    [2.0, 1.0, z]], np.float32)
+    return {"positions": pos,
+            "faces": np.array([[0, 1, 2], [1, 2, 3]], np.int64),
+            "normals": np.tile(np.array([[0.0, 0.0, -1.0]], np.float32),
+                               (4, 1))}

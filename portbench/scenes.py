@@ -9,6 +9,8 @@ path's start, the checked frames, the target image and the checked
 pixels of a sampled frame.  A material's optional ``reflectivity`` (its
 mirror share, 0 where the key is absent) goes to the program's
 `Material` and to the reference's per-face `RefScene.face_reflectivity`.
+A mesh is a bumpy sphere unless its ``shape`` says ``quad``: the
+reference's quad in the plane ``z``, with no uvs (zeros on both sides).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .reference.meshes import bumpy_sphere
+from .reference.meshes import bumpy_sphere, quad
 from .reference.render import RefScene, Shading
 
 #: Stream numbers of `rng`: one per thing the seed draws.
@@ -33,17 +35,22 @@ def rng(seed: int, stream: int) -> np.random.Generator:
 
 
 class Inputs(NamedTuple):
-    meshes: list  # bumpy_sphere dicts, in the configuration's order
+    meshes: list  # bumpy_sphere or quad dicts, in the configuration's order
     materials: list  # (albedo, texture id) a material
     mesh_material: list  # material id a mesh
     textures: list  # [h, w, 3] float32 arrays
     reflectivity: list  # mirror share a material
 
 
+def _mesh(m: dict) -> dict:
+    if m.get("shape", "bumpy_sphere") == "quad":
+        return quad(m["z"])
+    return bumpy_sphere(m["faces"], m["radius"], tuple(m["center"]),
+                        m["bump"], m["mesh_seed"])
+
+
 def make_inputs(config: dict, seed: int) -> Inputs:
-    meshes = [bumpy_sphere(m["faces"], m["radius"], tuple(m["center"]),
-                           m["bump"], m["mesh_seed"])
-              for m in config["meshes"]]
+    meshes = [_mesh(m) for m in config["meshes"]]
     gen = rng(seed, TEXTURES)
     textures = [gen.random((h, w, 3), dtype=np.float32)
                 for h, w in config["textures"]]
@@ -67,7 +74,8 @@ def ref_scene(inputs: Inputs, device) -> RefScene:
         pos.append(m["positions"])
         faces.append(m["faces"] + base)
         nrm.append(m["normals"])
-        uvs.append(m["uvs"])
+        uvs.append(m.get("uvs", np.zeros((len(m["positions"]), 2),
+                                         np.float32)))
         fmat.append(np.full(len(m["faces"]), mat, np.int64))
         base += len(m["positions"])
     th = max((t.shape[0] for t in inputs.textures), default=1)
@@ -98,32 +106,37 @@ def render_config(config: dict):
     base = RenderConfig(accel=AccelKind(config["accel"]))
     return dataclasses.replace(
         base,
-        cluster=dataclasses.replace(base.cluster,
-                                    cluster_size=config["cluster_size"]),
-        trace=dataclasses.replace(base.trace, t_epsilon=config["t_epsilon"],
-                                  dense_tile_px=config["tile_px"]))
+        cluster=dataclasses.replace(
+            base.cluster,
+            cluster_size=config.get("cluster_size",
+                                    base.cluster.cluster_size)),
+        trace=dataclasses.replace(
+            base.trace, t_epsilon=config["t_epsilon"],
+            dense_tile_px=config.get("tile_px", base.trace.dense_tile_px)))
 
 
 def port_scene(inputs: Inputs, config: dict, device):
-    """The inputs through the program's public scene API
-    (`Scene.add_mesh`): ``(render config, scene)``."""
+    """The inputs through the program's public scene API (`Scene.create`,
+    `Scene.add_mesh`): ``(render config, scene)``."""
     from raytracercuda_torch.models.mesh import (VERTEX_DATA_NORMAL,
                                                  VERTEX_DATA_POSITION,
                                                  VERTEX_DATA_UV1, Mesh)
     from raytracercuda_torch.models.scene import Material, Scene
 
     rcfg = render_config(config)
-    scene = Scene(rcfg, device=device)
+    scene = Scene.create(rcfg, device=device)
     for m, mat in zip(inputs.meshes, inputs.mesh_material):
         mesh = Mesh.create()
         faces = m["faces"].reshape(-1).astype(np.uint32)
         nv = len(m["positions"])
-        for err in (mesh.set_indices(faces, faces.size),
-                    mesh.set_vertex_data(m["positions"], nv, 3,
-                                         VERTEX_DATA_POSITION),
-                    mesh.set_vertex_data(m["normals"], nv, 3,
-                                         VERTEX_DATA_NORMAL),
-                    mesh.set_vertex_data(m["uvs"], nv, 2, VERTEX_DATA_UV1)):
+        errs = [mesh.set_indices(faces, faces.size),
+                mesh.set_vertex_data(m["positions"], nv, 3,
+                                     VERTEX_DATA_POSITION),
+                mesh.set_vertex_data(m["normals"], nv, 3, VERTEX_DATA_NORMAL)]
+        if "uvs" in m:
+            errs.append(mesh.set_vertex_data(m["uvs"], nv, 2,
+                                             VERTEX_DATA_UV1))
+        for err in errs:
             if err:
                 raise RuntimeError(f"the program refused a mesh: error {err}")
         mesh.material_id = mat

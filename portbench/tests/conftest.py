@@ -24,7 +24,8 @@ CPU = torch.device("cpu")
 #: Each configuration's meshes at a CPU's size: (faces, frame side).
 SMALL = {"bunny69k.c512": ((2000,), 48),
          "armadillo346k-f16.c1024": ((300, 3000), 48),
-         "multimesh515k.c1080": ((600, 3000, 1500), 48)}
+         "multimesh515k.c1080": ((600, 3000, 1500), 48),
+         "suzanne15k.brute256": ((500,), 32)}
 
 
 def pytest_configure(config):
@@ -49,6 +50,9 @@ def small_cell(name: str) -> harness.Cell:
                     "bounce_orbit": {"period": 4, "pan_deg_per_frame": 90.0,
                                      "checked_frames": 2, "warmup_frames": 1,
                                      "trace_units": 4, "sample_px": 1000},
+                    "api_orbit": {"period": 4, "pan_deg_per_frame": 90.0,
+                                  "checked_frames": 2, "warmup_frames": 1,
+                                  "trace_units": 4},
                     "progressive": {"passes": 2, "warmup_passes": 1,
                                     "trace_units": 2},
                     "adam": {"job_steps": 4, "trace_units": 2}}

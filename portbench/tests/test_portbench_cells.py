@@ -16,7 +16,7 @@ from portbench import harness
 
 CELLS = ["bunny69k.c512.near", "armadillo346k-f16.c1024.adam",
          "bunny69k.c512.far", "armadillo346k-f16.c1024.progressive",
-         "multimesh515k.c1080.bounce2"]
+         "multimesh515k.c1080.bounce2", "suzanne15k.brute256.api"]
 
 
 @pytest.mark.parametrize("name", CELLS)
