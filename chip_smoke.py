@@ -22,13 +22,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      requires every u8 channel within 1, hit pixels and shadowed pixels;
   6. times 50 frames on each path and each kernel beside its plain
      version;
- 6b. holds the two cull kernels (`csrc/cull.cu`) against their plain
-     chains on the bench frame, and 6c on config 4's first progressive
-     pass (built first, as in phase 7): one launch of each a unit, the
-     frame and the pass bit-equal to the chains' route, the masks in
-     both layouts differing only where a test is within rounding of its
-     threshold (`CULL_THRESHOLD_REL`), the lists compared, and each
-     kernel timed beside its chain and its bound;
+ 6b. holds the frustum and beam cull kernels (`csrc/cull.cu`) against
+     their plain chains on the bench frame, and 6c on config 4's first
+     progressive pass (built first, as in phase 7) and the three on
+     config 5's two-bounce frame (built first, as in phase 17; the
+     general cull once a bounce): one launch of each a cull, the frame
+     and the pass bit-equal to the chains' route, the masks (the frustum
+     and beam culls' in both layouts) differing only where a test is
+     within rounding of its threshold (`CULL_THRESHOLD_REL`), the lists
+     compared, and each kernel timed beside its chain and its bound;
   7. builds the config-4 scene at 1024x1024: a 345,944-triangle bumpy
      sphere (the armadillo stand-in) and, standing in for f16.obj, a
      4,056-triangle textured bumpy sphere with a seeded 256x256 texture;
@@ -396,6 +398,11 @@ BLOB_ROW_OPS = 3
 FRUSTUM_PAIR_OPS = 55
 FRUSTUM_CLUSTER_OPS = 15
 BEAM_CLUSTER_OPS = 72
+# The general cull's (tile, cluster) pair: per axis the box's two offsets
+# from the origins' box, their products with the mean direction, a max
+# and the sum (6), the gap (-whi, two max) and its square summed (5);
+# then a square root and a product.
+GENERAL_PAIR_OPS = 35
 #: How near its threshold a cull test whose outcome differs between a cull
 #: kernel and its chain may lie, relative to the magnitudes it adds: ~170
 #: float32 ulps, the room of a 256-term sum taken in another order.
@@ -983,81 +990,149 @@ def beam_margin(o, act, light_dir, cmin, cmax, planar, tiles, clusters):
                        torch.inf)
 
 
-def cull_path(dev, clock, renderer, eye, orient, rays, c4, size=C4_SIZE):
-    """Phases 6b-6c: the two cull kernels (`csrc/cull.cu`) against their
+def general_margin(o3, d3, act, cmin, cmax, tiles, clusters):
+    """As `frustum_margin`, for the general chain's tests
+    (`bounce_sweep._general_cull_plain`): the per-axis reach tests, the
+    sign of cos_min and the cone test, each relative to the larger of 1
+    and its terms' magnitudes (inf where the tile has no active ray: its
+    row is false either way)."""
+    import torch
+
+    inf = torch.inf
+    o, d, a = o3.double(), d3.double(), act[:, None, :]
+    omin = torch.where(a, o, inf).amin(dim=2)
+    omax = torch.where(a, o, -inf).amax(dim=2)
+    dmin = torch.where(a, d, inf).amin(dim=2)
+    dmax = torch.where(a, d, -inf).amax(dim=2)
+    dsum = torch.where(a, d, 0.0).sum(dim=2)
+    m = dsum / dsum.norm(dim=1, keepdim=True).clamp(min=1e-15)
+    cos_min = torch.where(act, (d * m[:, :, None]).sum(dim=1),
+                          1.0).amin(dim=1)
+    omin, omax, dmin, dmax, m, cos_min = (
+        x[tiles] for x in (omin, omax, dmin, dmax, m, cos_min))
+    lo, hi = cmin[clusters].double(), cmax[clusters].double()
+
+    def rel(x, y):
+        return (x - y).abs() / torch.maximum(x.abs(), y.abs()).clamp(min=1.0)
+
+    margins = [cos_min.abs()]
+    sup = gap2 = 0.0
+    for i in range(3):
+        margins.append(torch.where(dmin[:, i] >= 0.0,
+                                   rel(hi[:, i], omin[:, i]), inf))
+        margins.append(torch.where(dmax[:, i] <= 0.0,
+                                   rel(lo[:, i], omax[:, i]), inf))
+        wlo = lo[:, i] - omax[:, i]
+        whi = hi[:, i] - omin[:, i]
+        sup = sup + torch.maximum(m[:, i] * wlo, m[:, i] * whi)
+        gap2 = gap2 + torch.maximum(wlo, -whi).clamp(min=0.0) ** 2
+    margins.append(rel(sup, cos_min * gap2.sqrt()))
+    return torch.where(act.any(dim=1)[tiles],
+                       torch.stack(margins).amin(dim=0), inf)
+
+
+def cull_path(dev, clock, renderer, eye, orient, rays, c4, c5,
+              size=C4_SIZE, width=C5_WIDTH, height=C5_HEIGHT):
+    """Phases 6b-6c: the three cull kernels (`csrc/cull.cu`) against their
     plain chains on the card, on the bench frame (A's and B's planar
-    tiles) and on config 4's progressive pass (``c4``, C's and H's
-    row-major tiles): one launch of each a unit, the frame and the pass
-    bit-equal to the chains' route, each kernel's mask against its
-    chain's on the unit's input in both layouts (an entry may differ only
-    where the chain's test lies within `CULL_THRESHOLD_REL` of its
-    threshold), the lists, and both timed by CUDA events.  Returns the
-    two kernels' JSON records (``max_abs_err``: differing mask
+    tiles), on config 4's progressive pass (``c4``, C's and H's row-major
+    tiles) and on config 5's two-bounce frame (``c5``, the scene of
+    `config5_scene`: A's and B's tiles and each bounce's general cull):
+    one launch of each a cull, the frame and the pass bit-equal to the
+    chains' route, each kernel's mask against its chain's on the unit's
+    inputs (the frustum and beam culls' in both layouts; an entry may
+    differ only where the chain's test lies within `CULL_THRESHOLD_REL`
+    of its threshold), the lists, and each timed by CUDA events.  Returns
+    the three kernels' JSON records (``max_abs_err``: differing mask
     entries)."""
     import torch
 
-    from raytracercuda_torch.trace import sweep
+    from raytracercuda_torch.models.camera import camera_ray_grid
+    from raytracercuda_torch.trace import bounce_sweep, sweep
+    from raytracercuda_torch.trace.bounce import render_bounces
+    from raytracercuda_torch.trace.pipeline import rotate_rays
     from raytracercuda_torch.trace.progressive import (init_progressive,
                                                        progressive_step)
 
-    kinds = {"_frustum_cull_cuda": ("frustum_cull", sweep._frustum_cull_plain,
-                                    frustum_margin),
-             "_beam_cull_cuda": ("beam_cull", sweep._beam_cull_plain,
-                                 beam_margin)}
+    # wrapper -> (module, launch count, plain chain, margin, layouts)
+    kinds = {"_frustum_cull_cuda": (sweep, "frustum_cull",
+                                    sweep._frustum_cull_plain,
+                                    frustum_margin, 2),
+             "_beam_cull_cuda": (sweep, "beam_cull", sweep._beam_cull_plain,
+                                 beam_margin, 2),
+             "_general_cull_cuda": (bounce_sweep, "general_cull",
+                                    bounce_sweep._general_cull_plain,
+                                    general_margin, 1)}
     stats = {name: {"differ": 0, "launches": 0, "ms": [], "plain_ms": [],
                     "bound": []} for name in kinds}
 
     def ops(name, t_, c_):
         if name == "_frustum_cull_cuda":
             return t_ * c_ * FRUSTUM_PAIR_OPS + c_ * FRUSTUM_CLUSTER_OPS
+        if name == "_general_cull_cuda":
+            return t_ * c_ * GENERAL_PAIR_OPS
         return c_ * BEAM_CLUSTER_OPS
 
-    def unit(what, run):
-        rec = Recorder(sweep, list(kinds))
+    def layouts(args, planar_layouts):
+        if planar_layouts == 1:
+            return (("as called", args),)
+        x, planar = args[0], args[-1]
+        return (("as called", args), ("other layout", (
+            x.transpose(1, 2).contiguous(), *args[1:-1], not planar)))
+
+    def unit(what, run, want):
+        recs = [Recorder(module, [n for n, k in kinds.items()
+                                  if k[0] is module])
+                for module in (sweep, bounce_sweep)]
         try:
             sweep.reset_launch_counts()
             got = run()
             torch.cuda.synchronize()
-            launches = {k: sweep.launch_counts[k]
-                        for k in ("frustum_cull", "beam_cull")}
+            launches = {kinds[n][1]: sweep.launch_counts[kinds[n][1]]
+                        for n in kinds}
         finally:
-            rec.restore()
-        check(launches == {"frustum_cull": 1, "beam_cull": 1},
-              f"{what}: cull launches {launches}, want one of each")
-        with PlainOnCard({sweep: {n: v[1] for n, v in kinds.items()}}):
-            want = run()
+            for rec in recs:
+                rec.restore()
+        check(launches == want,
+              f"{what}: cull launches {launches}, want {want}")
+        with PlainOnCard({module: {n: k[2] for n, k in kinds.items()
+                                   if k[0] is module}
+                          for module in (sweep, bounce_sweep)}):
+            want_out = run()
             torch.cuda.synchronize()
-        check(torch.equal(got, want),
+        check(torch.equal(got, want_out),
               f"{what}: not bit-equal to the plain chains' route")
-        for name, (key, plain, margin) in kinds.items():
-            args = rec.calls[name][-1]
-            kernel = getattr(sweep, name)
+        calls = {**recs[0].calls, **recs[1].calls}
+        for name, (_, key, plain, margin, n_layouts) in kinds.items():
+            if not calls[name]:
+                continue
+            kernel = getattr(kinds[name][0], name)
             st = stats[name]
-            st["launches"] += 1
-            x, planar = args[0], args[-1]
-            for layout, a in (("as called", args), ("other layout", (
-                    x.transpose(1, 2).contiguous(), *args[1:-1],
-                    not planar))):
-                k, p = kernel(*a), plain(*a)
-                bad = (k != p).nonzero()
-                worst = (float(margin(*a, bad[:, 0], bad[:, 1]).max())
-                         if len(bad) else 0.0)
-                kl, pl = sweep._tile_lists(k), sweep._tile_lists(p)
-                same = all(torch.equal(u, v) for u, v in zip(kl, pl))
-                st["differ"] += len(bad)
-                print(f"{what}, {key} ({layout}): {len(bad)} of {k.numel()} "
-                      f"mask entries differ from the chain (largest "
-                      f"relative margin {worst:.3g}), lists "
-                      f"{'equal' if same else 'differ'}; "
-                      f"{int(k.sum())} survive")
-                check(worst <= CULL_THRESHOLD_REL,
-                      f"{what}, {key} ({layout}): a mask entry differs "
-                      f"{worst:.3g} from its threshold, beyond "
-                      f"{CULL_THRESHOLD_REL}")
+            st["launches"] += len(calls[name])
+            for i, args in enumerate(calls[name]):
+                call = f"{key} {i + 1}" if len(calls[name]) > 1 else key
+                for layout, a in layouts(args, n_layouts):
+                    k, p = kernel(*a), plain(*a)
+                    bad = (k != p).nonzero()
+                    worst = (float(margin(*a, bad[:, 0], bad[:, 1]).max())
+                             if len(bad) else 0.0)
+                    kl, pl = sweep._tile_lists(k), sweep._tile_lists(p)
+                    same = all(torch.equal(u, v) for u, v in zip(kl, pl))
+                    st["differ"] += len(bad)
+                    print(f"{what}, {call} ({layout}): {len(bad)} of "
+                          f"{k.numel()} mask entries differ from the chain "
+                          f"(largest relative margin {worst:.3g}), lists "
+                          f"{'equal' if same else 'differ'}; "
+                          f"{int(k.sum())} survive")
+                    check(worst <= CULL_THRESHOLD_REL,
+                          f"{what}, {call} ({layout}): a mask entry differs "
+                          f"{worst:.3g} from its threshold, beyond "
+                          f"{CULL_THRESHOLD_REL}")
+            args = calls[name][0]
             ms = time_cuda(lambda: kernel(*args), 50)
             plain_ms = time_cuda(lambda: plain(*args), 20)
             queued = time_queued(lambda: kernel(*args), 50)
-            t_, c_ = x.shape[0], args[3].shape[0]
+            t_, c_ = args[0].shape[0], args[3].shape[0]  # [C, 3] boxes
             moved = nbytes(*args[:5]) + t_ * c_
             st["ms"].append(ms)
             st["plain_ms"].append(plain_ms)
@@ -1069,11 +1144,14 @@ def cull_path(dev, clock, renderer, eye, orient, rays, c4, size=C4_SIZE):
                   f"{moved} bytes)")
         return got
 
+    one_each = {"frustum_cull": 1, "beam_cull": 1, "general_cull": 0}
+
     # 6b. The bench frame: A's and B's planar tiles.
-    unit("bench frame", lambda: renderer.render(eye, orient, rays))
+    unit("bench frame", lambda: renderer.render(eye, orient, rays), one_each)
     clock.done("6b (culls, bench frame)")
 
-    # 6c. Config 4's progressive pass: C's and H's row-major tiles.
+    # 6c. Config 4's progressive pass: C's and H's row-major tiles; config
+    # 5's frame: A's and B's, and each bounce's general cull.
     config, data, accel, c4_eye, c4_orient = c4
 
     def first_pass():
@@ -1083,14 +1161,22 @@ def cull_path(dev, clock, renderer, eye, orient, rays, c4, size=C4_SIZE):
                 c4_eye, c4_orient, size, size, config,
                 with_shadows=True).image
 
-    unit("config 4 pass", first_pass)
-    clock.done("6c (culls, config 4 pass)")
+    unit("config 4 pass", first_pass, one_each)
+    config, data, accel, c5_eye = c5
+    dirs = rotate_rays(camera_ray_grid(width, height, device=dev),
+                       torch.eye(3, device=dev))
+    unit("config 5 frame", lambda: render_bounces(
+        accel, data, c5_eye, dirs, height, width, config, num_bounces=2),
+         {**one_each, "general_cull": 2})
+    clock.done("6c (culls, config 4 pass, config 5 frame)")
     src = "raytracercuda_torch/csrc/cull.cu"
     replaces = {"_frustum_cull_cuda": "the frustum cull's PyTorch chain "
                 "(dense._cull_frustum; no TPU kernel)",
                 "_beam_cull_cuda": "the swept-beam cull's PyTorch chain "
-                "(occlusion_cull.beam_survive_matrix; no TPU kernel)"}
-    return [kernel_record(kinds[n][0], src, replaces[n], st["launches"],
+                "(occlusion_cull.beam_survive_matrix; no TPU kernel)",
+                "_general_cull_cuda": "the general cull's PyTorch chain "
+                "(bounce_sweep._general_cull_plain; no TPU kernel)"}
+    return [kernel_record(kinds[n][1], src, replaces[n], st["launches"],
                           float(st["differ"]), st["ms"][0], st["plain_ms"][0],
                           st["bound"][0]) for n, st in stats.items()]
 
@@ -2218,11 +2304,12 @@ def config5_scene(dev, meshes):
 
 
 def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
-                meshes=C5_MESHES, small=C5_SMALL, frames=3):
+                meshes=C5_MESHES, small=C5_SMALL, frames=3, c5=None):
     """Phases 17-21: config 5's multi-bounce frame, kernels A, B and F,
-    and the brute-force route (kernel E) at a reduced size.  Returns F's
-    JSON record and, for A and B, ``{name: (launches, max_abs_err)}`` of
-    this path's run."""
+    and the brute-force route (kernel E) at a reduced size (``c5``: the
+    scene of `config5_scene`, built here when None).  Returns F's JSON
+    record and, for A and B, ``{name: (launches, max_abs_err)}`` of this
+    path's run."""
     import torch
 
     from raytracercuda_torch.models.camera import camera_ray_grid
@@ -2235,7 +2322,7 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
             torch.cuda.synchronize()
 
     # 17. The scene and the frame, once, through A, B and F.
-    config, data, accel, eye = config5_scene(dev, meshes)
+    config, data, accel, eye = c5 or config5_scene(dev, meshes)
     orient = torch.eye(3, device=dev)
 
     def rays(w, h):
@@ -2266,6 +2353,9 @@ def bounce_path(dev, clock, card, width=C5_WIDTH, height=C5_HEIGHT,
     check(launches["occlusion"] > 0, "kernel B never launched")
     check(launches["general_shade"] == 2,
           f"kernel F launched {launches['general_shade']} times, not 2")
+    check(launches["general_cull"] == 2,
+          f"the general cull launched {launches['general_cull']} times, "
+          f"not 2")
     staged_counts(launches, "config 5")
     check(tuple(img.shape) == (width * height, 3)
           and bool(torch.isfinite(img).all()), "config 5 image not finite")
@@ -4880,7 +4970,8 @@ def main() -> None:
     clock.done("6 (frame timing)")
 
     c4 = config4_scene(dev, C4_ARMADILLO, C4_F16)
-    cull_kernels = cull_path(dev, clock, renderer, eye, orient, rays, c4)
+    c5 = config5_scene(dev, C5_MESHES)
+    cull_kernels = cull_path(dev, clock, renderer, eye, orient, rays, c4, c5)
     c4_kernels = diff_path(dev, clock, card, c4=c4)
     # Phases 42-46: the silhouette term and the distributed layer.
     slice_launches = [silhouette_path(dev, clock, card, c4),
@@ -4888,7 +4979,8 @@ def main() -> None:
                                 (data, scene.accel, eye, orient, rays))]
     del c4
     c2 = api_path(dev, clock, card)
-    c5_kernels, c5_ab = bounce_path(dev, clock, card)
+    c5_kernels, c5_ab = bounce_path(dev, clock, card, c5=c5)
+    del c5
     c1_kernels, c1_clear = fill_path(dev, clock, card,
                                      parent=args.parent)
     app = app_path(dev, clock, card)

@@ -1,10 +1,11 @@
-// The two tile culls, for Hopper (sm_90a), with a plain C interface loaded
-// through ctypes (`ops/cuda_build.py`).  They replace no TPU kernel: the
-// JAX package culls with XLA ops (raytracercuda_tpu/trace/dense.py's
-// `_cull_frustum`, occlusion_cull.py's `beam_survive_matrix`), and the
-// port's plain chains of the same ops took ~80 and ~97 PyTorch launches a
-// cull.  Each kernel writes the [T, C] bool survive mask that its chain
-// writes, in one launch; `sweep._tile_lists` compacts it as before.
+// The three tile culls, for Hopper (sm_90a), with a plain C interface
+// loaded through ctypes (`ops/cuda_build.py`).  They replace no TPU kernel:
+// the JAX package culls with XLA ops (raytracercuda_tpu/trace/dense.py's
+// `_cull_frustum`, occlusion_cull.py's `beam_survive_matrix`,
+// pallas_bounce.py's `general_tile_cull`), and the port's plain chains of
+// the same ops took ~80, ~97 and ~100 PyTorch launches a cull.  Each
+// kernel writes the [T, C] bool survive mask that its chain writes, in one
+// launch; `sweep._tile_lists` compacts it as before.
 //
 // frustum_cull_kernel<kRowMajor> (`sweep.frustum_cull`, before A and C):
 //   a tile's pinhole beam from the common eye, as `dense.frustum_planes`
@@ -20,6 +21,16 @@
 //   behind every origin along l, and the tile has an active ray.
 // kRowMajor picks the input layout: row-major [T, R, 3] (C, H) or planar
 // [T, 3, R] (A, B).
+// general_cull_kernel (`bounce_sweep.general_tile_cull`, before F and the
+//   ray bundles' sweep): tiles of arbitrary rays, planar [T, 3, R] origins
+//   and unit directions with [T, R] activity, as `_general_cull_plain`
+//   culls them over the active rays: per axis, a box wholly below the
+//   origins' minimum while every direction climbs (or above their maximum
+//   while every direction falls) is unreachable; and, while the
+//   directions fit in a half-space (cos_min > 0 around their unit mean
+//   m), a box survives when sup over its offsets from the origins' box
+//   along m reaches cos_min times its gap to that box.  A tile with no
+//   active ray culls everything.
 //
 // One block of kThreads a tile.  The block reads its tile's 3R floats (and
 // R active bytes) once, coalesced, and reduces them in a fixed tree order;
@@ -29,20 +40,24 @@
 // cluster boxes, 24 bytes each, come from L2 for every block).  The work
 // is T x C box tests of ~40 FP32 operations, about 22 M tests at
 // T = 1,024, C = 543.  The chains' [T * 5, 6] @ [6, C] product and its
-// [T, 5, C] float32 intermediate (224 MB at 1024x1024) are gone.
+// [T, 5, C] float32 intermediate (224 MB at 1024x1024) are gone.  The
+// general cull reads origins and directions, 2 x T x 3 x R x 4 bytes, and
+// runs ~45 operations a pair, 32.9 M pairs at T = 8,160, C = 4,027 (a
+// 1920x1088 bounce).
 //
 // The library is built with -fmad=false, and every expression follows the
 // chain's float32 operations term by term.  Two parts of the chain have
-// no order to follow: torch's `mean` (its own reduction order; here a
-// fixed tree, times 1/R as torch's mean multiplies by its factor) and the
-// dot products it leaves to `mm` and `mv` (cuBLAS on the card; here each
-// three-term dot left to right, and the frustum's distance the centre
-// terms' sum plus the half-extent terms' sum).  A mask entry can
-// therefore differ from the chain's only where a plane or interval test is
-// within rounding of its threshold.  The light direction is read through
-// a device pointer and made unit here as `light_basis` makes l (its norm
-// a three-term dot, where torch's `vector_norm` has its own order); u and
-// v are made from l.
+// no order to follow: torch's `mean` and `sum` (their own reduction
+// order; here a fixed tree, and for the mean times 1/R as torch's mean
+// multiplies by its factor) and the dot products it leaves to `mm` and
+// `mv` (cuBLAS on the card; here each three-term dot left to right, and
+// the frustum's distance the centre terms' sum plus the half-extent
+// terms' sum).  A mask entry can therefore differ from the chain's only
+// where a plane, interval or cone test is within rounding of its
+// threshold.  The light direction is read through a device pointer and
+// made unit here as `light_basis` makes l (its norm a three-term dot,
+// where torch's `vector_norm` has its own order); u and v are made from
+// l.
 
 #include <cuda_runtime.h>
 
@@ -255,6 +270,122 @@ __global__ void __launch_bounds__(kThreads) beam_cull_kernel(
   }
 }
 
+// `bounce_sweep._general_cull_plain`, a tile a block: its active rays'
+// origin and direction boxes, the direction sum, the unit mean m and the
+// least cosine to m, then a mask byte a cluster.
+__global__ void __launch_bounds__(kThreads) general_cull_kernel(
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const bool* __restrict__ active, int R, const float* __restrict__ cmin,
+    const float* __restrict__ cmax, int C, bool* __restrict__ out) {
+  // Rows 0-2: the origins' minimum a component, 3-5 the directions';
+  // 6-8 and 9-11 their maximum.
+  __shared__ float s_ext[12][kThreads];
+  __shared__ float s_sum[3][kThreads];
+  __shared__ float s_cos[kThreads];
+  const int tile = blockIdx.x;
+  const float* o = origins + static_cast<size_t>(tile) * 3 * R;
+  const float* d = dirs + static_cast<size_t>(tile) * 3 * R;
+  const bool* act = active + static_cast<size_t>(tile) * R;
+
+  // The chain's where(act, x, kBig).amin, where(act, x, -kBig).amax and
+  // where(act, d, 0).sum; min and max are exact in any order.
+  float ext[12];
+  for (int k = 0; k < 6; ++k) {
+    ext[k] = INFINITY;
+    ext[k + 6] = -INFINITY;
+  }
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  int any = 0;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const bool a = act[r];
+    any |= a;
+    for (int k = 0; k < 3; ++k) {
+      const float x = o[k * R + r];
+      const float y = d[k * R + r];
+      ext[k] = min_nan(ext[k], a ? x : kBig);
+      ext[k + 3] = min_nan(ext[k + 3], a ? y : kBig);
+      ext[k + 6] = max_nan(ext[k + 6], a ? x : -kBig);
+      ext[k + 9] = max_nan(ext[k + 9], a ? y : -kBig);
+      acc[k] += a ? y : 0.0f;
+    }
+  }
+  for (int k = 0; k < 12; ++k) s_ext[k][threadIdx.x] = ext[k];
+  for (int k = 0; k < 3; ++k) s_sum[k][threadIdx.x] = acc[k];
+  bool* row = out + static_cast<size_t>(tile) * C;
+  if (!__syncthreads_or(any)) {
+    for (int j = threadIdx.x; j < C; j += kThreads) row[j] = false;
+    return;
+  }
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+      const int t = threadIdx.x;
+      for (int k = 0; k < 6; ++k) {
+        s_ext[k][t] = min_nan(s_ext[k][t], s_ext[k][t + s]);
+        s_ext[k + 6][t] = max_nan(s_ext[k + 6][t], s_ext[k + 6][t + s]);
+      }
+      for (int k = 0; k < 3; ++k) s_sum[k][t] += s_sum[k][t + s];
+    }
+    __syncthreads();
+  }
+
+  // The unit mean: dsum / sqrt(clamp(dsum.dsum, 1e-30)), the dot left to
+  // right, in every thread.
+  const float ds[3] = {s_sum[0][0], s_sum[1][0], s_sum[2][0]};
+  float len2 = ds[0] * ds[0] + ds[1] * ds[1];
+  len2 = len2 + ds[2] * ds[2];
+  const float len = sqrtf(len2 < 1e-30f ? 1e-30f : len2);  // NaN stays
+  const float m[3] = {ds[0] / len, ds[1] / len, ds[2] / len};
+
+  // cos_min: where(act, d.m, 1).amin over the tile's rays.
+  float cos_lo = INFINITY;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    float c = 1.0f;
+    if (act[r]) {
+      c = d[r] * m[0] + d[R + r] * m[1];
+      c = c + d[2 * R + r] * m[2];
+    }
+    cos_lo = min_nan(cos_lo, c);
+  }
+  s_cos[threadIdx.x] = cos_lo;
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+      s_cos[threadIdx.x] = min_nan(s_cos[threadIdx.x],
+                                   s_cos[threadIdx.x + s]);
+    }
+    __syncthreads();
+  }
+  const float cos_min = s_cos[0];
+  // The cone constrains only while the bundle fits in a half-space.
+  const bool cone_free = cos_min <= 0.0f;
+
+  float omin[3], omax[3], reach_lo[3], reach_hi[3];
+  for (int k = 0; k < 3; ++k) {
+    omin[k] = s_ext[k][0];
+    omax[k] = s_ext[k + 6][0];
+    reach_lo[k] = s_ext[k + 3][0] >= 0.0f ? omin[k] : -kBig;
+    reach_hi[k] = s_ext[k + 9][0] <= 0.0f ? omax[k] : kBig;
+  }
+
+  for (int j = threadIdx.x; j < C; j += kThreads) {
+    bool keep = true;
+    float sup = 0.0f;
+    float gap2 = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      const float lo = cmin[j * 3 + k];
+      const float hi = cmax[j * 3 + k];
+      keep = keep & (hi >= reach_lo[k]) & (lo <= reach_hi[k]);
+      const float wlo = lo - omax[k];
+      const float whi = hi - omin[k];
+      sup = sup + max_nan(m[k] * wlo, m[k] * whi);
+      const float g = max_nan(max_nan(wlo, -whi), 0.0f);
+      gap2 = gap2 + g * g;
+    }
+    // false on NaN, as the chain's comparison is
+    row[j] = keep & (cone_free | (sup >= cos_min * sqrtf(gap2)));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -298,6 +429,19 @@ int rt_beam_cull(const float* origins, const bool* active, int row_major,
         origins, active, rays_per_tile, light_dir, cmin, cmax,
         num_clusters, out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general cull: origins and unit directions of T tiles of R rays,
+// both planar [T, 3, R], their activity [T, R] bool.
+int rt_general_cull(const float* origins, const float* dirs,
+                    const bool* active, int num_tiles, int rays_per_tile,
+                    const float* cmin, const float* cmax, int num_clusters,
+                    bool* out, void* stream) {
+  if (num_tiles == 0 || num_clusters == 0) return 0;
+  general_cull_kernel<<<num_tiles, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      origins, dirs, active, rays_per_tile, cmin, cmax, num_clusters, out);
   return static_cast<int>(cudaGetLastError());
 }
 

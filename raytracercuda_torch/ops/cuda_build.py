@@ -129,6 +129,7 @@ SIGNATURES = {
                       _I, _I, _I, _F, _P, _P, _P, _P, _P),
     "rt_frustum_cull": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P),
     "rt_beam_cull": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
+    "rt_general_cull": (_P, _P, _P, _I, _I, _P, _P, _I, _P, _P),
 }
 
 #: Bytes a pixel of the packed frames that `rt_clear`, `rt_gradient` and

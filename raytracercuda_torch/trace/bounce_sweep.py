@@ -4,7 +4,10 @@
   * `general_tile_cull` replaces the pinhole frustum for tile-coherent
     bundles of arbitrary rays: per-axis reachability from the tile's
     origin box along its direction box, and a bounding cone around the
-    mean direction.  Both tests are conservative.
+    mean direction.  Both tests are conservative.  One launch of
+    `csrc/cull.cu`'s `general_cull_kernel` for CUDA tensors
+    (`_general_cull_cuda`, counted as ``launch_counts["general_cull"]``),
+    the plain chain `_general_cull_plain` for CPU tensors.
   * `trace_shade_general_planar` culls and runs kernel F
     (`sweep._general_shade_cuda`, or its plain version on the CPU): kernel
     A's closest hit and attributes from per-ray origins, with an activity
@@ -27,17 +30,21 @@ from __future__ import annotations
 import torch
 
 from ..config import TraceConfig
+from ..ops.cuda_build import kernel_fn, raw_stream
 from ..ops.math import normalize
 from ..types import FLT_MAX, Hit
 from .dense import tile_pixels_planar, untile_pixels
 from .shade import faced_ndotl_planar, lambert_planar, shadow_origins_planar
 from .sweep import (
+    _check_boxes,
+    _check_cuda,
     _closest_rays_cuda,
     _closest_rays_plain,
     _general_shade_cuda,
     _general_shade_plain,
     _pick,
     _tile_lists,
+    launch_counts,
     occlusion_tiles_planar,
     segment_blocks,
     t_eps_of,
@@ -47,19 +54,11 @@ from .sweep import (
 _BIG = 3.0e37
 
 
-def general_tile_cull(
-    o3_tiles: torch.Tensor,
-    d3_tiles: torch.Tensor,
-    a_tiles: torch.Tensor,
-    cmin: torch.Tensor,
-    cmax: torch.Tensor,
-) -> torch.Tensor:
-    """Conservative ``[T, C]`` cluster cull for tile-coherent ray bundles
-    (planar ``[T, 3, R]`` origins and directions, ``[T, R]`` activity),
-    over each tile's active rays only.  Tiles with no active ray cull
-    everything.  The op order is `pallas_bounce.general_tile_cull`'s, with
-    the axes accumulated one at a time so no ``[T, C, 3]`` tensor
-    exists."""
+def _general_cull_plain(o3_tiles, d3_tiles, a_tiles, cmin, cmax):
+    """Plain version of the general-cull kernel: the ``[T, C]`` bool
+    survive mask of `general_tile_cull`.  The op order is
+    `pallas_bounce.general_tile_cull`'s, with the axes accumulated one at a
+    time so no ``[T, C, 3]`` tensor exists."""
     act = a_tiles[:, None, :]  # [T,1,R]
     omin = torch.where(act, o3_tiles, _BIG).amin(dim=2)  # [T,3]
     omax = torch.where(act, o3_tiles, -_BIG).amax(dim=2)
@@ -96,6 +95,48 @@ def general_tile_cull(
     cone_ok = (cos_min[:, None] <= 0.0) | (
         sup >= cos_min[:, None] * torch.sqrt(gap2))
     return ok & cone_ok
+
+
+def _general_cull_cuda(o3_tiles, d3_tiles, a_tiles, cmin, cmax):
+    """Launch the general-cull kernel (`csrc/cull.cu`); mask as in
+    `_general_cull_plain`.  ``T`` and ``R`` come from ``a_tiles``'s
+    shape."""
+    num_tiles, r = a_tiles.shape
+    dev = d3_tiles.device
+    o3_tiles, d3_tiles, a_tiles, cmin, cmax = (
+        x.contiguous() for x in (o3_tiles, d3_tiles, a_tiles, cmin, cmax))
+    for name, x in (("o3_tiles", o3_tiles), ("d3_tiles", d3_tiles)):
+        _check_cuda(name, x, dev, torch.float32, (num_tiles, 3, r))
+    _check_cuda("a_tiles", a_tiles, dev, torch.bool, (num_tiles, r))
+    _check_boxes(cmin, cmax, dev)
+    survive = torch.empty((num_tiles, cmin.shape[0]), dtype=torch.bool,
+                          device=dev)
+    err = kernel_fn("rt_general_cull")(
+        o3_tiles.data_ptr(), d3_tiles.data_ptr(), a_tiles.data_ptr(),
+        num_tiles, r, cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0],
+        survive.data_ptr(), raw_stream(dev))
+    if err:
+        raise RuntimeError(f"general cull launch failed: CUDA error {err}")
+    launch_counts["general_cull"] += 1
+    return survive
+
+
+def general_tile_cull(
+    o3_tiles: torch.Tensor,
+    d3_tiles: torch.Tensor,
+    a_tiles: torch.Tensor,
+    cmin: torch.Tensor,
+    cmax: torch.Tensor,
+) -> torch.Tensor:
+    """Conservative ``[T, C]`` cluster cull for tile-coherent ray bundles
+    (planar ``[T, 3, R]`` origins and unit directions, ``[T, R]`` bool
+    activity), over each tile's active rays only.  Tiles with no active
+    ray cull everything.  The plain chain for CPU tensors, one kernel
+    launch for CUDA tensors; inputs that require grad are culled
+    detached."""
+    run = _pick(d3_tiles, _general_cull_plain, _general_cull_cuda)
+    return run(o3_tiles.detach(), d3_tiles.detach(), a_tiles, cmin.detach(),
+               cmax.detach())
 
 
 def trace_shade_general_planar(

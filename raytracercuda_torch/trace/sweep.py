@@ -4,8 +4,9 @@ pallas_sweep.py`, and of `pallas_bounce.py`'s kernel).
 
 Each 16x16 pixel tile gets the list of clusters that survive its cull, in
 ascending cluster id.  The culls (`frustum_cull` before A and C,
-`beam_cull` before B and H) write a ``[T, C]`` bool mask, one kernel
-launch each in `csrc/cull.cu`, which `_tile_lists` compacts.  The sweep
+`beam_cull` before B and H, `bounce_sweep.general_tile_cull` before F)
+write a ``[T, C]`` bool mask, one kernel launch each in `csrc/cull.cu`,
+which `_tile_lists` compacts.  The sweep
 kernels live in `csrc/sweep.cu`:
 
   * A (replacing `pallas_sweep._primary_shade_kernel`) finds each ray's
@@ -106,8 +107,8 @@ STAGED_COLS = 16
 #: A's and C's, B's and H's.
 launch_counts = {"primary_shade": 0, "general_shade": 0, "occlusion": 0,
                  "primary": 0, "occlusion_rows": 0, "closest_rays": 0,
-                 "frustum_cull": 0, "beam_cull": 0, "eye_rows": 0,
-                 "light_rows": 0}
+                 "frustum_cull": 0, "beam_cull": 0, "general_cull": 0,
+                 "eye_rows": 0, "light_rows": 0}
 
 #: Clusters per work item of each kernel, K: the fastest, within the run's
 #: spread, of `chip_smoke.py`'s sweep over K on the H100 (PERF.md), by the

@@ -19,40 +19,57 @@ Tolerances, stated per check:
     all three channels (`test_bounce.py:78-82`), for the port's cluster
     route against JAX's Pallas route, for the port's brute route against
     JAX's brute route, and for the port's two routes against each other.
+
+`general_tile_cull` is one launch of `csrc/cull.cu`'s
+`general_cull_kernel` on the card and the plain chain
+(`_general_cull_plain`) on the CPU.  The tests marked ``card`` need an
+NVIDIA GPU and skip without one; the card's machine has no jax, so
+there this file imports neither jax nor the JAX package and only those
+tests run: ``python -m pytest tests/test_torch_bounce.py -m card -s
+--noconftest``.  On the card every mask entry that differs from the
+chain's must lie within `chip_smoke.CULL_THRESHOLD_REL` of a threshold
+by `cull_margins`, and bounce frames are bit-equal to the chain's.
 """
+
+import importlib.util
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import (
-    assert_rel_close,
-    assert_slots_match,
-    jax_config,
-    torch_clusters,
-    torch_config,
-    torch_scene,
-)
-
-import jax.numpy as jnp
-
-from raytracercuda_tpu.accel.clusters import build_clusters as jax_build
-from raytracercuda_tpu.config import ClusterConfig
-from raytracercuda_tpu.config import TraceConfig as JaxTraceConfig
-from raytracercuda_tpu.models.camera import camera_ray_grid as jax_rays
-from raytracercuda_tpu.trace import dense as jdense
-from raytracercuda_tpu.trace import pallas_bounce as jbounce
-from raytracercuda_tpu.trace import pallas_sweep as jsweep
-from raytracercuda_tpu.trace.bounce import render_bounces as jax_render
-from raytracercuda_tpu.types import FLT_MAX
-from test_bounce import mirror_box_scene
-
+from chip_smoke import CULL_THRESHOLD_REL, general_margin
 from raytracercuda_torch.config import TraceConfig
 from raytracercuda_torch.models.camera import camera_ray_grid
 from raytracercuda_torch.trace import bounce_sweep as tbounce
 from raytracercuda_torch.trace import sweep as tsweep
 from raytracercuda_torch.trace.bounce import reflect, render_bounces
-from raytracercuda_torch.trace.pipeline import crop_frame, pad_frame
+from raytracercuda_torch.trace.pipeline import (crop_frame, pad_frame,
+                                                rotate_rays)
+from test_torch_cull import _card, config_scene, orbit
+from test_torch_tracing import CONFIG
+
+if importlib.util.find_spec("jax") is not None:
+    from torch_parity import (
+        assert_rel_close,
+        assert_slots_match,
+        jax_config,
+        torch_clusters,
+        torch_config,
+        torch_scene,
+    )
+
+    import jax.numpy as jnp
+
+    from raytracercuda_tpu.accel.clusters import build_clusters as jax_build
+    from raytracercuda_tpu.config import ClusterConfig
+    from raytracercuda_tpu.config import TraceConfig as JaxTraceConfig
+    from raytracercuda_tpu.models.camera import camera_ray_grid as jax_rays
+    from raytracercuda_tpu.trace import dense as jdense
+    from raytracercuda_tpu.trace import pallas_bounce as jbounce
+    from raytracercuda_tpu.trace import pallas_sweep as jsweep
+    from raytracercuda_tpu.trace.bounce import render_bounces as jax_render
+    from raytracercuda_tpu.types import FLT_MAX
+    from test_bounce import mirror_box_scene
 
 #: The frames' bar (`test_bounce.py:78-82`).
 FRAME_SHARE = 0.995
@@ -89,40 +106,19 @@ def assert_frames_close(a, b, what):
 # ---------------------------------------------------------------------------
 
 
-def cull_margins(o3, d3, a, cmin, cmax):
+def cull_margins(o3, d3, a, cmin, cmax, tiles=None, clusters=None):
     """Each ``[T, C]`` entry's smallest relative distance to a threshold
-    of `general_tile_cull`'s comparisons, in float64 (NaN in tiles with
-    no active ray, which cull everything on both sides)."""
-    o3, d3 = o3.astype(np.float64), d3.astype(np.float64)
-    cmin, cmax = cmin.astype(np.float64), cmax.astype(np.float64)
-    act = a[:, None, :]
-    omin = np.where(act, o3, np.inf).min(axis=2)
-    omax = np.where(act, o3, -np.inf).max(axis=2)
-    dmin = np.where(act, d3, np.inf).min(axis=2)
-    dmax = np.where(act, d3, -np.inf).max(axis=2)
-    dsum = np.where(act, d3, 0.0).sum(axis=2)
-    m = dsum / np.maximum(np.linalg.norm(dsum, axis=1, keepdims=True), 1e-15)
-    cos_min = np.where(a, (d3 * m[:, :, None]).sum(axis=1), 1.0).min(axis=1)
-
-    def rel(x, y):
-        return np.abs(x - y) / np.maximum(1.0, np.maximum(np.abs(x),
-                                                          np.abs(y)))
-
-    margins = [np.abs(cos_min)[:, None] + 0.0 * cmin[None, :, 0]]
-    sup = gap2 = 0.0
-    for i in range(3):
-        margins.append(np.where(dmin[:, i:i + 1] >= 0.0,
-                                rel(cmax[None, :, i], omin[:, i:i + 1]),
-                                np.inf))
-        margins.append(np.where(dmax[:, i:i + 1] <= 0.0,
-                                rel(cmin[None, :, i], omax[:, i:i + 1]),
-                                np.inf))
-        wlo = cmin[None, :, i] - omax[:, i:i + 1]
-        whi = cmax[None, :, i] - omin[:, i:i + 1]
-        sup = sup + np.maximum(m[:, i:i + 1] * wlo, m[:, i:i + 1] * whi)
-        gap2 = gap2 + np.maximum(np.maximum(wlo, -whi), 0.0) ** 2
-    margins.append(rel(sup, cos_min[:, None] * np.sqrt(gap2)))
-    return np.min(margins, axis=0)
+    of `general_tile_cull`'s comparisons, in float64: `chip_smoke.
+    general_margin` on numpy inputs (inf in tiles with no active ray,
+    which cull everything on both sides); with ``tiles`` and ``clusters``
+    (index arrays of one length), only those pairs'."""
+    full = tiles is None
+    if full:
+        tiles, clusters = (x.reshape(-1) for x in np.meshgrid(
+            np.arange(a.shape[0]), np.arange(cmin.shape[0]), indexing="ij"))
+    margin = general_margin(*(torch.from_numpy(np.asarray(x)) for x in (
+        o3, d3, a, cmin, cmax, tiles, clusters))).numpy()
+    return margin.reshape(a.shape[0], cmin.shape[0]) if full else margin
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -154,9 +150,104 @@ def test_general_tile_cull_matches_jax(seed):
     assert 0 < want.sum() < want.size and not want.all(axis=1).all()
     flipped = got != want
     print(f"cull entries flipped: {int(flipped.sum())} of {flipped.size}")
-    with np.errstate(invalid="ignore"):
-        margin = cull_margins(o3, d3, a, cmin, cmax)
+    margin = cull_margins(o3, d3, a, cmin, cmax)
     assert (margin[flipped] <= 1e-6).all()
+
+
+#: bounce2's general culls (multimesh515k.c1080): a 1920x1088 frame's
+#: 16-pixel tiles over the configuration's clusters.
+BOUNCE2_TILES, BOUNCE2_CLUSTERS = 8160, 4027
+
+
+def general_case(case: str, seed: int = 11):
+    """Numpy float32 inputs of a general cull, ``(o3 [T, 3, R], unit d3
+    [T, 3, R], a [T, R] bool, cmin, cmax [C, 3])``: ``"bounce2"`` at
+    bounce2's shapes, ``"bundle"`` 2,000 rays in `trace_rays`' groups of
+    256 (the last group padded with inactive rays).  Tiles of origins in
+    small boxes with directions around a mean, every third cone wider
+    than a half-space, tile 5 all inactive; boxes of 0.02-0.3 half-extent
+    among the origins."""
+    rng = np.random.default_rng(seed)
+    if case == "bounce2":
+        T, R, C = BOUNCE2_TILES, 256, BOUNCE2_CLUSTERS
+    else:
+        T, R, C = 8, 256, 600
+    centre = rng.uniform(-2.0, 2.0, (T, 3, 1))
+    o3 = centre + rng.normal(scale=0.2, size=(T, 3, R))
+    mean = rng.normal(size=(T, 3, 1))
+    spread = np.where(np.arange(T) % 3 == 0, 2.0, 0.15)[:, None, None]
+    d3 = mean / np.linalg.norm(mean, axis=1, keepdims=True) \
+        + spread * rng.normal(size=(T, 3, R))
+    d3 = d3 / np.linalg.norm(d3, axis=1, keepdims=True)
+    a = rng.random((T, R)) > 0.3
+    a[5] = False
+    if case == "bundle":  # row-major rays through `group_rays`
+        n = 2000
+        rows = [torch.from_numpy(x.transpose(0, 2, 1).reshape(-1, 3)[:n])
+                for x in (o3, d3)]
+        o3, d3 = (tbounce.group_rays(x, R).transpose(1, 2).numpy()
+                  for x in rows)
+        a = tbounce.group_rays(torch.from_numpy(a.reshape(-1)[:n]),
+                               R).numpy()
+    mid = rng.uniform(-3.0, 3.0, (C, 3))
+    half = rng.uniform(0.02, 0.3, (C, 3))
+    return (o3.astype(np.float32), d3.astype(np.float32), a,
+            (mid - half).astype(np.float32), (mid + half).astype(np.float32))
+
+
+def cull_gate(got, want, o3, d3, a, cmin, cmax):
+    """The card's gate on a kernel's mask ``got`` against the chain's
+    ``want`` (bool tensors) on the numpy inputs: ``(entries that differ,
+    their largest margin by `cull_margins`)``.  The mask passes when that
+    margin is within `CULL_THRESHOLD_REL`."""
+    bad = (got != want).nonzero().cpu().numpy()
+    if not len(bad):
+        return 0, 0.0
+    return len(bad), float(cull_margins(o3, d3, a, cmin, cmax, bad[:, 0],
+                                        bad[:, 1]).max())
+
+
+def test_general_tile_cull_runs_the_chain_on_the_cpu(monkeypatch):
+    """On CPU tensors `general_tile_cull` is the plain chain, culled
+    detached, and launches nothing."""
+    o3, d3, a, cmin, cmax = (torch.from_numpy(x)
+                             for x in general_case("bundle"))
+    calls = []
+
+    def chain(*args):
+        calls.append(args)
+        return plain(*args)
+
+    plain = tbounce._general_cull_plain
+    monkeypatch.setattr(tbounce, "_general_cull_plain", chain)
+    tsweep.reset_launch_counts()
+    got = tbounce.general_tile_cull(o3.requires_grad_(), d3, a, cmin, cmax)
+    assert len(calls) == 1 and not any(x.requires_grad for x in calls[0])
+    assert not any(tsweep.launch_counts.values())
+    assert torch.equal(got, plain(o3.detach(), d3, a, cmin, cmax))
+    assert got.dtype == torch.bool and got.shape == (8, 600)
+    assert not got[5].any() and 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.parametrize("wrong", ["keeps_all", "keeps_none"])
+def test_the_card_gate_refuses_a_general_mask_off_its_thresholds(wrong):
+    """`cull_gate` refuses a mask that keeps every cluster, or none: it
+    differs from the chain at tests far from their thresholds, also in
+    the tiles that have active rays."""
+    case = general_case("bundle")
+    want = tbounce._general_cull_plain(*(torch.from_numpy(x) for x in case))
+    got = torch.full_like(want, wrong == "keeps_all")
+    got[5] = False  # the tile with no active ray as the chain has it
+    differ, worst = cull_gate(got, want, *case)
+    assert differ > 0 and worst > CULL_THRESHOLD_REL
+    assert cull_gate(want.clone(), want, *case) == (0, 0.0)
+
+
+def test_general_cull_kernel_rejects_cpu_tensors():
+    o3, d3, a, cmin, cmax = (torch.from_numpy(x)
+                             for x in general_case("bundle"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbounce._general_cull_cuda(o3, d3, a, cmin, cmax)
 
 
 def first_bounce_inputs(js, jc, side, inactive_share, seed):
@@ -384,3 +475,139 @@ def test_reflect():
     out = reflect(torch.tensor([[0.0, 0.0, 1.0]]),
                   torch.tensor([[0.0, 0.0, -1.0]]))
     assert torch.equal(out, torch.tensor([[0.0, 0.0, -1.0]]))
+
+
+# ---------------------------------------------------------------------------
+# The general cull on the card (`csrc/cull.cu`'s general_cull_kernel).
+# ---------------------------------------------------------------------------
+
+
+def cone_cosines(d3, a):
+    """Each tile's least cosine of an active ray to the unit mean of its
+    active directions, in float64 (1 where the tile has none)."""
+    d3 = d3.astype(np.float64)
+    dsum = np.where(a[:, None, :], d3, 0.0).sum(axis=2)
+    m = dsum / np.maximum(np.linalg.norm(dsum, axis=1, keepdims=True), 1e-15)
+    return np.where(a, (d3 * m[:, :, None]).sum(axis=1), 1.0).min(axis=1)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", ["bounce2", "bundle"])
+def test_general_cull_kernel_matches_the_chain_on_the_card(case):
+    """`general_tile_cull` on the card against `_general_cull_plain` run
+    there, at bounce2's shapes and at a `trace_rays` bundle's: one launch,
+    the tile with no active ray culled whole, narrow cones and cones wider
+    than a half-space, each differing entry within `CULL_THRESHOLD_REL` of
+    a threshold."""
+    dev = _card()
+    case_np = general_case(case)
+    o3, d3, a, cmin, cmax = (torch.from_numpy(x).to(dev) for x in case_np)
+    cos_min = cone_cosines(case_np[1], case_np[2])[case_np[2].any(axis=1)]
+    assert (cos_min <= 0.0).any() and (cos_min > 0.0).any()
+    tsweep.reset_launch_counts()
+    got = tbounce.general_tile_cull(o3, d3, a, cmin, cmax)
+    torch.cuda.synchronize()
+    assert tsweep.launch_counts["general_cull"] == 1
+    want = tbounce._general_cull_plain(o3, d3, a, cmin, cmax)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert not got[5].any() and 0 < int(got.sum()) < got.numel()
+    differ, worst = cull_gate(got, want, *case_np)
+    print(f"{case}: {differ} of {got.numel()} mask entries differ from the "
+          f"chain, largest relative margin {worst:.3g}; "
+          f"{int(got.sum())} survive")
+    assert worst <= CULL_THRESHOLD_REL
+
+
+@pytest.fixture(scope="module")
+def bounce2():
+    """multimesh515k.c1080's scene as the port builds it
+    (`test_torch_cull.config_scene`) with its materials' reflectivity, on
+    the card: ``(config, data, clusters, poses)``, the poses those of the
+    bounce2 traffic's orbit."""
+    dev = _card()
+    config, data, accel = config_scene("multimesh515k.c1080", dev)
+    data = data._replace(reflectivity=torch.tensor(
+        [m["reflectivity"] for m in config["materials"]],
+        dtype=torch.float32, device=dev))
+    pos = data.positions.cpu().numpy()
+    lo, hi = pos.min(0), pos.max(0)
+    poses = list(orbit("bounce2", (lo + hi) / 2,
+                       config["meshes"][0]["radius"],
+                       float((hi - lo).max())))
+    return config, data, accel, poses
+
+
+def bounce2_frame(bounce2, k: int) -> torch.Tensor:
+    """Pose ``k``'s frame: two bounces with shadows at 1920x1080 through
+    `render_bounces`, as the bounce2 cell renders it."""
+    config, data, accel, poses = bounce2
+    dev = data.positions.device
+    eye, orient = (torch.as_tensor(x, device=dev) for x in poses[k])
+    w, h = config["width"], config["height"]
+    dirs = rotate_rays(camera_ray_grid(w, h, device=dev), orient)
+    return render_bounces(accel, data, eye, dirs, h, w, CONFIG,
+                          num_bounces=2, light_dir=tuple(config["light_dir"]),
+                          with_shadows=config["shadows"],
+                          background=tuple(config["background"]))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("unit", ["bounce_frame", "ray_bundle"])
+def test_one_launch_per_general_cull_on_the_card(bounce2, unit):
+    """A bounce frame culls once a bounce, a `trace_rays` bundle once."""
+    config, data, accel, poses = bounce2
+    dev = data.positions.device
+    if unit == "bounce_frame":
+        def run():
+            return bounce2_frame(bounce2, 0)
+    else:
+        rng = np.random.default_rng(3)
+        origins = torch.from_numpy(rng.uniform(
+            -2.0, 2.0, (5000, 3)).astype(np.float32)).to(dev)
+        dirs = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+            size=(5000, 3)).astype(np.float32)).to(dev), dim=1)
+        blocks = tsweep.segment_blocks(accel)
+
+        def run():
+            return tbounce.trace_rays(accel, blocks, origins, dirs)
+    run()
+    torch.cuda.synchronize()
+    tsweep.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    assert tsweep.launch_counts["general_cull"] == (
+        2 if unit == "bounce_frame" else 1)
+
+
+@pytest.mark.card
+def test_bounce_frames_equal_the_chains(bounce2, monkeypatch):
+    """Two poses of bounce2's orbit, each rendered with the general cull on
+    the kernel and on the chain (the other culls and sweeps on their
+    kernels), bit for bit; every kernel mask through `cull_gate`."""
+    kernel = tbounce._general_cull_cuda
+    masks = []
+
+    def recorded(*args):
+        got = kernel(*args)
+        masks.append((got, args))
+        return got
+
+    for k in (0, len(bounce2[3]) // 2):
+        monkeypatch.setattr(tbounce, "_general_cull_cuda", recorded)
+        got = bounce2_frame(bounce2, k)
+        monkeypatch.setattr(tbounce, "_general_cull_cuda",
+                            tbounce._general_cull_plain)
+        want = bounce2_frame(bounce2, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"pose {k}: {int((got != want).any(dim=1).sum())} pixels differ"
+    assert len(masks) == 4
+    for i, (got, args) in enumerate(masks):
+        want = tbounce._general_cull_plain(*args)
+        differ, worst = cull_gate(got, want,
+                                  *(x.cpu().numpy() for x in args))
+        print(f"bounce frame cull {i}: {differ} of {got.numel()} mask "
+              f"entries differ from the chain, largest relative margin "
+              f"{worst:.3g}; {int(args[2].sum())} active rays, "
+              f"{int(got.sum())} survive")
+        assert worst <= CULL_THRESHOLD_REL
