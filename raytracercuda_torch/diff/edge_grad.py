@@ -30,10 +30,27 @@ than the rest, so an endpoint there may differ from JAX's in its last
 bit, which moves a decision only for a sample within that bit of a pixel
 edge.
 
+The probes leave the eye along their screen points' directions turned
+into the world by the orientation (`_probe_world`, the forward rays'
+`pipeline.rotate_rays`).  The JAX package traces the camera-space
+directions themselves (`raytracercuda_tpu/diff/edge_grad.py:199-206`),
+which is right for the identity orientation alone: under any other the
+probes miss the edge and the term reads about 0.
+
 The probes of samples that cannot count (not a silhouette, behind the
 eye, off the frame) are not traced: JAX gives them an exact 0, and so
 does the compaction here (`boundary_vjp(..., compact=False)` traces every
 probe, for the test that holds the two routes equal).
+
+While program tracing is on (`utils/profiler.py`), `boundary_vjp` records
+``boundary.samples`` (`edge_samples`), ``sync.live_samples`` (the
+compaction's ``nonzero``, one host sync), ``boundary.probes``
+(`probe_dirs` and the probes' trace and shade) and ``boundary.project``
+(the endpoints' pullback), and counts the live samples
+(``boundary_live_samples``, compacted route) and the probe rays traced
+(``boundary_probes``).  No constant is copied from the host per call:
+the probe offset is a host scalar, the light and the background are
+the device's cached copies (`render_grad._light_on`).
 """
 
 from __future__ import annotations
@@ -45,6 +62,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops.math import dot_fused, fma32
+from ..utils.profiler import count, host_sync, span
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +211,12 @@ def edge_samples(positions, faces, edge_vids, edge_faces, eye, orient,
 def probe_dirs(s: EdgeSamples, rows, delta: float,
                zoom: float) -> torch.Tensor:
     """Unit directions of the probes just inside and just outside the edge
-    at the flat samples ``rows`` (``[E*K]`` indices): ``[2, N, 3]``."""
+    at the flat samples ``rows`` (``[E*K]`` indices): ``[2, N, 3]``.
+    ``delta`` is rounded to float32 and enters the kernels as a host
+    scalar (a 0-dim CPU tensor: no copy to the device)."""
     x = s.x.reshape(-1, 2)[rows]
     nhat = s.nhat[rows // s.tau.numel()]
-    d = torch.tensor(delta, dtype=torch.float32, device=x.device)
+    d = torch.tensor(delta, dtype=torch.float32)
     pr = torch.stack([fma32(-d, nhat, x), fma32(d, nhat, x)])  # [2,N,2]
     z = torch.full(pr.shape[:-1] + (1,), float(zoom), dtype=torch.float32,
                    device=x.device)
@@ -204,21 +224,42 @@ def probe_dirs(s: EdgeSamples, rows, delta: float,
     return p / torch.sqrt(dot_fused(p, p))[..., None]
 
 
+def _probe_world(dirs: torch.Tensor, orient: torch.Tensor) -> torch.Tensor:
+    """Camera-space probe directions ``[N, 3]`` in the world, as the
+    forward render turns its rays (`pipeline.rotate_rays`).
+
+    `portbench`'s silhouette cell looks for this name at set-up, to refuse
+    at once a program that traces the probes in camera space: rename it
+    there too."""
+    from ..trace.pipeline import rotate_rays
+
+    return rotate_rays(dirs, orient)
+
+
+#: The probes' miss colour, the renders' default background.
+_BACKGROUND = (0.0, 1.0, 0.0)
+
+
 def _radiance(scene, accel, eye, dirs, config, shading, light_dir):
     """Radiance along unit ``dirs`` ``[N, 3]`` from ``eye``, and the hit
     faces, without gradients (JAX: `trace_hit`, `recompute_hit`, the
-    shade)."""
+    shade).  The light and the background are the device's cached
+    copies (`render_grad._light_on`)."""
     from ..trace.pipeline import trace_hit
     from ..trace.shade import shade_lambert_rgb, shade_normal_rgb
-    from .render_grad import recompute_hit
+    from .render_grad import _light_on, recompute_hit
 
     orig = eye[None, :].expand(dirs.shape)
     hit = trace_hit(scene, accel, orig, dirs, config)
     h = recompute_hit(scene, hit.face, orig, dirs)
+    bg = _light_on(_BACKGROUND, dirs.device, "sync.probe_background")
     if shading == "normal":
-        rgb = shade_normal_rgb(scene, h, background=(0.0, 1.0, 0.0))
+        rgb = shade_normal_rgb(scene, h, background=bg)
     else:
-        rgb = shade_lambert_rgb(scene, h, orig, dirs, light_dir=light_dir)
+        rgb = shade_lambert_rgb(
+            scene, h, orig, dirs,
+            light_dir=_light_on(light_dir, dirs.device, "sync.shade_light"),
+            background=bg)
     return rgb, hit.face
 
 
@@ -240,22 +281,31 @@ def boundary_vjp(g: torch.Tensor, scene, accel, edge_vids: torch.Tensor,
     pos, e, o = sg.positions, eye.detach(), orient.detach()
     dx, dy = 2.0 / width, -2.0 / height
     with torch.no_grad():
-        s = edge_samples(pos, sg.faces, edge_vids, edge_faces, e, o, width,
-                         height, zoom, num_samples)
+        with span("boundary.samples"):
+            s = edge_samples(pos, sg.faces, edge_vids, edge_faces, e, o,
+                             width, height, zoom, num_samples)
         E, K = s.live.shape
         live = s.live.reshape(-1)
-        rows = (live.nonzero()[:, 0] if compact
-                else torch.arange(E * K, device=live.device))
-        delta = offset_px * min(abs(dx), abs(dy))
-        dirs = probe_dirs(s, rows, delta, zoom)
+        if compact:
+            with host_sync("sync.live_samples"):
+                rows = live.nonzero()[:, 0]
+            count("boundary_live_samples", rows.numel())
+        else:
+            rows = torch.arange(E * K, device=live.device)
         n = rows.numel()
-        if n:
-            L, hf = _radiance(sg, accel, e, dirs.reshape(-1, 3), config,
-                              shading, light_dir)
-            L, hf = L.reshape(2, n, 3), hf.reshape(2, n)
-        else:  # no live sample: nothing to trace
-            L = dirs.new_zeros((2, 0, 3))
-            hf = torch.zeros((2, 0), dtype=torch.int32, device=dirs.device)
+        count("boundary_probes", 2 * n)
+        with span("boundary.probes"):
+            delta = offset_px * min(abs(dx), abs(dy))
+            dirs = probe_dirs(s, rows, delta, zoom)
+            if n:
+                L, hf = _radiance(sg, accel, e,
+                                  _probe_world(dirs.reshape(-1, 3), o),
+                                  config, shading, light_dir)
+                L, hf = L.reshape(2, n, 3), hf.reshape(2, n)
+            else:  # no live sample: nothing to trace
+                L = dirs.new_zeros((2, 0, 3))
+                hf = torch.zeros((2, 0), dtype=torch.int32,
+                                 device=dirs.device)
         # This edge owns the discontinuity only where the inside probe sees
         # one of its faces (else another surface hides the edge there).
         ef = edge_faces.long()[rows // K]
@@ -272,7 +322,7 @@ def boundary_vjp(g: torch.Tensor, scene, accel, edge_vids: torch.Tensor,
     leaves = [x.detach().requires_grad_() for x in (pos, e, o)]
     p, e_, o_ = leaves
     ids = edge_vids.long()
-    with torch.enable_grad():
+    with span("boundary.project"), torch.enable_grad():
         pa, _ = project_screen(p[ids[:, 0]], e_, o_, zoom)
         pb, _ = project_screen(p[ids[:, 1]], e_, o_, zoom)
         d_pos, d_eye, d_orient = torch.autograd.grad((pa, pb), leaves,

@@ -438,7 +438,7 @@ class _RenderVJP(torch.autograd.Function):
         """The backward's body: the fixed-id render recomputed under
         ``enable_grad`` (span ``grad.recompute``), its VJP by
         `torch.autograd.grad` (``grad.autograd``), and the boundary
-        term."""
+        term (``grad.boundary``, `edge_grad.boundary_vjp`)."""
         accel, config, shading, _, light_dir, frame_hw = ctx.opts[:6]
         leaves = [x.detach().requires_grad_(need)
                   for x, need in zip(ctx.saved_tensors,
@@ -463,12 +463,13 @@ class _RenderVJP(torch.autograd.Function):
             from .edge_grad import boundary_vjp
 
             edge_vids, edge_faces, width, height, zoom = edges
-            terms = boundary_vjp(
-                g, scene, accel, edge_vids, edge_faces, leaves[-2],
-                leaves[-1], config, width, height, zoom=zoom,
-                num_samples=config.diff.edge_samples,
-                offset_px=config.diff.edge_offset_px, shading=shading,
-                light_dir=light_dir)
+            with span("grad.boundary"):
+                terms = boundary_vjp(
+                    g, scene, accel, edge_vids, edge_faces, leaves[-2],
+                    leaves[-1], config, width, height, zoom=zoom,
+                    num_samples=config.diff.edge_samples,
+                    offset_px=config.diff.edge_offset_px, shading=shading,
+                    light_dir=light_dir)
             for i, term in zip((0, -2, -1), terms):
                 if leaves[i].requires_grad:
                     grads[i] = term if grads[i] is None else grads[i] + term
@@ -517,8 +518,13 @@ def render_rgb_silhouette(scene, accel, eye, orient, config: RenderConfig,
     backward is `render_rgb_vjp`'s fixed-id VJP plus, when
     ``config.diff.silhouette`` is set, `edge_grad.boundary_vjp`'s terms
     for the positions, the eye and the orientation.  ``edge_table`` is
-    `build_edge_table(faces)`, built on the host when None.  The boundary
-    probes ignore shadows; shadow-boundary gradients are not modelled."""
+    `build_edge_table(faces)`, built on the host when None.  A job that
+    renders one topology many times builds it once and passes it as two
+    int32 tensors on the scene's device, ``(edge_vids [E, 2], edge_faces
+    [E, 2])``: that form is used as it is, with no copy; a host table is
+    copied to the device on every call (a blocking copy of ``16 E``
+    bytes).  The boundary probes ignore shadows; shadow-boundary
+    gradients are not modelled."""
     from ..models.camera import camera_ray_grid
     from .edge_grad import build_edge_table
 

@@ -37,12 +37,13 @@ def shade_normal_packed(scene, hit: Hit) -> torch.Tensor:
 
 def shade_normal_rgb(scene, hit: Hit, background=(0.0, 1.0, 0.0)):
     """Float RGB ``(|n.z|, 0, 0)`` of the interpolated normal on hits,
-    ``background`` on misses."""
+    ``background`` on misses (a float32 tensor on the hits' device is
+    used without a copy from the host)."""
     n = normalize(interpolate_slot(scene, hit, VERTEX_DATA_NORMAL), eps=1e-30)
     r = n[..., 2].abs()
     zero = torch.zeros_like(r)
     rgb = torch.stack([r, zero, zero], dim=-1)
-    bg = torch.tensor(background, dtype=torch.float32, device=r.device)
+    bg = torch.as_tensor(background, dtype=torch.float32, device=r.device)
     return torch.where(hit.hit_mask[..., None], rgb, bg)
 
 

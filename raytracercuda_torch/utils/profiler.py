@@ -31,7 +31,11 @@ The spans the routes record:
     ``sweep.shadow_cull``, ``sweep.H``) and ``render.shade``, under
     ``pass`` in `progressive_step`; its backward ``grad`` (with
     ``grad.recompute`` and ``grad.autograd`` in `_RenderVJP`) holding
-    ``scatter.G``; ``accel.build`` in `build_clusters` and `build_bvh`;
+    ``scatter.G``, and in `render_rgb_silhouette`'s ``grad.boundary``
+    (``boundary.samples``, ``sync.live_samples``, ``boundary.probes``,
+    ``boundary.project``; counters ``boundary_live_samples``,
+    ``boundary_probes``); ``accel.build`` in `build_clusters` and
+    `build_bvh`;
   * ``sync.<site>`` where a route waits for the device, each wait also
     counted under ``host_syncs``: ``sync.beam`` around each call of
     kernel L's C entry, which waits once a batch of rounds and adds its

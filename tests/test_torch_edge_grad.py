@@ -6,7 +6,15 @@ CLUSTER (C's epilogue over F's sweep, plain; JAX's
 `dense.trace_clusters_rays`).  The scenes are `test_edge_grad.py`'s 9x9
 flat triangle, a 300-face triangle soup (every edge a boundary edge) and a
 closed 320-face bumpy sphere (interior edges, silhouettes where the two
-faces turn apart)."""
+faces turn apart).
+
+The JAX package traces the probes along their camera-space directions;
+the port turns them into the world by the orientation first
+(`edge_grad._probe_world`), as the forward render turns its rays.  The
+comparisons with JAX under a rotated view (`jax_probe_rule`) put JAX's
+rule in that one place, so that every other rule is still held to
+JAX's; `test_probes_leave_the_eye_toward_their_samples` holds the port's
+own rule."""
 
 import numpy as np
 import pytest
@@ -124,6 +132,14 @@ def jax_boundary(c):
         zoom=c["zoom"], num_samples=c["samples"])]
 
 
+@pytest.fixture
+def jax_probe_rule(monkeypatch):
+    """The port's probes traced along their camera-space directions, as
+    the JAX package traces them (it never turns them by the orientation:
+    `raytracercuda_tpu/diff/edge_grad.py:199-206`)."""
+    monkeypatch.setattr(teg, "_probe_world", lambda dirs, orient: dirs)
+
+
 def probes(c):
     """The live samples' probe directions (``[2N, 3]``) from the port."""
     s = teg.edge_samples(c["ts"].positions, c["ts"].faces,
@@ -234,9 +250,10 @@ def test_sample_placement_matches_xla(name):
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_boundary_vjp_matches_jax(name, kind):
+def test_boundary_vjp_matches_jax(name, kind, jax_probe_rule):
     """(d_positions, d_eye, d_orient) within rtol 1e-5, atol 1e-6 of JAX's
-    jitted `boundary_vjp`, once every probe's face agrees."""
+    jitted `boundary_vjp`, once every probe's face agrees; the probes
+    traced by JAX's rule (`jax_probe_rule`)."""
     c = case(name, kind)
     hits = assert_probe_faces_agree(c)
     assert hits > 0
@@ -273,3 +290,34 @@ def test_no_live_sample_gives_zero():
     d_pos, d_eye, d_orient = teg.boundary_vjp(*args)
     for x in (d_pos, d_eye, d_orient):
         assert torch.equal(x, torch.zeros_like(x))
+
+
+@pytest.mark.parametrize("pan_pitch", [(0.02, 0.05), (0.7, -0.3),
+                                       (2.4, 0.4)])
+def test_probes_leave_the_eye_toward_their_samples(pan_pitch):
+    """Each probe's world direction, projected back to the screen, lands
+    ``delta`` inside or outside its sample along the outward normal
+    (within 1e-5 of a pixel): the probes leave along the view's rays,
+    whatever the orientation; under the identity the turn is exact."""
+    c = case("sphere320", "brute")
+    orient = torch.from_numpy(orient_from_pan_pitch(*pan_pitch))
+    eye = torch.from_numpy(c["eye"])
+    # Put the sphere in front of the eye along the view direction.
+    pos = c["ts"].positions
+    shift = (eye + 3.0 * orient[:, 2]) - pos.mean(0)
+    ts = c["ts"]._replace(positions=pos + shift)
+    ev, ef = torch.from_numpy(c["ev"]), torch.from_numpy(c["ef"])
+    W, H, zoom, K = c["width"], c["height"], c["zoom"], c["samples"]
+    s = teg.edge_samples(ts.positions, ts.faces, ev, ef, eye, orient, W, H,
+                         zoom, K)
+    rows = s.live.reshape(-1).nonzero()[:, 0]
+    assert rows.numel() > 20
+    delta = 0.05 * min(2.0 / W, 2.0 / H)
+    cam = teg.probe_dirs(s, rows, delta, zoom).reshape(-1, 3)
+    world = teg._probe_world(cam, orient)
+    back, _ = teg.project_screen(eye + world, eye, orient, zoom)
+    x = s.x.reshape(-1, 2)[rows]
+    n = s.nhat[rows // K]
+    want = torch.cat([x - delta * n, x + delta * n])
+    assert float((back - want).abs().max()) < 1e-5 * 2.0 / W
+    assert torch.equal(teg._probe_world(cam, torch.eye(3)), cam)

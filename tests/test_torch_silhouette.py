@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from torch_parity import time_limit
-from test_torch_edge_grad import SCENES, case, assert_probe_faces_agree
+from test_torch_edge_grad import (SCENES, case, assert_probe_faces_agree,
+                                  jax_probe_rule)
 
 import jax
 import jax.numpy as jnp
@@ -132,10 +133,12 @@ def test_flag_off_reduces_to_interior(kind):
 
 
 @pytest.mark.parametrize("name,kind", CASES)
-def test_gradients_match_jax(name, kind):
+def test_gradients_match_jax(name, kind, jax_probe_rule):
     """Positions, normals, albedo, eye and orient against JAX's `jax.grad`,
     once every probe's face agrees
-    (`test_torch_edge_grad.assert_probe_faces_agree`).  The interior part
+    (`test_torch_edge_grad.assert_probe_faces_agree`), the port's probes
+    traced along their camera-space directions as JAX traces them
+    (`test_torch_edge_grad.jax_probe_rule`).  The interior part
     (``silhouette=False``) at `test_torch_diff.py`'s bar, rtol 1e-4 and
     atol 1e-4 of max|g|: XLA on the CPU contracts the recompute's
     multiply-adds, and the soup's nearly edge-on triangles amplify the
