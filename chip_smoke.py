@@ -268,8 +268,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      boundary probes and G launched; prints the edges, silhouette edges,
      live samples and probe rays; requires `boundary_vjp`'s terms finite
      and nonzero and the probes' sweep bit-equal (t, u, v, slot) to its
-     plain version; times the forward, the step, `render_rgb_vjp`'s step
-     and `boundary_vjp` alone by events;
+     plain version; requires the terms bit-equal between the probes'
+     screen order and the edges' order (`edge_grad._screen_order` set to
+     the identity), prints the clusters listed a probe group in each
+     order (counter ``rays_listed``) and times the probes' sweep in each
+     by events; times the forward, the step, `render_rgb_vjp`'s step and
+     `boundary_vjp` alone by events;
  43. the finite-difference check of `tests/test_torch_silhouette.py` on the
      card: the 9x9 flat triangle on BRUTE (kernel E), 2,048 samples an
      edge, Simpson's rule against the 64x box-filtered image, rtol 0.12;
@@ -4306,6 +4310,7 @@ def silhouette_path(dev, clock, card, c4, size=C4_SIZE, fd_ss=SIL_FD_SS):
     from raytracercuda_torch.diff import edge_grad, render_grad, scatter
     from raytracercuda_torch.models.camera import camera_ray_grid
     from raytracercuda_torch.trace import bounce_sweep, bruteforce, sweep
+    from raytracercuda_torch.utils import profiler
 
     config, data, accel, eye, orient = c4
     n, hw = size * size, (size, size)
@@ -4388,6 +4393,38 @@ def silhouette_path(dev, clock, card, c4, size=C4_SIZE, fd_ss=SIL_FD_SS):
     print(f"probe sweep (C's epilogue over F's sweep) matches plain bit for "
           f"bit: {probes} probe rays in {args[3].shape[0]} groups, {hits} "
           f"hit")
+    # The probes in screen order against the edges' order: the same bits,
+    # and each order's clusters listed a group and probes' sweep time.
+    screen_order = edge_grad._screen_order
+    orders = {"screen": screen_order,
+              "edge": lambda rows, pix, width, height: rows}
+    terms, listed, order_ms = {}, {}, {}
+    for name, order in orders.items():
+        edge_grad._screen_order = order
+        rec = Recorder(bounce_sweep, ["_closest_rays_cuda"])
+        try:
+            profiler.collect()
+            with profiler.tracing():
+                terms[name] = edge_grad.boundary_vjp(
+                    w, data, accel, ev, ef, eye, orient, config, size, size,
+                    num_samples=config.diff.edge_samples,
+                    offset_px=config.diff.edge_offset_px)
+            counters = profiler.collect().counters
+        finally:
+            rec.restore()
+            edge_grad._screen_order = screen_order
+        order_args = rec.calls["_closest_rays_cuda"][-1]
+        listed[name] = counters["rays_listed"] / order_args[3].shape[0]
+        order_ms[name] = time_cuda(
+            lambda: sweep._closest_rays_cuda(*order_args), 20)
+    check(all(bits_equal(a, b) for a, b in zip(terms["screen"],
+                                               terms["edge"])),
+          "boundary_vjp's terms differ between the screen and edge orders")
+    print(f"probes in screen order: the terms bit-equal to the edges' "
+          f"order; clusters listed a group {listed['screen']:.2f} (edge "
+          f"order {listed['edge']:.2f}) of {accel.cmin.shape[0]}; the "
+          f"probes' sweep {order_ms['screen']:.4f} ms (edge order "
+          f"{order_ms['edge']:.4f} ms; events, 20 launches)")
 
     fwd_ms = time_cuda(lambda: render_grad.render_rgb_silhouette(
         data, accel, eye, orient, config, size, size, edge_table=(ev, ef)), 5)

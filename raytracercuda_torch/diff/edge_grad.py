@@ -42,15 +42,27 @@ eye, off the frame) are not traced: JAX gives them an exact 0, and so
 does the compaction here (`boundary_vjp(..., compact=False)` traces every
 probe, for the test that holds the two routes equal).
 
+The probes are traced in screen order (`_screen_order`): the samples
+sorted by their pixels' Morton codes, each sample's two probes side by
+side.  The general cull lists, for each group of 256 rays, every cluster
+that its rays' cone can reach; in the edge table's order a group holds
+samples from all around the outline and lists much of the scene, in
+screen order a group covers a patch of about 128 neighbouring samples,
+its cone is narrow and it lists fewer (the cone test still admits boxes
+some way off a narrow cone's axis).  A probe's closest hit does not
+depend on which rays share its group (the cull is conservative, ties go
+to the lower cluster and slot), and every later step reads a sample by
+its own row, so the order changes no bit of the term.
+
 While program tracing is on (`utils/profiler.py`), `boundary_vjp` records
 ``boundary.samples`` (`edge_samples`), ``sync.live_samples`` (the
-compaction's ``nonzero``, one host sync), ``boundary.probes``
-(`probe_dirs` and the probes' trace and shade) and ``boundary.project``
-(the endpoints' pullback), and counts the live samples
-(``boundary_live_samples``, compacted route) and the probe rays traced
-(``boundary_probes``).  No constant is copied from the host per call:
-the probe offset is a host scalar, the light and the background are
-the device's cached copies (`render_grad._light_on`).
+compaction's ``nonzero``, one host sync), ``boundary.probes`` (the
+order, `probe_dirs` and the probes' trace and shade) and
+``boundary.project`` (the endpoints' pullback), and counts the live
+samples (``boundary_live_samples``, compacted route) and the probe rays
+traced (``boundary_probes``).  No constant is copied from the host per
+call: the probe offset is a host scalar, the light and the background
+are the device's cached copies (`render_grad._light_on`).
 """
 
 from __future__ import annotations
@@ -224,6 +236,30 @@ def probe_dirs(s: EdgeSamples, rows, delta: float,
     return p / torch.sqrt(dot_fused(p, p))[..., None]
 
 
+def _spread_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bit i of each int64 in ``v`` (below ``2**bits``, ``bits <= 32``)
+    moved to bit 2i, the others 0."""
+    for shift, mask in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF),
+                        (4, 0x0F0F0F0F0F0F0F0F), (2, 0x3333333333333333),
+                        (1, 0x5555555555555555)):
+        if shift < bits:
+            v = (v | (v << shift)) & mask
+    return v
+
+
+def _screen_order(rows: torch.Tensor, pix: torch.Tensor, width: int,
+                  height: int) -> torch.Tensor:
+    """The flat sample ids ``rows`` sorted by the Morton (Z-order) code of
+    their pixels ``pix[rows]`` (``pix = py * width + px``), ties in their
+    given order: the probes' trace groups consecutive rays, so neighbours
+    on screen share a group.  On the rows' device, no host sync."""
+    bits = (max(width, height) - 1).bit_length()
+    p = pix[rows].long()
+    xy = _spread_bits(torch.stack([p % width, p // width]), bits)
+    _, perm = torch.sort(xy[0] | (xy[1] << 1), stable=True)
+    return rows[perm]
+
+
 def _probe_world(dirs: torch.Tensor, orient: torch.Tensor) -> torch.Tensor:
     """Camera-space probe directions ``[N, 3]`` in the world, as the
     forward render turns its rays (`pipeline.rotate_rays`).
@@ -274,7 +310,11 @@ def boundary_vjp(g: torch.Tensor, scene, accel, edge_vids: torch.Tensor,
 
     The probes see detached values; gradients flow only through the
     screen projection of the edge endpoints.  ``compact`` traces only the
-    probes of live samples (the others count 0 in either route)."""
+    probes of live samples (the others count 0 in either route).  The
+    samples go in screen order (`_screen_order`), each one's two probes
+    side by side, so that a group of the probes' trace covers a patch of
+    the screen and its cull lists fewer clusters; the result is the same
+    bits in any order."""
     from .render_grad import _detached_scene
 
     sg = _detached_scene(scene)
@@ -295,13 +335,17 @@ def boundary_vjp(g: torch.Tensor, scene, accel, edge_vids: torch.Tensor,
         n = rows.numel()
         count("boundary_probes", 2 * n)
         with span("boundary.probes"):
+            rows = _screen_order(rows, s.pix.reshape(-1), width, height)
             delta = offset_px * min(abs(dx), abs(dy))
             dirs = probe_dirs(s, rows, delta, zoom)
             if n:
-                L, hf = _radiance(sg, accel, e,
-                                  _probe_world(dirs.reshape(-1, 3), o),
-                                  config, shading, light_dir)
-                L, hf = L.reshape(2, n, 3), hf.reshape(2, n)
+                # [n, 2] probes: a sample's inside and outside ones adjacent.
+                L, hf = _radiance(
+                    sg, accel, e,
+                    _probe_world(dirs.transpose(0, 1).reshape(-1, 3), o),
+                    config, shading, light_dir)
+                L = L.reshape(n, 2, 3).transpose(0, 1)
+                hf = hf.reshape(n, 2).transpose(0, 1)
             else:  # no live sample: nothing to trace
                 L = dirs.new_zeros((2, 0, 3))
                 hf = torch.zeros((2, 0), dtype=torch.int32,

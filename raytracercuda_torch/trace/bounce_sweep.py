@@ -33,6 +33,7 @@ from ..config import TraceConfig
 from ..ops.cuda_build import kernel_fn, raw_stream
 from ..ops.math import normalize
 from ..types import FLT_MAX, Hit
+from ..utils.profiler import count
 from .dense import tile_pixels_planar, untile_pixels
 from .shade import faced_ndotl_planar, lambert_planar, shadow_origins_planar
 from .sweep import (
@@ -188,7 +189,10 @@ def trace_rays(
     and C's epilogue over F's sweep; ``tri_blocks`` is
     `segment_blocks(cs)`.  A ray that ``active`` ``[N]`` (bool, all when
     None) leaves out returns a miss, as in JAX's
-    `dense.trace_clusters_rays(..., active=)`."""
+    `dense.trace_clusters_rays(..., active=)`.  While program tracing is
+    on, counter ``rays_listed`` adds the (group, cluster) pairs the
+    groups listed: rays that arrive in screen order list fewer clusters a
+    group."""
     n = origins.shape[0]
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dirs.device)
@@ -199,9 +203,11 @@ def trace_rays(
     dlen = torch.sqrt(torch.clamp((d3 * d3).sum(dim=1, keepdim=True),
                                   min=1e-30))
     survive = general_tile_cull(o3, d3 / dlen, num, cs.cmin, cs.cmax)
+    lists = _tile_lists(survive)
+    count("rays_listed", lists.ids.numel())
     run = _pick(d3, _closest_rays_plain, _closest_rays_cuda)
     bt, bu, bv, bs = (x.reshape(-1)[:n] for x in run(
-        _tile_lists(survive), o3, d3, num, tri_blocks, t_eps_of(trace_cfg)))
+        lists, o3, d3, num, tri_blocks, t_eps_of(trace_cfg)))
     # A miss already carries FLT_MAX, u = v = 0 and slot 0.
     face = torch.where(bt < FLT_MAX, cs.face_order[bs.long()], -1)
     return Hit(t=bt, u=bu, v=bv, face=face.to(torch.int32))

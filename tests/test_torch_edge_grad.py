@@ -16,6 +16,8 @@ rule in that one place, so that every other rule is still held to
 JAX's; `test_probes_leave_the_eye_toward_their_samples` holds the port's
 own rule."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,7 @@ from raytracercuda_tpu.diff import edge_grad as jeg
 from raytracercuda_tpu.models.procedural import bumpy_sphere_mesh
 from raytracercuda_tpu.trace.pipeline import trace_hit as jax_trace_hit
 
+from raytracercuda_torch.accel.clusters import build_clusters
 from raytracercuda_torch.config import AccelKind, RenderConfig
 from raytracercuda_torch.diff import edge_grad as teg
 from raytracercuda_torch.models.camera import orient_from_pan_pitch
@@ -292,20 +295,29 @@ def test_no_live_sample_gives_zero():
         assert torch.equal(x, torch.zeros_like(x))
 
 
-@pytest.mark.parametrize("pan_pitch", [(0.02, 0.05), (0.7, -0.3),
-                                       (2.4, 0.4)])
+#: Views turned away from the identity (pan, pitch).
+TURNED_VIEWS = [(0.02, 0.05), (0.7, -0.3), (2.4, 0.4)]
+
+
+def turned_scene(c, pan_pitch):
+    """``c``'s scene moved in front of its eye turned by ``pan_pitch``:
+    ``(scene, eye, orient)``."""
+    orient = torch.from_numpy(orient_from_pan_pitch(*pan_pitch))
+    eye = torch.from_numpy(c["eye"])
+    # Put the mesh in front of the eye along the view direction.
+    pos = c["ts"].positions
+    shift = (eye + 3.0 * orient[:, 2]) - pos.mean(0)
+    return c["ts"]._replace(positions=pos + shift), eye, orient
+
+
+@pytest.mark.parametrize("pan_pitch", TURNED_VIEWS)
 def test_probes_leave_the_eye_toward_their_samples(pan_pitch):
     """Each probe's world direction, projected back to the screen, lands
     ``delta`` inside or outside its sample along the outward normal
     (within 1e-5 of a pixel): the probes leave along the view's rays,
     whatever the orientation; under the identity the turn is exact."""
     c = case("sphere320", "brute")
-    orient = torch.from_numpy(orient_from_pan_pitch(*pan_pitch))
-    eye = torch.from_numpy(c["eye"])
-    # Put the sphere in front of the eye along the view direction.
-    pos = c["ts"].positions
-    shift = (eye + 3.0 * orient[:, 2]) - pos.mean(0)
-    ts = c["ts"]._replace(positions=pos + shift)
+    ts, eye, orient = turned_scene(c, pan_pitch)
     ev, ef = torch.from_numpy(c["ev"]), torch.from_numpy(c["ef"])
     W, H, zoom, K = c["width"], c["height"], c["zoom"], c["samples"]
     s = teg.edge_samples(ts.positions, ts.faces, ev, ef, eye, orient, W, H,
@@ -321,3 +333,90 @@ def test_probes_leave_the_eye_toward_their_samples(pan_pitch):
     want = torch.cat([x - delta * n, x + delta * n])
     assert float((back - want).abs().max()) < 1e-5 * 2.0 / W
     assert torch.equal(teg._probe_world(cam, torch.eye(3)), cam)
+
+
+def edge_order(rows, pix, width, height):
+    """`edge_grad._screen_order` replaced by the identity: the probes in
+    the edge table's order."""
+    return rows
+
+
+# The turned sphere at 64x48 with 16 samples an edge: its live probes
+# fill several 256-ray groups of the trace.
+ORDER_W, ORDER_H, ORDER_K = 64, 48, 16
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("pan_pitch", TURNED_VIEWS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_screen_order_gives_the_edge_orders_bits(kind, pan_pitch, compact,
+                                                 monkeypatch):
+    """`boundary_vjp`'s (d_positions, d_eye, d_orient) with the probes in
+    screen order equal, bit for bit, those in the edge table's order, on
+    the compacted and the full route: a probe's closest hit does not
+    depend on the rays that share its group (CLUSTER: 16-face clusters,
+    so that the groups' lists differ), and every later step reads a
+    sample by its own row."""
+    c = case("sphere320", "brute")
+    ts, eye, orient = turned_scene(c, pan_pitch)
+    if kind == "brute":
+        tcfg, tacc = RenderConfig(accel=AccelKind.BRUTE), None
+    else:
+        tcfg = RenderConfig(accel=AccelKind.CLUSTER)
+        tcfg = dataclasses.replace(tcfg, cluster=dataclasses.replace(
+            tcfg.cluster, cluster_size=16))
+        tacc = build_clusters(ts.positions, ts.faces, tcfg.cluster)
+    ev, ef = torch.from_numpy(c["ev"]), torch.from_numpy(c["ef"])
+    g = torch.from_numpy(np.random.default_rng(7).uniform(
+        -1.0, 1.0, (ORDER_W * ORDER_H, 3)).astype(np.float32))
+    args = (g, ts, tacc, ev, ef, eye, orient, tcfg, ORDER_W, ORDER_H)
+    # The fixture is not trivial: several groups, reordered.
+    s = teg.edge_samples(ts.positions, ts.faces, ev, ef, eye, orient,
+                         ORDER_W, ORDER_H, 1.0, ORDER_K)
+    rows = (s.live.reshape(-1).nonzero()[:, 0] if compact
+            else torch.arange(s.live.numel()))
+    assert 2 * rows.numel() > 3 * 256
+    assert not torch.equal(
+        teg._screen_order(rows, s.pix.reshape(-1), ORDER_W, ORDER_H), rows)
+    got = teg.boundary_vjp(*args, num_samples=ORDER_K, compact=compact)
+    monkeypatch.setattr(teg, "_screen_order", edge_order)
+    want = teg.boundary_vjp(*args, num_samples=ORDER_K, compact=compact)
+    assert (want[0] != 0).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def morton_codes(px: np.ndarray, py: np.ndarray, bits: int) -> np.ndarray:
+    """Z-order codes bit by bit: bit i of x at 2i, of y at 2i + 1."""
+    key = np.zeros(px.shape, np.int64)
+    for i in range(bits):
+        key |= ((px >> i) & 1) << (2 * i)
+        key |= ((py >> i) & 1) << (2 * i + 1)
+    return key
+
+
+@pytest.mark.parametrize("size", [(64, 48), (33, 1025)])
+@pytest.mark.parametrize("pan_pitch", TURNED_VIEWS)
+def test_screen_order_sorts_the_live_rows_by_morton_code(pan_pitch, size):
+    """`_screen_order` on the live rows of the turned sphere: a
+    permutation of them, their pixels' Morton codes (``ceil(log2(max(W,
+    H)))`` bits an axis) ascending, and rows of one code in the edge
+    table's order."""
+    width, height = size
+    c = case("sphere320", "brute")
+    ts, eye, orient = turned_scene(c, pan_pitch)
+    s = teg.edge_samples(ts.positions, ts.faces, torch.from_numpy(c["ev"]),
+                         torch.from_numpy(c["ef"]), eye, orient, width,
+                         height, 1.0, ORDER_K)
+    pix = s.pix.reshape(-1)
+    rows = s.live.reshape(-1).nonzero()[:, 0]
+    got = teg._screen_order(rows, pix, width, height)
+    assert got.dtype == rows.dtype
+    assert torch.equal(torch.sort(got).values, rows)
+    p = pix[got].numpy()
+    bits = int(np.ceil(np.log2(max(width, height))))
+    key = morton_codes(p % width, p // width, bits)
+    assert (np.diff(key) >= 0).all()
+    tie = np.diff(key) == 0
+    assert tie.any(), "no two live samples share a pixel: weak fixture"
+    assert (np.diff(got.numpy())[tie] > 0).all()
