@@ -271,7 +271,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      plain version; requires the terms bit-equal between the probes'
      screen order and the edges' order (`edge_grad._screen_order` set to
      the identity), prints the clusters listed a probe group in each
-     order (counter ``rays_listed``) and times the probes' sweep in each
+     order (counter ``general_pairs``) and times the probes' sweep in each
      by events; times the forward, the step, `render_rgb_vjp`'s step and
      `boundary_vjp` alone by events;
  43. the finite-difference check of `tests/test_torch_silhouette.py` on the
@@ -4414,7 +4414,7 @@ def silhouette_path(dev, clock, card, c4, size=C4_SIZE, fd_ss=SIL_FD_SS):
             rec.restore()
             edge_grad._screen_order = screen_order
         order_args = rec.calls["_closest_rays_cuda"][-1]
-        listed[name] = counters["rays_listed"] / order_args[3].shape[0]
+        listed[name] = counters["general_pairs"] / order_args[3].shape[0]
         order_ms[name] = time_cuda(
             lambda: sweep._closest_rays_cuda(*order_args), 20)
     check(all(bits_equal(a, b) for a, b in zip(terms["screen"],

@@ -59,10 +59,10 @@ While program tracing is on (`utils/profiler.py`), `boundary_vjp` records
 compaction's ``nonzero``, one host sync), ``boundary.probes`` (the
 order, `probe_dirs` and the probes' trace and shade) and
 ``boundary.project`` (the endpoints' pullback), and counts the live
-samples (``boundary_live_samples``, compacted route) and the probe rays
-traced (``boundary_probes``).  No constant is copied from the host per
-call: the probe offset is a host scalar, the light and the background
-are the device's cached copies (`render_grad._light_on`).
+samples (``boundary_live_samples``, compacted route; two probe rays
+each).  No constant is copied from the host per call: the probe offset
+is a host scalar, the light and the background are the device's cached
+copies (`render_grad._light_on`).
 """
 
 from __future__ import annotations
@@ -333,7 +333,6 @@ def boundary_vjp(g: torch.Tensor, scene, accel, edge_vids: torch.Tensor,
         else:
             rows = torch.arange(E * K, device=live.device)
         n = rows.numel()
-        count("boundary_probes", 2 * n)
         with span("boundary.probes"):
             rows = _screen_order(rows, s.pix.reshape(-1), width, height)
             delta = offset_px * min(abs(dx), abs(dy))

@@ -14,6 +14,7 @@ from ..errors import (
     ERROR_INVALID_PARAMETER,
     ERROR_NO_RENDER_TARGET,
 )
+from ..utils.profiler import span
 
 
 def camera_ray_grid(
@@ -92,14 +93,15 @@ class Camera:
 
     def clear(self, render_target, value: int) -> int:
         """Fill ``render_target`` with ``value`` through kernel D: error 8
-        without a target, else 0."""
+        without a target, else 0.  Traced, a root span ``api.clear``."""
         if render_target is None:
             return ERROR_NO_RENDER_TARGET
         from ..ops.clear import clear_buffer
 
-        render_target.buffer = clear_buffer(
-            render_target.width * render_target.height, value,
-            render_target.device)
+        with span("api.clear"):
+            render_target.buffer = clear_buffer(
+                render_target.width * render_target.height, value,
+                render_target.device)
         return ERROR_ALL_FINE
 
     def trace_scene(self, eye, orient, scene, render_target) -> int:

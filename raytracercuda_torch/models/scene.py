@@ -21,6 +21,7 @@ from ..errors import (
     ERROR_NO_RENDER_TARGET,
     ERROR_RT_CAM_MISMATCH,
 )
+from ..utils.profiler import host_copies, span
 from .mesh import Mesh, VERTEX_DATA_COUNT, VERTEX_DATA_POSITION
 
 
@@ -222,7 +223,8 @@ class Scene:
     def march(self, eye, orient, camera, render_target) -> int:
         """Trace the scene into ``render_target``'s buffer: error 8 without
         a target, 5 when its size is not the camera's (`Scene.cpp:81-97`),
-        else 0."""
+        else 0.  Traced, a root ``frame`` holds ``sync.pose`` (the copies
+        of host ``eye`` and ``orient``) and `trace_to_buffer`'s spans."""
         if render_target is None:
             return ERROR_NO_RENDER_TARGET
         if (render_target.width != camera.width
@@ -231,9 +233,12 @@ class Scene:
         from ..trace.pipeline import trace_to_buffer
 
         dev = self.device
-        render_target.buffer = trace_to_buffer(
-            self.data(), self.accel, camera.initial_rays.to(dev),
-            torch.as_tensor(eye, dtype=torch.float32, device=dev),
-            torch.as_tensor(orient, dtype=torch.float32, device=dev),
-            self.config, frame_hw=(camera.height, camera.width))
+        with span("frame"):
+            with host_copies("sync.pose", (eye, orient), dev):
+                eye = torch.as_tensor(eye, dtype=torch.float32, device=dev)
+                orient = torch.as_tensor(orient, dtype=torch.float32,
+                                         device=dev)
+            render_target.buffer = trace_to_buffer(
+                self.data(), self.accel, camera.initial_rays.to(dev), eye,
+                orient, self.config, frame_hw=(camera.height, camera.width))
         return ERROR_ALL_FINE

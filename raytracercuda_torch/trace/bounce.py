@@ -25,6 +25,7 @@ from ..config import RenderConfig
 from ..models.mesh import VERTEX_DATA_NORMAL
 from ..ops.math import normalize
 from ..types import Hit
+from ..utils.profiler import host_copies, span
 from .pipeline import crop_frame, occlusion_hit, pad_frame, shadow_origins
 from .shade import interpolate_slot, shade_lambert_rgb
 
@@ -73,30 +74,41 @@ def render_bounces(
     ``eye``; ``cs`` is the scene's cluster set (unused with
     ``use_brute``).  Callers rendering many frames should build the shade
     blocks once and call `render_bounces_tiled` directly."""
-    tc = config.trace
-    if not use_brute:
+    with span("frame"):
+        if use_brute:
+            return _render_brute(scene, eye, dirs, config, num_bounces,
+                                 light_dir, with_shadows, background)
         from .bounce_sweep import render_bounces_tiled
         from .sweep import shade_segment_blocks
 
+        tc = config.trace
         # Frames that the tile does not divide are edge-padded and cropped
         # (1080 rows pad to 1088): the repeated edge rays are valid
         # directions, and their pixels are discarded.
         tp = tc.dense_tile_px
         d, hp, wp = pad_frame(dirs, height, width, tp)
-        blocks, has_uv = shade_segment_blocks(cs, scene)
+        with span("bounce.blocks"):
+            blocks, has_uv = shade_segment_blocks(cs, scene)
         rgb = render_bounces_tiled(
             cs, blocks, has_uv, scene.textures, eye, d, hp, wp, tile_px=tp,
             num_bounces=num_bounces, light_dir=light_dir,
             with_shadows=with_shadows, background=background, trace_cfg=tc)
         return crop_frame(rgb, height, width, hp, wp)
 
+
+def _render_brute(scene, eye, dirs, config, num_bounces, light_dir,
+                  with_shadows, background) -> torch.Tensor:
+    """`render_bounces`'s ``use_brute`` route."""
     from .bruteforce import trace_brute
 
+    tc = config.trace
     dev = dirs.device
-    eps = torch.tensor(tc.t_epsilon, dtype=torch.float32, device=dev) \
-        * torch.clamp(scene.positions.max() - scene.positions.min(), min=1.0)
-    light = normalize(torch.tensor(light_dir, dtype=torch.float32,
-                                   device=dev))
+    with host_copies("sync.constants", (tc.t_epsilon, light_dir), dev):
+        t_eps = torch.tensor(tc.t_epsilon, dtype=torch.float32, device=dev)
+        light = torch.tensor(light_dir, dtype=torch.float32, device=dev)
+    eps = t_eps * torch.clamp(scene.positions.max() - scene.positions.min(),
+                              min=1.0)
+    light = normalize(light)
     origin = eye[None, :].expand(dirs.shape)
     hit = trace_brute(scene.positions, scene.faces, origin, dirs, tc)
 

@@ -33,7 +33,7 @@ from ..config import TraceConfig
 from ..ops.cuda_build import kernel_fn, raw_stream
 from ..ops.math import normalize
 from ..types import FLT_MAX, Hit
-from ..utils.profiler import count
+from ..utils.profiler import count, host_copies, span
 from .dense import tile_pixels_planar, untile_pixels
 from .shade import faced_ndotl_planar, lambert_planar, shadow_origins_planar
 from .sweep import (
@@ -140,6 +140,17 @@ def general_tile_cull(
                cmax.detach())
 
 
+def _general_lists(o3_tiles, d3_tiles, a_tiles, cs):
+    """`general_tile_cull` and its lists, span ``sweep.general_cull``;
+    counter ``general_pairs`` adds the (group, cluster) pairs listed, a
+    count the host holds once the lists' ``nonzero`` has returned."""
+    with span("sweep.general_cull"):
+        lists = _tile_lists(general_tile_cull(o3_tiles, d3_tiles, a_tiles,
+                                              cs.cmin, cs.cmax))
+        count("general_pairs", lists.ids.numel())
+        return lists
+
+
 def trace_shade_general_planar(
     cs,
     shade_blocks: torch.Tensor,
@@ -153,12 +164,12 @@ def trace_shade_general_planar(
     ``[T, 3, R]`` origins and directions, ``[T, R]`` bool activity.
     Returns planar ``[T, R]`` ``(t, slot, u, v, nx, ny, nz, ar, ag, ab[,
     tex, tu, tv], refl)``; inactive rays carry the miss defaults."""
-    survive = general_tile_cull(o3_tiles, d3_tiles, a_tiles, cs.cmin,
-                                cs.cmax)
-    run = _pick(d3_tiles, _general_shade_plain, _general_shade_cuda)
-    return run(_tile_lists(survive), o3_tiles.contiguous(),
-               d3_tiles.contiguous(), a_tiles.contiguous(), shade_blocks,
-               has_uv, t_eps_of(trace_cfg), segment_blocks(cs))
+    lists = _general_lists(o3_tiles, d3_tiles, a_tiles, cs)
+    with span("sweep.F"):
+        run = _pick(d3_tiles, _general_shade_plain, _general_shade_cuda)
+        return run(lists, o3_tiles.contiguous(), d3_tiles.contiguous(),
+                   a_tiles.contiguous(), shade_blocks, has_uv,
+                   t_eps_of(trace_cfg), segment_blocks(cs))
 
 
 def group_rays(x: torch.Tensor, rays_per_group: int) -> torch.Tensor:
@@ -190,9 +201,10 @@ def trace_rays(
     `segment_blocks(cs)`.  A ray that ``active`` ``[N]`` (bool, all when
     None) leaves out returns a miss, as in JAX's
     `dense.trace_clusters_rays(..., active=)`.  While program tracing is
-    on, counter ``rays_listed`` adds the (group, cluster) pairs the
-    groups listed: rays that arrive in screen order list fewer clusters a
-    group."""
+    on it records ``sweep.general_cull`` and ``sweep.probes`` (the
+    sweep), and counter ``general_pairs`` adds the (group, cluster) pairs
+    the groups listed: rays that arrive in screen order list fewer
+    clusters a group."""
     n = origins.shape[0]
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dirs.device)
@@ -202,12 +214,11 @@ def trace_rays(
     # The cone test of the cull reads unit directions.
     dlen = torch.sqrt(torch.clamp((d3 * d3).sum(dim=1, keepdim=True),
                                   min=1e-30))
-    survive = general_tile_cull(o3, d3 / dlen, num, cs.cmin, cs.cmax)
-    lists = _tile_lists(survive)
-    count("rays_listed", lists.ids.numel())
-    run = _pick(d3, _closest_rays_plain, _closest_rays_cuda)
-    bt, bu, bv, bs = (x.reshape(-1)[:n] for x in run(
-        lists, o3, d3, num, tri_blocks, t_eps_of(trace_cfg)))
+    lists = _general_lists(o3, d3 / dlen, num, cs)
+    with span("sweep.probes"):
+        run = _pick(d3, _closest_rays_plain, _closest_rays_cuda)
+        bt, bu, bv, bs = (x.reshape(-1)[:n] for x in run(
+            lists, o3, d3, num, tri_blocks, t_eps_of(trace_cfg)))
     # A miss already carries FLT_MAX, u = v = 0 and slot 0.
     face = torch.where(bt < FLT_MAX, cs.face_order[bs.long()], -1)
     return Hit(t=bt, u=bu, v=bv, face=face.to(torch.int32))
@@ -265,10 +276,13 @@ def render_bounces_tiled(
     against the ray), offset by ``t_epsilon * max(max(cmax) - min(cmin),
     1)`` along the light."""
     dev = dirs.device
-    eps = torch.tensor(trace_cfg.t_epsilon, dtype=torch.float32, device=dev) \
-        * torch.clamp(cs.cmax.max() - cs.cmin.min(), min=1.0)
-    light = normalize(torch.tensor(light_dir, dtype=torch.float32,
-                                   device=dev))
+    with host_copies("sync.constants", (trace_cfg.t_epsilon, light_dir),
+                     dev):
+        t_eps = torch.tensor(trace_cfg.t_epsilon, dtype=torch.float32,
+                             device=dev)
+        light = torch.tensor(light_dir, dtype=torch.float32, device=dev)
+    eps = t_eps * torch.clamp(cs.cmax.max() - cs.cmin.min(), min=1.0)
+    light = normalize(light)
     bg = background
     T = (height // tile_px) * (width // tile_px)
     R = tile_px * tile_px
@@ -281,95 +295,92 @@ def render_bounces_tiled(
     dx = d3_tiles[:, 0, :].reshape(-1)
     dy = d3_tiles[:, 1, :].reshape(-1)
     dz = d3_tiles[:, 2, :].reshape(-1)
-    t0 = outs[0].reshape(-1)
-    hitm, nx, ny, nz, ndotl = faced_ndotl_planar(outs, d3_tiles, light)
-
+    with span("frame.shadow_rays"):
+        hitm, nx, ny, nz, ndotl = faced_ndotl_planar(outs, d3_tiles, light)
+        if with_shadows:
+            # Back-facing surfaces shade to ambient whether occluded or
+            # not.
+            nx0, ny0, nz0 = (o.reshape(-1) for o in outs[4:7])
+            nl = torch.sqrt(torch.clamp(nx0 * nx0 + ny0 * ny0 + nz0 * nz0,
+                                        min=1e-30))
+            ncos = (nx0 * dx + ny0 * dy + nz0 * dz) / nl
+            ndl = (nx0 * light[0] + ny0 * light[1] + nz0 * light[2]) / nl
+            ndl = torch.where(ncos > 0, -ndl, ndl)
+            sactive = (hitm & (ndl > 0.0)).reshape(T, R)
+            so = shadow_origins_planar(eye, d3_tiles, outs[0], sactive,
+                                       light, eps)
     if with_shadows:
-        # Back-facing surfaces shade to ambient whether occluded or not.
-        nx0, ny0, nz0 = (o.reshape(-1) for o in outs[4:7])
-        nl = torch.sqrt(torch.clamp(nx0 * nx0 + ny0 * ny0 + nz0 * nz0,
-                                    min=1e-30))
-        ncos = (nx0 * dx + ny0 * dy + nz0 * dz) / nl
-        ndl = (nx0 * light[0] + ny0 * light[1] + nz0 * light[2]) / nl
-        ndl = torch.where(ncos > 0, -ndl, ndl)
-        sactive = (hitm & (ndl > 0.0)).reshape(T, R)
-        shadow = occlusion_tiles_planar(
-            cs, shadow_origins_planar(eye, d3_tiles, outs[0], sactive,
-                                      light, eps),
-            light, sactive, tile_px=tile_px, trace_cfg=trace_cfg)
-        ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
+        shadow = occlusion_tiles_planar(cs, so, light, sactive,
+                                        tile_px=tile_px, trace_cfg=trace_cfg)
 
-    r0, g0, b0 = lambert_planar(outs, ndotl, textures, has_uv, ambient)
-    r0 = torch.where(hitm, r0, bg[0])
-    g0 = torch.where(hitm, g0, bg[1])
-    b0 = torch.where(hitm, b0, bg[2])
-    refl = torch.where(hitm, outs[-1].reshape(-1), 0.0)
-
-    if num_bounces == 0:
-        rgb = torch.stack([r0, g0, b0], dim=-1)
-        return untile_pixels(rgb.reshape(T, R, 3), height, width, tile_px)
-
-    cr = (1.0 - refl) * r0
-    cg = (1.0 - refl) * g0
-    cb = (1.0 - refl) * b0
-    throughput = refl
-    active = hitm & (refl > 0.0)
-
-    # Bounce geometry (planar): reflect d about the faced normal at the hit
-    # point, offset along the normal.
-    t_ = torch.clamp(t0, max=_BIG)
-    px = eye[0] + dx * t_
-    py = eye[1] + dy * t_
-    pz = eye[2] + dz * t_
-    ddn = dx * nx + dy * ny + dz * nz
-    ndx = dx - 2.0 * ddn * nx
-    ndy = dy - 2.0 * ddn * ny
-    ndz = dz - 2.0 * ddn * nz
-    ox_, oy_, oz_ = px + nx * eps, py + ny * eps, pz + nz * eps
+    with span("frame.shade"):
+        if with_shadows:
+            ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
+        r0, g0, b0 = lambert_planar(outs, ndotl, textures, has_uv, ambient)
+        r0 = torch.where(hitm, r0, bg[0])
+        g0 = torch.where(hitm, g0, bg[1])
+        b0 = torch.where(hitm, b0, bg[2])
+        if num_bounces == 0:
+            rgb = torch.stack([r0, g0, b0], dim=-1)
+            return untile_pixels(rgb.reshape(T, R, 3), height, width,
+                                 tile_px)
+        refl = torch.where(hitm, outs[-1].reshape(-1), 0.0)
+        cr = (1.0 - refl) * r0
+        cg = (1.0 - refl) * g0
+        cb = (1.0 - refl) * b0
+        throughput = refl
+        active = hitm & (refl > 0.0)
 
     scene_lo = cs.cmin.amin(dim=0)
     scene_hi = cs.cmax.amax(dim=0)
+    ox_, oy_, oz_ = eye[0], eye[1], eye[2]
+    t = outs[0].reshape(-1)
     for b in range(num_bounces):
-        d3 = _planar(ndx, ndy, ndz, T, R)
-        if sort_bounces:
-            perm, invp = _coherence_perm(ox_, oy_, oz_, ndx, ndy, ndz,
-                                         active, scene_lo, scene_hi)
-            outs = trace_shade_general_planar(
-                cs, shade_blocks, has_uv,
-                _planar(ox_[perm], oy_[perm], oz_[perm], T, R),
-                _planar(ndx[perm], ndy[perm], ndz[perm], T, R),
-                active[perm].reshape(T, R), trace_cfg=trace_cfg)
-            # Back to pixel order: one gather per output plane.
-            outs = tuple(o.reshape(-1)[invp].reshape(T, R) for o in outs)
-        else:
-            outs = trace_shade_general_planar(
-                cs, shade_blocks, has_uv, _planar(ox_, oy_, oz_, T, R), d3,
-                active.reshape(T, R), trace_cfg=trace_cfg)
-        hitm, nx, ny, nz, ndotl = faced_ndotl_planar(outs, d3, light)
-        lr, lg, lb = lambert_planar(outs, ndotl, textures, has_uv, ambient)
-        lr = torch.where(hitm, lr, bg[0])
-        lg = torch.where(hitm, lg, bg[1])
-        lb = torch.where(hitm, lb, bg[2])
-        refl = torch.where(hitm, outs[-1].reshape(-1), 0.0)
-        if b == num_bounces - 1:
-            refl = torch.zeros_like(refl)
-        wgt = torch.where(active, throughput * (1.0 - refl), 0.0)
-        cr = cr + wgt * lr
-        cg = cg + wgt * lg
-        cb = cb + wgt * lb
-        throughput = throughput * refl
-
-        dx, dy, dz = ndx, ndy, ndz
-        t_ = torch.clamp(outs[0].reshape(-1), max=_BIG)
-        px = ox_ + dx * t_
-        py = oy_ + dy * t_
-        pz = oz_ + dz * t_
-        ddn = dx * nx + dy * ny + dz * nz
-        ndx = dx - 2.0 * ddn * nx
-        ndy = dy - 2.0 * ddn * ny
-        ndz = dz - 2.0 * ddn * nz
-        ox_, oy_, oz_ = px + nx * eps, py + ny * eps, pz + nz * eps
-        active = active & hitm & (refl > 0.0)
+        with span("bounce.rays"):
+            # Reflect d about the faced normal at the hit point, the origin
+            # offset along the normal (planar).
+            t_ = torch.clamp(t, max=_BIG)
+            px = ox_ + dx * t_
+            py = oy_ + dy * t_
+            pz = oz_ + dz * t_
+            ddn = dx * nx + dy * ny + dz * nz
+            dx = dx - 2.0 * ddn * nx
+            dy = dy - 2.0 * ddn * ny
+            dz = dz - 2.0 * ddn * nz
+            ox_, oy_, oz_ = px + nx * eps, py + ny * eps, pz + nz * eps
+            d3 = _planar(dx, dy, dz, T, R)
+            if sort_bounces:
+                perm, invp = _coherence_perm(ox_, oy_, oz_, dx, dy, dz,
+                                             active, scene_lo, scene_hi)
+                rays = (_planar(ox_[perm], oy_[perm], oz_[perm], T, R),
+                        _planar(dx[perm], dy[perm], dz[perm], T, R),
+                        active[perm].reshape(T, R))
+            else:
+                rays = (_planar(ox_, oy_, oz_, T, R), d3,
+                        active.reshape(T, R))
+        outs = trace_shade_general_planar(cs, shade_blocks, has_uv, *rays,
+                                          trace_cfg=trace_cfg)
+        with span("bounce.shade"):
+            if sort_bounces:
+                # Back to pixel order: one gather per output plane.
+                outs = tuple(o.reshape(-1)[invp].reshape(T, R)
+                             for o in outs)
+            hitm, nx, ny, nz, ndotl = faced_ndotl_planar(outs, d3, light)
+            lr, lg, lb = lambert_planar(outs, ndotl, textures, has_uv,
+                                        ambient)
+            lr = torch.where(hitm, lr, bg[0])
+            lg = torch.where(hitm, lg, bg[1])
+            lb = torch.where(hitm, lb, bg[2])
+            refl = torch.where(hitm, outs[-1].reshape(-1), 0.0)
+            if b == num_bounces - 1:
+                refl = torch.zeros_like(refl)
+            wgt = torch.where(active, throughput * (1.0 - refl), 0.0)
+            cr = cr + wgt * lr
+            cg = cg + wgt * lg
+            cb = cb + wgt * lb
+            throughput = throughput * refl
+            t = outs[0].reshape(-1)
+            active = active & hitm & (refl > 0.0)
 
     rgb = torch.stack([cr, cg, cb], dim=-1)
     return untile_pixels(rgb.reshape(T, R, 3), height, width, tile_px)

@@ -36,6 +36,7 @@ import torch
 
 from ..config import AccelKind, RenderConfig
 from ..types import FLT_MAX, Hit
+from ..utils.profiler import span
 
 
 def rotate_rays(initial_rays: torch.Tensor,
@@ -210,11 +211,16 @@ def trace_to_buffer(
     frame_hw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Parity frame: the ``[R]`` packed uint32 framebuffer that the
-    reference's march kernels write (`BuildTree.cu:486-496`)."""
+    reference's march kernels write (`BuildTree.cu:486-496`).  Traced:
+    spans ``frame.rays``, ``frame.trace`` (`trace_hit`) and
+    ``frame.shade``."""
     from .shade import shade_normal_packed
 
-    dirs = rotate_rays(initial_rays, orient)
-    origin = eye[None, :].expand(dirs.shape)
-    hit = trace_hit(scene, accel, origin, dirs, config, frame_hw=frame_hw,
-                    common_origin=eye)
-    return shade_normal_packed(scene, hit)
+    with span("frame.rays"):
+        dirs = rotate_rays(initial_rays, orient)
+        origin = eye[None, :].expand(dirs.shape)
+    with span("frame.trace"):
+        hit = trace_hit(scene, accel, origin, dirs, config,
+                        frame_hw=frame_hw, common_origin=eye)
+    with span("frame.shade"):
+        return shade_normal_packed(scene, hit)

@@ -16,6 +16,7 @@ from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
 from ..ops.interpolate import face_interpolate
 from ..ops.math import as_u32, normalize, pack_rgb
 from ..types import FLT_MAX, Hit
+from ..utils.profiler import host_copies
 
 #: The miss colour ``255 << 8`` of the packed normal shader.
 MISS_COLOR_PACKED = 255 << 8
@@ -123,9 +124,13 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
     ``[..., 3]``.  The generic route interpolates, then shades; with
     ``tables`` (`build_face_tables`) each hit is one row gather.  A
     ``light_dir`` or ``background`` given as a float32 tensor on the rays'
-    device is used without a copy from the host."""
+    device is used without a copy from the host; host values are copied,
+    span ``sync.shade_constants``."""
     del ray_origin  # the JAX signature's; a directional light needs none
     dev = ray_dir.device
+    with host_copies("sync.shade_constants", (light_dir, background), dev):
+        l = torch.as_tensor(light_dir, dtype=torch.float32, device=dev)
+        bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
     if tables is not None:
         row = tables.rows[hit.face.clamp(min=0).long()]
         w = 1.0 - (hit.u + hit.v)
@@ -148,15 +153,13 @@ def shade_lambert_rgb(scene, hit: Hit, ray_origin: torch.Tensor,
     # Face the normal against the incoming ray.
     flip = torch.sum(n * ray_dir, dim=-1) > 0.0
     n = torch.where(flip[..., None], -n, n)
-    l = normalize(torch.as_tensor(light_dir, dtype=torch.float32,
-                                  device=dev))
+    l = normalize(l)
     ndotl = torch.clamp(torch.sum(n * l, dim=-1), min=0.0)
     if shadow_mask is not None:
         ndotl = torch.where(shadow_mask, 0.0, ndotl)
     if albedo is None:
         albedo = material_albedo(scene, hit)
     rgb = albedo * (ambient + (1.0 - ambient) * ndotl)[..., None]
-    bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
     return torch.where(hit.hit_mask[..., None], rgb, bg)
 
 

@@ -1,14 +1,15 @@
 """The port's tracing: program spans and counters, the per-phase frame
 profiler and `device_trace`.
 
-Program tracing (`span`, `host_sync`, `count`, `collect`) is off by
-default.  Off, `span` reads one module global and returns a shared no-op
-object: it allocates, synchronises and records nothing.  On (`tracing`,
-`device_trace`, or the benchmark setting ``enabled``), each span keeps
-``(id, name, start_ns, end_ns, parent, unit)`` in memory: the parent is
-the innermost span open on the same thread, a span with no parent is a
-root (a frame, a progressive pass, a step's ``accel.build``, ``render``
-and ``grad``), and every span carries its root's id as ``unit``.  Each
+Program tracing (`span`, `host_sync`, `host_copies`, `count`,
+`collect`) is off by default.  Off, `span` reads one module global and
+returns a shared no-op object: it allocates, synchronises and records
+nothing.  On (`tracing`, `device_trace`, or the benchmark setting
+``enabled``), each span keeps ``(id, name, start_ns, end_ns, parent,
+unit)`` in memory: the parent is the innermost span open on the same
+thread, a span with no parent is a root (a frame, a progressive pass, a
+step's ``accel.build``, ``render`` and ``grad``, the API's
+``api.clear``), and every span carries its root's id as ``unit``.  Each
 thread has its own stack of open spans, since autograd runs backward
 functions on a worker thread of its own.  Spans are stamped with
 `time.time_ns`, the epoch clock on which `torch.profiler` (kineto) stamps
@@ -26,6 +27,15 @@ The spans the routes record:
     ``sync.beam``), ``frame.shadow_rays``, ``bvh.K`` (`any_hit_bvh`,
     kernel K), ``frame.shade``; ``bvh.L`` and ``bvh.K`` (also
     `trace_bvh`) wherever those functions are called;
+  * a bounce frame (`trace/bounce.py:render_bounces`): ``frame`` >
+    ``bounce.blocks``, ``sync.constants``, ``sweep.cull``, ``sweep.A``,
+    ``frame.shadow_rays``, ``sweep.shadow_cull``, ``sweep.B``,
+    ``frame.shade``, then each bounce's ``bounce.rays``,
+    ``sweep.general_cull``, ``sweep.F``, ``bounce.shade``; on the brute
+    route ``frame`` > ``sync.constants``, ``sync.shade_constants``;
+  * the public API (`models/`): ``api.clear`` (`Camera.clear`, kernel
+    D), and ``frame`` (`Scene.march`) > ``sync.pose``, ``frame.rays``,
+    ``frame.trace`` (`trace_hit`), ``frame.shade``;
   * the differentiable render (`diff/render_grad.py`): ``render`` >
     ``render.discrete`` (``sweep.cull``, ``sweep.C``,
     ``sweep.shadow_cull``, ``sweep.H``) and ``render.shade``, under
@@ -33,13 +43,18 @@ The spans the routes record:
     ``grad.recompute`` and ``grad.autograd`` in `_RenderVJP`) holding
     ``scatter.G``, and in `render_rgb_silhouette`'s ``grad.boundary``
     (``boundary.samples``, ``sync.live_samples``, ``boundary.probes``,
-    ``boundary.project``; counters ``boundary_live_samples``,
-    ``boundary_probes``); ``accel.build`` in `build_clusters` and
-    `build_bvh`;
+    ``boundary.project``; counter ``boundary_live_samples``);
+    ``accel.build`` in `build_clusters` and `build_bvh`;
+  * a ray bundle that is not a pinhole frame (`bounce_sweep.trace_rays`,
+    the silhouette term's probes): ``sweep.general_cull``,
+    ``sweep.probes``;
   * ``sync.<site>`` where a route waits for the device, each wait also
     counted under ``host_syncs``: ``sync.beam`` around each call of
     kernel L's C entry, which waits once a batch of rounds and adds its
-    own count of waits.
+    own count of waits; `host_copies` around copies of host values.
+
+Counter ``general_pairs`` adds the (group, cluster) pairs that the
+general cull listed, in a bounce frame and in `trace_rays`.
 
 `Profiler` is the ``ProfileItem`` analog (`TestProgram/Program.h:21-32`,
 `Program.cpp:358-379`; counterpart of `raytracercuda_tpu/utils/
@@ -169,6 +184,19 @@ def host_sync(name: str, n: int = 1):
         return _OFF
     count("host_syncs", n)
     return _On(name)
+
+
+def host_copies(name: str, values, device):
+    """`host_sync` ``name`` around the conversion of ``values`` to
+    ``device``: one wait for each value that is not a tensor already on a
+    device of that type (host data, copied from pageable memory).  No
+    span where nothing is copied."""
+    if not enabled:
+        return _OFF
+    kind = torch.device(device).type
+    n = sum(not (isinstance(v, torch.Tensor) and v.device.type == kind)
+            for v in values)
+    return host_sync(name, n) if n else _OFF
 
 
 def count(name: str, n: int = 1) -> None:

@@ -3,8 +3,8 @@
 the step is bit-equal with program tracing on and off, and with the
 probes in screen order or in the edge table's order; it records
 ``grad.boundary`` under ``grad`` with its four children and counts the
-live samples, the probes and the clusters their groups listed
-(``rays_listed``, fewer in screen order on a triangle soup); and once
+live samples and the clusters the probes' groups listed
+(``general_pairs``, fewer in screen order on a triangle soup); and once
 the first step has filled the caches, a step copies nothing from the
 host: not the edge table held on the device, not the probe offset, the
 light or the background.  The probe offset is held bit for bit against
@@ -240,22 +240,24 @@ def test_the_counters_read_the_live_samples_and_probes(fit, monkeypatch):
     live = int(fit.samples().live.sum())
     assert live > 0
     fit.step()  # the light and background reach their caches
-    listed = []
+    listed, probes = [], []
     sweep = bounce_sweep._closest_rays_plain
 
-    def closest_rays(lists, *args):
+    def closest_rays(lists, o3, d3, active, *args):
         listed.append(lists.ids.numel())
-        return sweep(lists, *args)
+        probes.append(int(active.sum()))
+        return sweep(lists, o3, d3, active, *args)
 
     monkeypatch.setattr(bounce_sweep, "_closest_rays_plain", closest_rays)
     with profiler.tracing():
         fit.step()
     rec = profiler.collect()
     assert rec.counters["boundary_live_samples"] == live
-    assert rec.counters["boundary_probes"] == 2 * live
+    # Two probe rays a live sample.
+    assert probes == [2 * rec.counters["boundary_live_samples"]]
     # Only the probes trace a bundle: the pairs their groups listed.
     assert len(listed) == 1 and listed[0] > 0
-    assert rec.counters["rays_listed"] == listed[0]
+    assert rec.counters["general_pairs"] == listed[0]
     # Each wait is a sync.* span and a count: the live samples' one too.
     waits = [s.name for s in rec.spans if s.name.startswith("sync.")]
     assert waits.count("sync.live_samples") == 1
@@ -269,10 +271,11 @@ def test_screen_order_lists_fewer_clusters_on_a_soup(monkeypatch):
     soup = Soup()
     screen, on = traced_step(soup, monkeypatch)
     edge, off = traced_step(soup, monkeypatch, edge_order)
-    groups = -(-on["boundary_probes"] // 256)
-    assert groups > 8 and on["boundary_probes"] == off["boundary_probes"]
+    probes = 2 * on["boundary_live_samples"]
+    groups = -(-probes // 256)
+    assert groups > 8 and probes == 2 * off["boundary_live_samples"]
     assert on["host_syncs"] == off["host_syncs"]
-    assert on["rays_listed"] < 0.9 * off["rays_listed"]
+    assert on["general_pairs"] < 0.9 * off["general_pairs"]
     assert (screen[2] != 0).any()
     for a, b in zip(screen, edge):
         assert same_bits(a, b)
