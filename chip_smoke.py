@@ -31,6 +31,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
      and beam culls' in both layouts) differing only where a test is
      within rounding of its threshold (`CULL_THRESHOLD_REL`), the lists
      compared, and each kernel timed beside its chain and its bound;
+ 6d. holds the frame's two shading kernels (`csrc/frame.cu`:
+     `shadow_setup_kernel`, `frame_shade_kernel`) against the plain
+     phases of `trace/shade.py` on the bench frame's inputs (n.l, the
+     shadow mask, the origins and the framebuffer bit-equal, one launch
+     of each, the frame bit-equal to the plain phases' route) and times
+     each by CUDA events, with the host hidden and by the profiler,
+     beside its chain and a bytes bound at 3.35 TB/s;
   7. builds the config-4 scene at 1024x1024: a 345,944-triangle bumpy
      sphere (the armadillo stand-in) and, standing in for f16.obj, a
      4,056-triangle textured bumpy sphere with a seeded 256x256 texture;
@@ -1183,6 +1190,106 @@ def cull_path(dev, clock, renderer, eye, orient, rays, c4, c5,
     return [kernel_record(kinds[n][1], src, replaces[n], st["launches"],
                           float(st["differ"]), st["ms"][0], st["plain_ms"][0],
                           st["bound"][0]) for n, st in stats.items()]
+
+
+def shade_path(dev, clock, renderer, eye, orient, rays):
+    """Phase 6d: the CLUSTER frame's shading kernels (`csrc/frame.cu`:
+    `shadow_setup_kernel` in ``frame.shadow_rays``, `frame_shade_kernel`
+    in ``frame.shade``) against the plain phases (`shade._shadow_setup_plain`,
+    `_frame_shade_plain`) on the bench frame's inputs: one launch of each
+    a frame, the frame bit-equal to the plain phases' route, the set-up's
+    n.l, mask and origins and the shade's framebuffer bit-equal; each
+    timed by CUDA events, with the host hidden and by the profiler,
+    beside its chain and a bytes bound (the planes read and written, and
+    four texels of 12 bytes a textured hit).  Returns the two kernels'
+    JSON records."""
+    import torch
+
+    from raytracercuda_torch.trace import shade
+    from raytracercuda_torch.types import FLT_MAX
+
+    names = ("_shadow_setup_cuda", "_frame_shade_cuda")
+    plains = {n: getattr(shade, n.replace("_cuda", "_plain")) for n in names}
+    rec = Recorder(shade, names)
+    try:
+        shade.reset_launch_counts()
+        frame = renderer.render(eye, orient, rays)
+        torch.cuda.synchronize()
+        launches = dict(shade.launch_counts)
+    finally:
+        rec.restore()
+    check(launches == {"shadow_setup": 1, "frame_shade": 1},
+          f"bench frame: shading launches {launches}, want one of each")
+    with PlainOnCard({shade: plains}):
+        plain_frame = renderer.render(eye, orient, rays)
+        torch.cuda.synchronize()
+    check(torch.equal(frame_bits(frame, "bench frame"),
+                      frame_bits(plain_frame, "plain phases' frame")),
+          "bench frame: not bit-equal to the plain phases' route")
+    s_args = rec.calls["_shadow_setup_cuda"][0]
+    f_args = rec.calls["_frame_shade_cuda"][0]
+    got = shade._shadow_setup_cuda(*s_args)
+    want = shade._shadow_setup_plain(*s_args)
+    torch.cuda.synchronize()
+    differ = {name: int((k.view(torch.int32) != p.view(torch.int32)).sum()
+                        if k.dtype == torch.float32 else (k != p).sum())
+              for name, k, p in zip(("n.l", "active", "origins"), got,
+                                    want)}
+    check(not any(differ.values()),
+          f"shadow set-up: values differ from plain: {differ}")
+    k_frame = shade._frame_shade_cuda(*f_args)
+    p_frame = shade._frame_shade_plain(*f_args)
+    torch.cuda.synchronize()
+    px_differ = int((frame_bits(k_frame, "shade kernel")
+                     != frame_bits(p_frame, "plain shade")).sum())
+    check(px_differ == 0, f"frame shade: {px_differ} pixels differ from "
+          f"plain")
+    outs, ndotl, shadow, textures, has_uv = f_args[:5]
+    hit = outs[0] < float(FLT_MAX)
+    textured = shade._textured(textures, has_uv)
+    tex_hits = int((hit & (outs[10].to(torch.int32) >= 0)).sum()) \
+        if textured else 0
+    n = outs[0].numel()
+    print(f"shading kernels match plain on the bench frame: {int(hit.sum())}"
+          f" hits of {n} pixels, {tex_hits} textured, "
+          f"{int(got[1].sum())} shadow rays, {int(shadow.sum())} shadowed; "
+          f"frame bit-equal to the plain phases' route")
+    clock.done("6d (shading kernels vs plain)")
+
+    moved = {"_shadow_setup_cuda": nbytes(outs[0], *outs[4:7], s_args[1],
+                                          *got),
+             "_frame_shade_cuda": nbytes(outs[0], ndotl, shadow,
+                                         *outs[7:10], k_frame)
+             + (nbytes(*outs[10:13]) + tex_hits * 4 * 3 * 4 if textured
+                else 0)}
+    kernels = {"_shadow_setup_cuda": ("shadow_setup", s_args,
+                                      "shadow_setup_kernel"),
+               "_frame_shade_cuda": ("frame_shade", f_args,
+                                     "frame_shade_kernel")}
+    src = "raytracercuda_torch/csrc/frame.cu"
+    replaces = {"_shadow_setup_cuda": "the frame's shadow-ray set-up chain "
+                "(shade.faced_ndotl_planar, shadow_origins_planar; XLA ops "
+                "in JAX, no TPU kernel)",
+                "_frame_shade_cuda": "the frame's shade chain "
+                "(shade.lambert_planar, sample_texture, pack_rgb, "
+                "untile_pixels; XLA ops in JAX, no TPU kernel)"}
+    records = []
+    for name, (key, args, kname) in kernels.items():
+        kernel, plain = getattr(shade, name), plains[name]
+        ms = time_cuda(lambda: kernel(*args), 50)
+        plain_ms = time_cuda(lambda: plain(*args), 20)
+        queued = time_queued(lambda: kernel(*args), 50)
+        dev_ms = device_ms(lambda: kernel(*args), 20, kernels=(kname,))[0]
+        b = bound(0.0, moved[name])
+        print(f"{key}: kernel {ms:.4f} ms (host hidden {ms_text(queued)}, "
+              f"device {ms_text(dev_ms)}), chain {plain_ms:.4f} ms, bound "
+              f"{b[0]:.6f} ms by {b[1]} ({moved[name]} bytes; "
+              f"{share_text(b[0], dev_ms)} of it on the device, "
+              f"{share_text(b[0], queued)} host hidden)")
+        records.append(kernel_record(key, src, replaces[name], 1, 0.0, ms,
+                                     plain_ms, b, device_ms=dev_ms))
+    clock.done("6d (shading kernels timed)")
+    return records
 
 
 def diff_path(dev, clock, card, size=C4_SIZE, armadillo_faces=C4_ARMADILLO,
@@ -5006,6 +5113,7 @@ def main() -> None:
 
     clock.done("6 (frame timing)")
 
+    shade_kernels = shade_path(dev, clock, renderer, eye, orient, rays)
     c4 = config4_scene(dev, C4_ARMADILLO, C4_F16)
     c5 = config5_scene(dev, C5_MESHES)
     cull_kernels = cull_path(dev, clock, renderer, eye, orient, rays, c4, c5)
@@ -5079,7 +5187,7 @@ def main() -> None:
                       **{**c2["brute"],
                          "launches": c2["brute"]["launches"] + app["brute"]}),
         *c5_kernels, *c1_kernels, *bvh_kernels, grid_kernel,
-        *cull_kernels,
+        *cull_kernels, *shade_kernels,
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["primary"]["launches"] += app["primary"]  # the CLI's parity route

@@ -1,6 +1,7 @@
 // Kernels D, I and J of the port: full-frame fills of the packed
-// framebuffer, for Hopper (sm_90a), with a plain C interface loaded through
-// ctypes (`ops/cuda_build.py`).
+// framebuffer, and the CLUSTER frame's two shading kernels, for Hopper
+// (sm_90a), with a plain C interface loaded through ctypes
+// (`ops/cuda_build.py`).
 //
 // D, `clear_kernel`, replaces `_clear_kernel` in
 //   raytracercuda_tpu/ops/clear.py: fill the packed framebuffer with one
@@ -47,6 +48,8 @@
 // the full-precision sinf/cosf on the card: every expression rounds as in
 // the plain PyTorch versions (`ops/gradient.py`, `ops/blob.py`), so
 // `c*ux - s*uy`, `lx*lx + ly*ly` and `bg*(1-f) + f` are not contracted.
+
+#include <cfloat>
 
 #include <cuda_runtime.h>
 
@@ -172,6 +175,153 @@ __global__ void blob_kernel(unsigned int* __restrict__ out, int w, int h,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The CLUSTER frame's shading (`trace/shade.py`: `shadow_setup`,
+// `frame_shade`), one thread a pixel of the [T, R] tiles, in place of the
+// plain chains `_shadow_setup_plain` and `_frame_shade_plain` (~110 PyTorch
+// launches a frame).  Each expression is written in the chains' operation
+// order and rounds as their separate operations do (-fmad=false, IEEE
+// division and sqrtf): the frames are bit-equal.  Both read and write a few
+// planes of 4 bytes a pixel (the shade also four texels of a textured hit),
+// so the bytes bound them; at 512x512 the launch is most of their time.
+
+// torch.clamp(x, min=lo), torch.clamp(x, max=hi): NaN passes through.
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return isnan(x) ? x : fminf(x, hi);
+}
+
+// torch.remainder(x, 1.0): fmod, moved into [0, 1) by the divisor's sign
+// rule (its sum may round up to 1.0).
+__device__ __forceinline__ float wrap_unit(float x) {
+  float m = fmodf(x, 1.0f);
+  if (m != 0.0f && m < 0.0f) m += 1.0f;
+  return m;
+}
+
+// frame.shadow_rays (`shade._shadow_setup_plain`: `faced_ndotl_planar`,
+// the active mask, `shadow_origins_planar`).  Reads A's planes t, nx, ny,
+// nz ([T, R] each) and the planar [T, 3, R] directions; writes the flat
+// n.l and, where `active` is not null, the [T, R] active mask and the
+// planar [T, 3, R] shadow-ray origins.  `eye`, `light` ([3]) and `eps`
+// (one float) are read on the device.
+__global__ void shadow_setup_kernel(
+    const float* __restrict__ t, const float* __restrict__ nx,
+    const float* __restrict__ ny, const float* __restrict__ nz,
+    const float* __restrict__ d3, const float* __restrict__ eye,
+    const float* __restrict__ light, const float* __restrict__ eps, int R,
+    long long n, float* __restrict__ ndotl, bool* __restrict__ active,
+    float* __restrict__ o3) {
+  const float l0 = light[0], l1 = light[1], l2 = light[2];
+  for (long long i = rt::thread_index(); i < n; i += rt::thread_count()) {
+    const long long tile = i / R;
+    const long long r = i - tile * R;
+    const float* d = d3 + tile * 3 * R + r;
+    const float dx = d[0], dy = d[R], dz = d[2 * R];
+    float x = nx[i], y = ny[i], z = nz[i];
+    // normalize(n, eps=1e-30) per component, then face the ray.
+    const float len = sqrtf(clamp_min(x * x + y * y + z * z, 1e-30f));
+    x = x / len;
+    y = y / len;
+    z = z / len;
+    if (x * dx + y * dy + z * dz > 0.0f) {
+      x = -x;
+      y = -y;
+      z = -z;
+    }
+    const float nl = clamp_min(x * l0 + y * l1 + z * l2, 0.0f);
+    ndotl[i] = nl;
+    if (active == nullptr) continue;
+    const float ti = t[i];
+    const bool act = ti < FLT_MAX && nl > 0.0f;
+    active[i] = act;
+    // The hit point at t clamped at 1e6 where active, else the eye, pushed
+    // eps along the light.
+    const float tmin = clamp_max(ti, 1e6f);
+    const float e = eps[0];
+    const float dir[3] = {dx, dy, dz};
+    float* o = o3 + tile * 3 * R + r;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float base = act ? eye[c] + dir[c] * tmin : eye[c];
+      o[c * R] = base + light[c] * e;
+    }
+  }
+}
+
+// One channel of `sample_texture`'s bilinear fetch: rows y0 and y1 of
+// texture `tex` (clamped into the atlas), columns x0 and x1.
+__device__ __forceinline__ float bilinear(const float* __restrict__ texels,
+                                          long long row0, long long row1,
+                                          long long x0, long long x1, int c,
+                                          float ax, float ay) {
+  const float c00 = texels[(row0 + x0) * 3 + c];
+  const float c01 = texels[(row0 + x1) * 3 + c];
+  const float c10 = texels[(row1 + x0) * 3 + c];
+  const float c11 = texels[(row1 + x1) * 3 + c];
+  const float top = c00 * (1.0f - ax) + c01 * ax;
+  const float bot = c10 * (1.0f - ax) + c11 * ax;
+  return top * (1.0f - ay) + bot * ay;
+}
+
+// frame.shade (`shade._frame_shade_plain`: the shadow, `lambert_planar`
+// with `sample_texture`, the background, `pack_rgb`, `untile_pixels`).
+// Reads t, the flat n.l, the [T, R] occlusion (null: no shadows), the
+// albedo planes and, where `tex` is not null, the texture id, u and v
+// planes and the [tex_n, tex_h, tex_w, 3] atlas; writes each pixel's
+// 0x00RRGGBB to its row-major place in `out` [H*W].
+__global__ void frame_shade_kernel(
+    const float* __restrict__ t, const float* __restrict__ ndotl,
+    const bool* __restrict__ shadow, const float* __restrict__ ar,
+    const float* __restrict__ ag, const float* __restrict__ ab,
+    const float* __restrict__ tex, const float* __restrict__ tu,
+    const float* __restrict__ tv, const float* __restrict__ textures,
+    int tex_n, int tex_h, int tex_w, float ambient, float diffuse,
+    float bg_r, float bg_g, float bg_b, int tile_px, int tiles_x, int width,
+    long long n, unsigned int* __restrict__ out) {
+  const long long R = static_cast<long long>(tile_px) * tile_px;
+  for (long long i = rt::thread_index(); i < n; i += rt::thread_count()) {
+    float r = bg_r, g = bg_g, b = bg_b;
+    if (t[i] < FLT_MAX) {
+      const float nl = shadow != nullptr && shadow[i] ? 0.0f : ndotl[i];
+      r = ar[i];
+      g = ag[i];
+      b = ab[i];
+      if (tex != nullptr) {
+        const int id = static_cast<int>(tex[i]);
+        if (id >= 0) {
+          const float fu = wrap_unit(tu[i]) * static_cast<float>(tex_w - 1);
+          const float fv = wrap_unit(tv[i]) * static_cast<float>(tex_h - 1);
+          const long long x0 = static_cast<long long>(floorf(fu));
+          const long long y0 = static_cast<long long>(floorf(fv));
+          const long long x1 = x0 + 1 < tex_w - 1 ? x0 + 1 : tex_w - 1;
+          const long long y1 = y0 + 1 < tex_h - 1 ? y0 + 1 : tex_h - 1;
+          const float ax = fu - static_cast<float>(x0);
+          const float ay = fv - static_cast<float>(y0);
+          const long long tid = id < tex_n - 1 ? id : tex_n - 1;
+          const long long row0 = (tid * tex_h + y0) * tex_w;
+          const long long row1 = (tid * tex_h + y1) * tex_w;
+          r = r * bilinear(textures, row0, row1, x0, x1, 0, ax, ay);
+          g = g * bilinear(textures, row0, row1, x0, x1, 1, ax, ay);
+          b = b * bilinear(textures, row0, row1, x0, x1, 2, ax, ay);
+        }
+      }
+      const float lit = ambient + diffuse * nl;
+      r = r * lit;
+      g = g * lit;
+      b = b * lit;
+    }
+    const long long tile = i / R;
+    const long long p = i - tile * R;
+    const long long row = tile / tiles_x * tile_px + p / tile_px;
+    const long long col = tile % tiles_x * tile_px + p % tile_px;
+    out[row * width + col] = (to_u8(r) << 16) | (to_u8(g) << 8) | to_u8(b);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -218,6 +368,38 @@ int rt_blob(unsigned int* out, int w, int h, const float* time,
   } else {
     blob_kernel<false><<<grid, threads, 0, s>>>(out, w, h, time, time_value);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frame.shadow_rays over n = T*R pixels of R a tile.  `active` and `o3`
+// null: only n.l (a frame without shadows).
+int rt_shadow_setup(const float* t, const float* nx, const float* ny,
+                    const float* nz, const float* d3, const float* eye,
+                    const float* light, const float* eps, int R, long long n,
+                    float* ndotl, bool* active, float* o3, void* stream) {
+  if (n == 0) return 0;
+  shadow_setup_kernel<<<rt::card_grid(n), rt::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      t, nx, ny, nz, d3, eye, light, eps, R, n, ndotl, active, o3);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frame.shade over n = T*R pixels of tile_px^2 a tile, the frame `width`
+// pixels wide (a multiple of tile_px).  `shadow` null: no shadows; `tex`
+// null: untextured (`tu`, `tv`, `textures` unread).
+int rt_frame_shade(const float* t, const float* ndotl, const bool* shadow,
+                   const float* ar, const float* ag, const float* ab,
+                   const float* tex, const float* tu, const float* tv,
+                   const float* textures, int tex_n, int tex_h, int tex_w,
+                   float ambient, float diffuse, float bg_r, float bg_g,
+                   float bg_b, int tile_px, int width, long long n,
+                   unsigned int* out, void* stream) {
+  if (n == 0) return 0;
+  frame_shade_kernel<<<rt::card_grid(n), rt::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      t, ndotl, shadow, ar, ag, ab, tex, tu, tv, textures, tex_n, tex_h,
+      tex_w, ambient, diffuse, bg_r, bg_g, bg_b, tile_px, width / tile_px,
+      width, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,8 +6,8 @@ plain C interface in ``raytracercuda_torch/_build/`` (git-ignored).  The
 library's name carries a hash of the sources, headers and flags, so an
 edited source is rebuilt.  Nothing here runs at import.
 
-`kernel_fn` and `raw_stream` are every wrapper's launch path (A-M and
-the culls): the library's function looked up once, and the current
+`kernel_fn` and `raw_stream` are every wrapper's launch path (A-M, the
+culls and the frame's shading kernels): the library's function looked up once, and the current
 stream's handle without building a `torch.cuda.Stream`.
 """
 
@@ -119,6 +119,10 @@ SIGNATURES = {
     "rt_clear": (_P, _I64, _U32, _P),
     "rt_gradient": (_P, _I64, _P),
     "rt_blob": (_P, _I, _I, _P, _F, _P),
+    "rt_shadow_setup": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _P, _P, _P,
+                        _P),
+    "rt_frame_shade": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                       _F, _F, _F, _F, _I, _I, _I64, _P, _P),
     "rt_walk_closest": (_P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
                         _P),
     "rt_walk_any": (_P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P),

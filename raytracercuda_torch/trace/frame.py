@@ -8,12 +8,12 @@ call:
      ``[T, 3, R]``;
   2. culls each tile's frustum against the cluster boxes and runs kernel A
      (closest hit + interpolated normal, albedo, uv);
-  3. builds shadow origins toward a directional light
-     (`shade.shadow_origins_planar`) and runs kernel B (any hit) over the
-     swept-beam cull;
-  4. shades with Lambert (`shade.faced_ndotl_planar`,
-     `shade.lambert_planar`: textured where the scene has uvs and a
-     texture), packs ``0x00RRGGBB`` and untiles into row-major order.
+  3. faces the normals, builds shadow origins toward a directional light
+     (`shade.shadow_setup`: one kernel on the card) and runs kernel B (any
+     hit) over the swept-beam cull;
+  4. shades with Lambert, textured where the scene has uvs and a texture,
+     and writes ``0x00RRGGBB`` in row-major order (`shade.frame_shade`:
+     one kernel on the card).
 
 Shade blocks are built once per (scene, clusters) pair.  On any other
 structure (BVH, GRID, WAVEFRONT, or none for BRUTE; JAX `_frame_xla`) it
@@ -32,12 +32,12 @@ import torch
 from ..accel.clusters import ClusterSet
 from ..config import RenderConfig
 from ..models.scene import SceneData
-from ..ops.math import normalize, pack_rgb
+from ..ops.math import normalize
 from ..utils.profiler import span
-from .dense import tile_pixels_planar, untile_pixels
+from .dense import tile_pixels_planar
 from .pipeline import occlusion_hit, rotate_rays, shadow_origins, trace_hit
-from .shade import (build_face_tables, faced_ndotl_planar, lambert_planar,
-                    pack_shaded, shade_lambert_rgb, shadow_origins_planar)
+from .shade import (build_face_tables, frame_shade, pack_shaded,
+                    shade_lambert_rgb, shadow_setup)
 from .sweep import (
     occlusion_tiles_planar,
     shade_segment_blocks,
@@ -107,33 +107,18 @@ class FrameRenderer:
         return d3_tiles, outs
 
     def _shadow_shade(self, eye, d3_tiles, outs):
-        tp = self.tile_px
-        t = d3_tiles.shape[0]
         with span("frame.shadow_rays"):
-            hitm, _, _, _, ndotl = faced_ndotl_planar(outs, d3_tiles,
-                                                      self.light)
-            if self.shadows:
-                # Shadow rays only where they can change the pixel:
-                # surfaces facing away from the light shade to ambient
-                # either way.
-                active = (hitm & (ndotl > 0.0)).reshape(t, tp * tp)
-                o3 = shadow_origins_planar(eye, d3_tiles, outs[0], active,
-                                           self.light, self.shadow_eps)
+            ndotl, active, o3 = shadow_setup(outs, d3_tiles, eye, self.light,
+                                             self.shadow_eps, self.shadows)
+        shadow = None
         if self.shadows:
             shadow = occlusion_tiles_planar(
-                self.accel, o3, self.light, active, tile_px=tp,
+                self.accel, o3, self.light, active, tile_px=self.tile_px,
                 trace_cfg=self.config.trace)
         with span("frame.shade"):
-            if self.shadows:
-                ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
-            r, g, b = lambert_planar(outs, ndotl, self.scene.textures,
-                                     self.has_uv, self.ambient)
-            bg = self.background
-            packed = pack_rgb(torch.where(hitm, r, bg[0]),
-                              torch.where(hitm, g, bg[1]),
-                              torch.where(hitm, b, bg[2]))
-            return untile_pixels(packed.reshape(t, tp * tp), self.height,
-                                 self.width, tp)
+            return frame_shade(outs, ndotl, shadow, self.scene.textures,
+                               self.has_uv, self.ambient, self.background,
+                               self.height, self.width, self.tile_px)
 
     def _render_rows(self, eye, orient, rays):
         """The route of every structure other than CLUSTER (JAX

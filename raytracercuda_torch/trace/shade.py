@@ -4,7 +4,13 @@ bit-parity packed normal shader and its float-RGB twin, texture sampling,
 material albedo, Lambert shading (the generic, differentiable route, the
 `FaceTables` route for callers that do not differentiate, and the planar
 route over the cluster kernels' outputs with its shadow origins) and
-packing."""
+packing.
+
+The CLUSTER frame's two shading phases, `shadow_setup` (after kernel A)
+and `frame_shade` (after kernel B), run their plain chains for CPU
+tensors and one kernel each for CUDA tensors (`csrc/frame.cu`:
+`shadow_setup_kernel`, `frame_shade_kernel`), bit-equal to the chains;
+``launch_counts`` counts the kernels' launches."""
 
 from __future__ import annotations
 
@@ -13,13 +19,24 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
+from ..ops.cuda_build import kernel_fn, raw_stream
 from ..ops.interpolate import face_interpolate
 from ..ops.math import as_u32, normalize, pack_rgb
 from ..types import FLT_MAX, Hit
 from ..utils.profiler import host_copies
+from .dense import untile_pixels
+from .sweep import _check_cuda, _pick
 
 #: The miss colour ``255 << 8`` of the packed normal shader.
 MISS_COLOR_PACKED = 255 << 8
+
+#: Launches of the frame's shading kernels, counted where they launch.
+launch_counts = {"shadow_setup": 0, "frame_shade": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def interpolate_slot(scene, hit: Hit, slot: int) -> torch.Tensor:
@@ -185,6 +202,12 @@ def faced_ndotl_planar(outs, d3_tiles: torch.Tensor, light: torch.Tensor):
     return hitm, nx, ny, nz, ndotl
 
 
+def _textured(textures, has_uv: bool) -> bool:
+    """Whether planar outputs with ``has_uv`` shade from the atlas
+    ``textures``."""
+    return has_uv and textures is not None and textures.shape[0] > 0
+
+
 def lambert_planar(outs, ndotl: torch.Tensor, textures, has_uv: bool,
                    ambient: float):
     """Flat ``[N]`` Lambert ``(r, g, b)`` of planar kernel outputs (albedo
@@ -192,7 +215,7 @@ def lambert_planar(outs, ndotl: torch.Tensor, textures, has_uv: bool,
     10-12) lit by ``ndotl`` (shadows already applied), before the
     background."""
     ar, ag, ab = (o.reshape(-1) for o in outs[7:10])
-    if has_uv and textures is not None and textures.shape[0] > 0:
+    if _textured(textures, has_uv):
         tex_id = outs[10].reshape(-1).to(torch.int32)
         tex_rgb = sample_texture(textures, tex_id, outs[11].reshape(-1),
                                  outs[12].reshape(-1))
@@ -220,3 +243,133 @@ def shadow_origins_planar(eye: torch.Tensor, d3_tiles: torch.Tensor,
 def pack_shaded(rgb: torch.Tensor) -> torch.Tensor:
     """Float RGB ``[..., 3]`` -> packed ``0x00RRGGBB`` (uint32)."""
     return pack_rgb(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+
+
+# ---------------------------------------------------------------------------
+# The CLUSTER frame's shading phases: plain chains and kernels.
+
+
+def _shadow_setup_plain(outs, d3_tiles, eye, light, eps, shadows: bool):
+    """`shadow_setup` as PyTorch ops: `faced_ndotl_planar`, the active
+    mask, `shadow_origins_planar`."""
+    hitm, _, _, _, ndotl = faced_ndotl_planar(outs, d3_tiles, light)
+    if not shadows:
+        return ndotl, None, None
+    # Shadow rays only where they can change the pixel: surfaces facing
+    # away from the light shade to ambient either way.
+    active = (hitm & (ndotl > 0.0)).reshape(outs[0].shape)
+    o3 = shadow_origins_planar(eye, d3_tiles, outs[0], active, light, eps)
+    return ndotl, active, o3
+
+
+def _shadow_setup_cuda(outs, d3_tiles, eye, light, eps, shadows: bool):
+    """`shadow_setup` as one launch of `shadow_setup_kernel`."""
+    num_tiles, _, r = d3_tiles.shape
+    dev = d3_tiles.device
+    eye = eye.contiguous()
+    planes = (outs[0], *outs[4:7])
+    for name, x in zip(("t", "nx", "ny", "nz"), planes):
+        _check_cuda(name, x, dev, torch.float32, (num_tiles, r))
+    _check_cuda("d3_tiles", d3_tiles, dev, torch.float32, (num_tiles, 3, r))
+    _check_cuda("eye", eye, dev, torch.float32, (3,))
+    _check_cuda("light", light, dev, torch.float32, (3,))
+    _check_cuda("eps", eps, dev, torch.float32, ())
+    ndotl = torch.empty(num_tiles * r, dtype=torch.float32, device=dev)
+    active = o3 = None
+    if shadows:
+        active = torch.empty((num_tiles, r), dtype=torch.bool, device=dev)
+        o3 = torch.empty((num_tiles, 3, r), dtype=torch.float32, device=dev)
+    err = kernel_fn("rt_shadow_setup")(
+        *(x.data_ptr() for x in planes), d3_tiles.data_ptr(), eye.data_ptr(),
+        light.data_ptr(), eps.data_ptr(), r, num_tiles * r, ndotl.data_ptr(),
+        active.data_ptr() if shadows else None,
+        o3.data_ptr() if shadows else None, raw_stream(dev))
+    if err:
+        raise RuntimeError(f"shadow set-up launch failed: CUDA error {err}")
+    launch_counts["shadow_setup"] += 1
+    return ndotl, active, o3
+
+
+def shadow_setup(outs, d3_tiles: torch.Tensor, eye: torch.Tensor,
+                 light: torch.Tensor, eps: torch.Tensor, shadows: bool):
+    """The shadow rays of a pinhole frame's planar kernel outputs ``outs``
+    (kernel A's: ``t`` at 0, ``nx, ny, nz`` at 4-6, ``[T, R]`` each) over
+    its ``[T, 3, R]`` directions from ``eye``, toward the unit ``light``,
+    pushed ``eps`` (a 0-d tensor) along it.  Returns ``(ndotl, active,
+    o3)``: the flat ``[T*R]`` faced n.l clamped at 0, the ``[T, R]`` bool
+    shadow rays (hits facing the light) and their planar ``[T, 3, R]``
+    origins; the last two None without ``shadows``.  The plain chain for
+    CPU tensors, one kernel launch for CUDA tensors."""
+    run = _pick(d3_tiles, _shadow_setup_plain, _shadow_setup_cuda)
+    return run(outs, d3_tiles, eye, light, eps, shadows)
+
+
+def _frame_shade_plain(outs, ndotl, shadow, textures, has_uv, ambient,
+                       background, height, width, tile_px):
+    """`frame_shade` as PyTorch ops: the shadow, `lambert_planar`, the
+    background, `pack_rgb`, `untile_pixels`."""
+    hitm = outs[0].reshape(-1) < FLT_MAX
+    if shadow is not None:
+        ndotl = torch.where(shadow.reshape(-1), 0.0, ndotl)
+    r, g, b = lambert_planar(outs, ndotl, textures, has_uv, ambient)
+    bg = background
+    packed = pack_rgb(torch.where(hitm, r, bg[0]),
+                      torch.where(hitm, g, bg[1]),
+                      torch.where(hitm, b, bg[2]))
+    return untile_pixels(packed.reshape(outs[0].shape), height, width,
+                         tile_px)
+
+
+def _frame_shade_cuda(outs, ndotl, shadow, textures, has_uv, ambient,
+                      background, height, width, tile_px):
+    """`frame_shade` as one launch of `frame_shade_kernel`."""
+    t = outs[0]
+    num_tiles, r = t.shape
+    dev = t.device
+    if r != tile_px * tile_px or num_tiles * r != height * width \
+            or height % tile_px or width % tile_px:
+        raise ValueError(f"{num_tiles} tiles of {r} pixels are not a "
+                         f"{height}x{width} frame of {tile_px}-pixel tiles")
+    textured = _textured(textures, has_uv)
+    names = ("t", "ar", "ag", "ab") + (("tex", "tu", "tv") if textured
+                                        else ())
+    planes = (t, *outs[7:10]) + (tuple(outs[10:13]) if textured else ())
+    for name, x in zip(names, planes):
+        _check_cuda(name, x, dev, torch.float32, (num_tiles, r))
+    _check_cuda("ndotl", ndotl, dev, torch.float32, (num_tiles * r,))
+    if shadow is not None:
+        _check_cuda("shadow", shadow, dev, torch.bool, (num_tiles, r))
+    tex_shape = (0, 0, 0)
+    if textured:
+        tex_shape = tuple(textures.shape[:3])
+        _check_cuda("textures", textures, dev, torch.float32,
+                    (*tex_shape, 3))
+    out = torch.empty(height * width, dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() for x in planes]
+    err = kernel_fn("rt_frame_shade")(
+        ptrs[0], ndotl.data_ptr(),
+        None if shadow is None else shadow.data_ptr(), *ptrs[1:4],
+        *(ptrs[4:7] if textured else (None, None, None)),
+        textures.data_ptr() if textured else None, *tex_shape,
+        float(ambient), 1.0 - float(ambient), *map(float, background),
+        tile_px, width, num_tiles * r, out.data_ptr(), raw_stream(dev))
+    if err:
+        raise RuntimeError(f"frame shade launch failed: CUDA error {err}")
+    launch_counts["frame_shade"] += 1
+    return as_u32(out)
+
+
+def frame_shade(outs, ndotl: torch.Tensor, shadow: Optional[torch.Tensor],
+                textures, has_uv: bool, ambient: float, background,
+                height: int, width: int, tile_px: int) -> torch.Tensor:
+    """The packed ``0x00RRGGBB`` row-major ``[H*W]`` frame (uint32) of
+    planar kernel outputs ``outs`` (``[T, R]`` tiles of ``tile_px``
+    pixels a side: ``t`` at 0, albedo at 7-9, textured where ``has_uv``
+    and the ``[N, H, W, 3]`` atlas ``textures`` has a texture: id, u, v
+    at 10-12): Lambert lit by ``ndotl`` (`shadow_setup`'s), 0 where the
+    ``[T, R]`` bool ``shadow`` (None: no shadows) is set, the host floats
+    ``ambient`` and ``background`` (r, g, b) on misses.  The plain chain
+    for CPU tensors, one kernel launch for CUDA tensors."""
+    run = _pick(outs[0], _frame_shade_plain, _frame_shade_cuda)
+    return run(outs, ndotl, shadow, textures, has_uv, ambient, background,
+               height, width, tile_px)
